@@ -1,0 +1,498 @@
+"""Smoke run of the PyTorch port on one NVIDIA GPU (H100): builds the CUDA
+kernels from this checkout, holds each against its plain PyTorch version,
+times it, checks the page-freeze solver on the card against the CPU, then
+serves qwen3-0.6B (full width and depth, bf16, seeded random weights)
+through continuous batching with kmeans_ls@16 KV pages and chunked
+prefill, and runs the launcher's replay checks.
+
+    python3 chip_smoke.py
+
+Every phase prints its own line; any failure exits non-zero. The last line
+is ``{"ok": true, "device": {...}}``; the line before it holds the card's
+name and power limit, and the one before that the per-kernel JSON record.
+Imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(HERE, "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12      # HBM3
+F32_FLOPS = 67e12              # f32 outside the tensor cores
+BF16_FLOPS = 989e12            # bf16 tensor cores, f32 accumulation
+# kernel vs plain version: f32 pools at the reference's bar
+# (tests/test_kernels.py); bf16 pools: both compute in f32 and round the
+# output once to bf16, so they differ by at most a bf16 ulp or two
+F32_TOL = dict(atol=2e-5, rtol=1e-4)
+BF16_TOL = dict(atol=1e-5, rtol=2.0 ** -6)
+# fused vs gather engine replays, in f32 on an f32 copy of the weights.
+# fp pool: the two read paths differ only in summation order (~1e-7 per
+# op); bf16 runs of this model showed its 28 layers amplify op-level
+# differences ~100x, and 1e-3 of the logit range leaves 10x above that.
+# kmeans_ls@16 pool: the solver's discrete cluster choices turn those
+# differences in the pages it freezes into quantization-sized ones
+# (0.11-0.18% of the range on the H100); 1% lies between them and what a
+# fused path reading a wrong page's codebook gives (PERF.md).
+REPLAY_REL_TOL = {None: 1e-3, "kmeans_ls@16": 0.01}
+SPIN_CYCLES = 4_000_000        # ~2 ms at the H100's 1.98 GHz boost clock
+
+SHAPES = dict(Hq=16, Hkv=8, Dh=128, bs=16, L=16)   # qwen3-0.6B, block 16
+SERVE_ARGS = ["--engine", "continuous", "--kv-quant", "kmeans_ls@16",
+              "--prefill-chunk", "64", "--num-requests", "8",
+              "--prompt-len", "256", "--gen", "32", "--max-slots", "4",
+              "--block-size", "16", "--max-seq-len", "512",
+              "--request-rate", "8", "--attn-impl", "auto", "--seed", "0"]
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def phase(name: str, msg: str) -> None:
+    print(f"[{name}] {msg}", flush=True)
+
+
+# ------------------------------------------------------------ kernel inputs
+
+
+def make_pool(gen, *, valid, dtype, frozen_frac=0.5, mb=None):
+    """Pools, codes, codebooks and a block table for sequences of the given
+    valid lengths (valid 0 = an idle slot parked on the null page with
+    valid 1). About ``frozen_frac`` of the live pages are frozen."""
+    from repro_torch.kernels import pack4
+
+    Hkv, Dh, bs, L = SHAPES["Hkv"], SHAPES["Dh"], SHAPES["bs"], SHAPES["L"]
+    pages = [-(-max(v, 1) // bs) for v in valid]
+    mb = mb or max(pages)
+    nb = 1 + sum(p for p, v in zip(pages, valid) if v)
+    dev = "cuda"
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    k_fp = rnd(nb, bs, Hkv, Dh).to(dtype)
+    v_fp = rnd(nb, bs, Hkv, Dh).to(dtype)
+    codes = torch.randint(0, L, (2, nb, bs, Hkv, Dh), generator=gen,
+                          device=dev, dtype=torch.uint8)
+    k_codes, v_codes = pack4(codes[0]), pack4(codes[1])
+    k_cb = torch.sort(rnd(nb, L), dim=1).values
+    v_cb = torch.sort(rnd(nb, L), dim=1).values
+    blk_q = torch.rand(nb, generator=gen, device=dev) < frozen_frac
+    blk_q[0] = False
+    table = torch.zeros((len(valid), mb), dtype=torch.int32)
+    nxt = 1
+    for b, (p, v) in enumerate(zip(pages, valid)):
+        if v:
+            table[b, :p] = torch.arange(nxt, nxt + p)
+            nxt += p
+    lens = torch.tensor([max(v, 1) for v in valid], dtype=torch.int32)
+    return dict(k_fp=k_fp, v_fp=v_fp, k_codes=k_codes, v_codes=v_codes,
+                k_cb=k_cb, v_cb=v_cb, blk_q=blk_q,
+                block_table=table.to(dev), kv_valid_len=lens.to(dev))
+
+
+def pool_args(p):
+    return (p["k_fp"], p["v_fp"], p["k_codes"], p["v_codes"], p["k_cb"],
+            p["v_cb"], p["blk_q"], p["block_table"])
+
+
+def kernel(q, p, valid=None, softcap=None):
+    from repro_torch.kernels import paged_decode_attention
+
+    return paged_decode_attention(
+        q, *pool_args(p), p["kv_valid_len"] if valid is None else valid,
+        softcap=softcap, quantized=True, packed=True)
+
+
+def plain(q, p, valid=None, softcap=None):
+    from repro_torch.kernels import ref_paged_decode
+
+    return ref_paged_decode(
+        q, *pool_args(p), p["kv_valid_len"] if valid is None else valid,
+        softcap=softcap, quantized=True, packed=True)
+
+
+def gather_sdpa(q, p):
+    """The library yardstick: the gather read path (dense pages from the
+    fp pool, where installed pages hold their reconstruction) plus
+    torch's scaled_dot_product_attention. Timed only, never used by the
+    port."""
+    import torch.nn.functional as F
+
+    t = p["block_table"].long()
+    B, mb = t.shape
+    bs, Hkv, Dh = p["k_fp"].shape[1:]
+    k = p["k_fp"][t].reshape(B, mb * bs, Hkv, Dh).transpose(1, 2)
+    v = p["v_fp"][t].reshape(B, mb * bs, Hkv, Dh).transpose(1, 2)
+    W = q.shape[1]
+    pos = torch.arange(mb * bs, device=q.device)
+    valid = p["kv_valid_len"][:, None] - (W - 1 - torch.arange(
+        W, device=q.device))[None]
+    mask = pos[None, None] < valid[:, :, None]             # (B, W, S)
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k, v, attn_mask=mask[:, None], enable_gqa=True)
+
+
+def time_ms(fn, *, reps=20, flush=None) -> float:
+    """Median device time of ``fn``: CUDA events around each call, the L2
+    flushed between calls (each layer finds its own pool cold). A spin
+    kernel keeps the card busy while the host enqueues the events and the
+    call, so the host's launch overhead is not counted as device time."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def bound(p, q, out_bytes, keys) -> tuple[float, str]:
+    """Least time for the call: bytes it must move (each live page once,
+    as codes + codebooks when frozen, fp otherwise; q; the output; table
+    and lengths) over HBM bandwidth, vs its operations at the card's peak
+    for their types. QK^T multiplies q by K in the pool's dtype (the bf16
+    tensor-core rate when both are bf16); P@V multiplies f32 probabilities
+    (the f32 rate). The tensor cores and the FMA units can run at once, so
+    the operations take the longer of the two. 2 flops per multiply-add,
+    per query head and live key (``keys`` counts (row, key) pairs)."""
+    bs, Hkv, Dh = p["k_fp"].shape[1:]
+    fp_page = 2 * bs * Hkv * Dh * p["k_fp"].element_size()
+    code_page = 2 * (bs * Hkv * Dh // 2 + p["k_cb"].shape[1] * 4)
+    table = p["block_table"].cpu().numpy()
+    frozen = p["blk_q"].cpu().numpy()
+    total = q.numel() * q.element_size() + out_bytes
+    total += table.nbytes + p["kv_valid_len"].numel() * 4
+    for b, v in enumerate(p["kv_valid_len"].cpu().numpy()):
+        for j in range(-(-int(v) // bs)):
+            page = table[b, j]
+            total += 1 + (code_page if frozen[page] else fp_page)
+    t_bytes = total / HBM_BYTES_PER_S * 1e3
+    flops = 2.0 * SHAPES["Hq"] * Dh * keys            # each of QK^T, P@V
+    bf16 = q.dtype == p["k_fp"].dtype == torch.bfloat16
+    t_ops = max(flops / (BF16_FLOPS if bf16 else F32_FLOPS),
+                flops / F32_FLOPS) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def model_ms(p, valid=None) -> float:
+    """The K/V page reads of one call by the reference's bytes model
+    (``modeled_hbm_bytes_per_token``, fused path) at HBM bandwidth."""
+    from repro_torch.kernels import modeled_hbm_bytes_per_token
+
+    valid = p["kv_valid_len"] if valid is None else valid
+    B = valid.numel()
+    per_seq = modeled_hbm_bytes_per_token(
+        p["block_table"].cpu().numpy(), (valid - 1).cpu().numpy(),
+        p["blk_q"].cpu().numpy(), block_size=SHAPES["bs"],
+        n_kv_heads=SHAPES["Hkv"], head_dim=SHAPES["Dh"],
+        num_values=SHAPES["L"], quantized=True, packed=True, path="fused",
+        fp_bytes=p["k_fp"].element_size())
+    return per_seq * B / HBM_BYTES_PER_S * 1e3
+
+
+def live_keys(valid, W: int) -> int:
+    """(query row, key) pairs the causal mask lets through."""
+    return sum(max(int(v) - (W - 1 - w), 0) for v in valid for w in range(W))
+
+
+# ------------------------------------------------------------ phases
+
+
+def check_kernel(gen) -> dict:
+    """Kernel vs plain version at qwen3-0.6B shapes; bitwise identities;
+    times at the serve path's shapes."""
+    from repro_torch.kernels import paged_prefill_attention
+
+    Hq, Dh = SHAPES["Hq"], SHAPES["Dh"]
+    worst = 0.0
+    # decode, W = 1, B = 8: ragged lengths 1..2048 and an idle slot
+    valid = [2048, 1, 1500, 777, 33, 16, 0, 257]
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        p = make_pool(gen, valid=valid, dtype=dtype)
+        q = torch.randn(len(valid), Hq, Dh, generator=gen,
+                        device="cuda").to(dtype)
+        for softcap in (None, 30.0):
+            got, ref = kernel(q, p, softcap=softcap), plain(q, p,
+                                                             softcap=softcap)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            torch.testing.assert_close(got.float(), ref.float(), **tol)
+            if dtype == torch.float32:
+                worst = max(worst, err)
+            phase("kernel", f"decode B=8 valid 1..2048 {dtype} softcap="
+                  f"{softcap}: max|err| {err:.3g} vs plain (atol "
+                  f"{tol['atol']}, rtol {tol['rtol']:.3g}) OK")
+    # prefill chunk W = C = 64 at q_offset 192, two sequences
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        p = make_pool(gen, valid=[256, 300], dtype=dtype)
+        q = torch.randn(2, 64, Hq, Dh, generator=gen, device="cuda").to(dtype)
+        off = torch.tensor([192, 236], dtype=torch.int32, device="cuda")
+        got = paged_prefill_attention(q, *pool_args(p), off, quantized=True)
+        ref = plain(q, p, valid=off + 64)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        torch.testing.assert_close(got.float(), ref.float(), **tol)
+        if dtype == torch.float32:
+            worst = max(worst, err)
+        phase("kernel", f"prefill chunk C=64 q_offset=(192, 236) {dtype}: "
+              f"max|err| {err:.3g} vs plain OK")
+    # bitwise: chunked prefill == whole prompt; a W-row window == W single
+    # rows
+    for dtype in (torch.float32, torch.bfloat16):
+        p = make_pool(gen, valid=[256], dtype=dtype)
+        q = torch.randn(1, 256, Hq, Dh, generator=gen,
+                        device="cuda").to(dtype)
+        zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+        whole = paged_prefill_attention(q, *pool_args(p), zero,
+                                        quantized=True)
+        chunks = torch.cat([paged_prefill_attention(
+            q[:, o:o + 64], *pool_args(p), zero + o, quantized=True)
+            for o in range(0, 256, 64)], dim=1)
+        if not torch.equal(whole, chunks):
+            raise AssertionError(f"chunked prefill != whole prompt ({dtype})")
+        W = 4
+        pw = make_pool(gen, valid=[700, 90, 5], dtype=dtype)
+        qw = torch.randn(3, W, Hq, Dh, generator=gen, device="cuda").to(dtype)
+        win = kernel(qw, pw)
+        rows = torch.stack([kernel(qw[:, w], pw,
+                                   valid=pw["kv_valid_len"] - (W - 1 - w))
+                            for w in range(W)], dim=1)
+        if not torch.equal(win, rows):
+            raise AssertionError(f"W-row window != W single rows ({dtype})")
+        phase("kernel", f"{dtype}: chunked prefill (4 x 64) == whole 256-"
+              f"token prompt, and a W=4 window == 4 single-row calls: "
+              f"bitwise")
+    # timings at the serve path's shapes: a decode step of 4 slots
+    # mid-generation (272 tokens each), and one 64-token prefill chunk at
+    # offset 192 of a 256-token prompt
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    p = make_pool(gen, valid=[272, 272, 272, 272], dtype=torch.bfloat16)
+    q = torch.randn(4, Hq, Dh, generator=gen, device="cuda").to(torch.bfloat16)
+    ms = time_ms(lambda: kernel(q, p), flush=flush)
+    plain_ms = time_ms(lambda: plain(q, p), flush=flush)
+    lib_ms = time_ms(lambda: gather_sdpa(q[:, None], p), flush=flush)
+    b_ms, b_by = bound(p, q, q.numel() * 2,
+                       live_keys(p["kv_valid_len"].tolist(), 1))
+    pp = make_pool(gen, valid=[256], dtype=torch.bfloat16)
+    qp = torch.randn(1, 64, Hq, Dh, generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    off = torch.tensor([192], dtype=torch.int32, device="cuda")
+    pre = lambda: paged_prefill_attention(qp, *pool_args(pp), off,
+                                          quantized=True)
+    pre_ms = time_ms(pre, flush=flush)
+    pre_plain = time_ms(lambda: plain(qp, pp, valid=off + 64), flush=flush)
+    pre_lib = time_ms(lambda: gather_sdpa(qp, pp), flush=flush)
+    pb_ms, pb_by = bound(pp, qp, qp.numel() * 2, live_keys([256], 64))
+    card = card_line()
+    phase("kernel", f"decode B=4 x 272 tokens bf16: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, gather+sdpa {lib_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}; bytes model {model_ms(p):.4f} ms) on "
+          f"{card}")
+    phase("kernel", f"prefill chunk 64 @ 192 bf16: kernel {pre_ms:.4f} ms, "
+          f"plain {pre_plain:.4f} ms, gather+sdpa {pre_lib:.4f} ms, bound "
+          f"{pb_ms:.5f} ms ({pb_by}; bytes model "
+          f"{model_ms(pp, off + 64):.4f} ms) on {card}")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms, prefill_ms=pre_ms,
+                prefill_plain_ms=pre_plain, prefill_bound_ms=pb_ms,
+                prefill_bound_by=pb_by, prefill_library_ms=pre_lib)
+
+
+def check_freeze(gen) -> None:
+    """quantize_pages_device on the card == on the CPU for the same rows:
+    one flush at the serve path's shape (2 x 28 layers x 4 pages of
+    16 x 8 x 128 values)."""
+    from repro_torch.kernels import quantize_pages_device
+
+    E = SHAPES["bs"] * SHAPES["Hkv"] * SHAPES["Dh"]
+    rows = torch.randn(2 * 28 * 4, E, generator=gen, device="cuda")
+    rows[::3] *= torch.linspace(0.1, 3.0, E, device="cuda")   # skewed rows
+    t0 = time.perf_counter()
+    codes, cb = quantize_pages_device(rows, num_values=16)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    c_cpu, cb_cpu = quantize_pages_device(rows.cpu(), num_values=16)
+    mism = int((codes.cpu() != c_cpu).sum())
+    if mism:
+        raise AssertionError(f"page freeze: {mism} codes differ card vs CPU")
+    torch.testing.assert_close(cb.cpu(), cb_cpu, atol=1e-5, rtol=0)
+    phase("freeze", f"quantize_pages_device {tuple(rows.shape)} on the card "
+          f"== CPU: codes equal, codebooks within 1e-5 "
+          f"({dt * 1e3:.1f} ms on the card incl. first-call setup)")
+
+
+def check_serve() -> dict:
+    """Serve through the port's entry point; the kernel's launches during
+    the served trace must be layers x (decode steps + prefill chunks)."""
+    from repro_torch.kernels import paged_decode_attention
+    from repro_torch.launch import serve
+
+    args = serve.parse_args(SERVE_ARGS)
+    paged_decode_attention.launches = 0
+    s, params, cfg = serve.serve(args)
+    launches = paged_decode_attention.launches
+    expect = cfg.n_layers * (s["decode_steps"] + s["prefill_chunks"])
+    if s["completed"] != 8 or s["freeze_installs"] <= 0:
+        raise AssertionError(f"serve: completed {s['completed']}/8, "
+                             f"{s['freeze_installs']} freeze installs")
+    if s["attn_impl"] != "fused" or launches != expect \
+            or s["paged_attention_launches"] != launches:
+        raise AssertionError(f"serve: {launches} kernel launches, expected "
+                             f"{cfg.n_layers} x ({s['decode_steps']} + "
+                             f"{s['prefill_chunks']}) = {expect}")
+    phase("serve", f"{launches} paged-attention launches = {cfg.n_layers} "
+          f"layers x ({s['decode_steps']} decode steps + "
+          f"{s['prefill_chunks']} prefill chunks); "
+          f"{s['freeze_installs']} freeze installs")
+    serve.verify(params, cfg, args)      # the launcher's replay checks
+    check_fused_vs_gather(params, cfg, args)
+    profile_engine(params, cfg, args)
+    card = card_line()
+    phase("serve", f"TTFT mean {s['ttft_mean_s'] * 1e3:.1f} ms p99 "
+          f"{s['ttft_p99_s'] * 1e3:.1f} ms, TPOT p50 "
+          f"{s['tpot_p50_s'] * 1e3:.2f} ms p99 {s['tpot_p99_s'] * 1e3:.2f} "
+          f"ms, {s['throughput_tok_s']:.1f} gen tok/s on {card}")
+    return dict(launches=launches)
+
+
+def check_fused_vs_gather(params, cfg, args) -> None:
+    """The fused engine and the gather engine on one deterministic batch
+    (synchronous freezing), full width and depth in f32, on an fp pool and
+    on a kmeans_ls@16 pool: same greedy tokens, logits within
+    REPLAY_REL_TOL of the logit range."""
+    from repro_torch.launch import serve
+
+    params, cfg = serve.f32_copy(params, cfg)
+    prompts = serve._replay_prompts(cfg, args)
+    for kv, tol in REPLAY_REL_TOL.items():
+        runs = []
+        for impl in ("fused", "gather"):
+            eng = serve._make_engine(params, cfg, args, kv_quant=kv,
+                                     record_logits=True, freeze_async=False,
+                                     attn_impl=impl)
+            runs.append((eng, eng.generate(prompts,
+                                           max_new_tokens=args.gen)))
+        (fe, fo), (ge, go) = runs
+        r = serve.compare_replays(fe, ge, fo, go)
+        if fo != go or r["rel"] > tol:
+            raise AssertionError(
+                f"fused vs gather (kv={kv or 'fp'}): tokens "
+                f"{r['agree']}/{r['total']}, max|dlogit| {r['dmax']:.4g} "
+                f"rel {r['rel']:.4%} (tolerance {tol:.2%})")
+        phase("serve", f"fused vs gather replay (f32, kv={kv or 'fp'}): "
+              f"greedy tokens {r['agree']}/{r['total']} equal, max|dlogit| "
+              f"{r['dmax']:.4g} rel {r['rel']:.4%} (tolerance {tol:.2%})")
+
+
+def profile_engine(params, cfg, args) -> None:
+    """Where a served batch's time goes: torch.profiler over one
+    generate() of 4 prompts x 256 tokens, 16 new tokens each (after a
+    warm-up run). Prints the device's busy share of the window (union of
+    kernel intervals over the host-timed window) and the kernels that
+    take the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import serve
+
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, 256).tolist() for _ in range(4)]
+
+    def once():
+        eng = serve._make_engine(params, cfg, args, kv_quant=args.kv_quant)
+        eng.generate(prompts, max_new_tokens=16)
+        return eng
+
+    once()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng = once()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            a, b = e.time_range.start, e.time_range.end
+            spans.append((a, b))
+            n, t = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, t + (b - a))
+    if not spans:
+        phase("profile", "not measured: the profiler saw no device events")
+        return
+    spans.sort()
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    steps = eng.counters["decode_steps"] + eng.prefill.counters[
+        "prefill_chunks"]
+    phase("profile", f"{steps} engine steps in {wall_us / 1e3:.1f} ms: device "
+          f"busy {busy / 1e3:.1f} ms ({busy / wall_us:.1%}), idle "
+          f"{1 - busy / wall_us:.1%}; {len(spans)} kernels")
+    for name, (n, t) in top:
+        phase("profile", f"  {t / 1e3:8.2f} ms  {n:6d}x  {name[:90]}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build
+
+    t_start = time.perf_counter()
+    card = card_line()
+    phase("card", f"{card} | torch {torch.__version__} CUDA "
+          f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    build.load("paged_attention")
+    log = build.library_path("paged_attention").with_suffix(".log")
+    ptxas = [ln.strip() for ln in log.read_text().splitlines()
+             if "registers" in ln or "spill" in ln]
+    phase("build", f"paged_attention.cu -> sm_90a in "
+          f"{time.perf_counter() - t0:.1f} s; ptxas: {' | '.join(ptxas)}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    k = check_kernel(gen)
+    check_freeze(gen)
+    sv = check_serve()
+    record = {"kernels": [{
+        "name": "paged_decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:242",
+        "launches": sv["launches"], **k}]}
+    phase("done", f"{time.perf_counter() - t_start:.1f} s")
+    print(json.dumps(record))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,66 @@
+"""Plain PyTorch version of the paged-attention kernel (port of
+``repro/kernels/ref.py:ref_paged_decode``).
+
+Materializes every table page at full width (dequantizing frozen pages),
+then a masked softmax. It is what ``paged_decode_attention`` runs for CPU
+tensors, and what ``chip_smoke.py`` holds the CUDA kernel against.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+BIG_NEG = -2.3819763e38
+
+
+def unpack4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``pack4``: (..., Dc) uint8 -> (..., 2*Dc) int64 codes."""
+    lo = (packed & 0xF).long()
+    hi = (packed >> 4).long()
+    return torch.cat([lo, hi], dim=-1)
+
+
+def ref_paged_decode(q, k_fp, v_fp, k_codes, v_codes, k_cb, v_cb, blk_q,
+                     block_table, kv_valid_len, *, softcap=None,
+                     quantized=False, packed=True):
+    """``q`` is (B, Hq, Dh) for one decode step, or (B, W, Hq, Dh) for a
+    window whose query w sits at position ``kv_valid_len - W + w`` (causal
+    within the window)."""
+    windowed = q.dim() == 4
+    if not windowed:
+        q = q[:, None]
+    B, W, Hq, Dh = q.shape
+    nb, bs, Hkv, _ = k_fp.shape
+    G = Hq // Hkv
+    t = block_table.long()
+    mb = t.shape[1]
+
+    def expand(fp, codes, cb):
+        pages = fp[t]                                  # (B, mb, bs, H, D)
+        if quantized:
+            c = codes[t]
+            c = unpack4(c) if packed else c.long()
+            deq = torch.take_along_dim(
+                cb[t], c.reshape(B, mb, -1), dim=-1).reshape(c.shape)
+            frozen = blk_q.bool()[t][:, :, None, None, None]
+            pages = torch.where(frozen, deq.to(pages.dtype), pages)
+        return pages.reshape(B, mb * bs, Hkv, Dh)
+
+    k_all = expand(k_fp, k_codes, k_cb).float()
+    v_all = expand(v_fp, v_codes, v_cb).float()
+    qr = q.float().reshape(B, W, Hkv, G, Dh)
+    s = torch.einsum("bwhgd,bshd->bwhgs", qr, k_all) / math.sqrt(Dh)
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    pos = torch.arange(mb * bs, device=q.device)[None, None]
+    valid = kv_valid_len.to(device=q.device, dtype=torch.int64)[:, None, None]
+    valid_w = valid - (W - 1 - torch.arange(W, device=q.device)[None, :,
+                                                                  None])
+    mask = (pos < valid_w)[:, :, None, None]           # (B, W, 1, 1, S)
+    s = torch.where(mask, s, torch.tensor(BIG_NEG, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(mask, p, torch.zeros((), device=q.device))
+    out = torch.einsum("bwhgs,bshd->bwhgd", p, v_all)
+    out = out.reshape(B, W, Hq, Dh).to(q.dtype)
+    return out if windowed else out[:, 0]

@@ -1,0 +1,36 @@
+"""Dense gated MLP (port of ``repro/models/ffn.py``).
+
+Projections are plain ``x @ w``; the reference's ``qmatmul`` dispatch to
+the codebook-dequant kernel arrives with quantized weights in slice 2.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def _dense(gen: torch.Generator, d_in: int, d_out: int, dtype,
+           device) -> torch.Tensor:
+    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
+                    device=device)
+    return (w / math.sqrt(d_in)).to(dtype)
+
+
+def init_ffn(cfg, gen: torch.Generator, dtype, device) -> dict:
+    return {
+        "w_gate": _dense(gen, cfg.d_model, cfg.d_ff, dtype, device),
+        "w_up": _dense(gen, cfg.d_model, cfg.d_ff, dtype, device),
+        "w_down": _dense(gen, cfg.d_ff, cfg.d_model, dtype, device),
+    }
+
+
+def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x, approximate="tanh") if kind == "gelu" else F.silu(x)
+
+
+def ffn(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
+    h = _act(x @ params["w_gate"], cfg.act) * (x @ params["w_up"])
+    return h @ params["w_down"]
