@@ -1,9 +1,12 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): builds the CUDA
-kernels from this checkout, holds each against its plain PyTorch version,
-times it, checks the page-freeze solver on the card against the CPU, then
-serves qwen3-0.6B (full width and depth, bf16, seeded random weights)
-through continuous batching with kmeans_ls@16 KV pages and chunked
-prefill, and runs the launcher's replay checks.
+kernels from this checkout (paged attention and the codebook-dequant
+matmul, one nvcc each, in parallel), holds each against its plain PyTorch
+version, times it, checks the page-freeze solver on the card against the
+CPU, then serves qwen3-0.6B (full width and depth, bf16, seeded random
+weights) through continuous batching with kmeans_ls@16 KV pages and
+chunked prefill: once from dense weights, and once, the main path, from
+kmeans_ls@16 PTQ'd weights served as codes, with the launcher's replay
+checks. Last, the stacked qmatmul path over the 28 layers' codes.
 
     python3 chip_smoke.py
 
@@ -45,6 +48,11 @@ BF16_TOL = dict(atol=1e-5, rtol=2.0 ** -6)
 # (0.11-0.18% of the range on the H100); 1% lies between them and what a
 # fused path reading a wrong page's codebook gives (PERF.md).
 REPLAY_REL_TOL = {None: 1e-3, "kmeans_ls@16": 0.01}
+# quant_matmul vs its plain version: f32 at the reference's bar
+# (tests/test_kernels.py:32, 1e-4); bf16 as BF16_TOL (both sum exact
+# products in f32 and round once to bf16)
+QMM_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+           torch.bfloat16: BF16_TOL}
 SPIN_CYCLES = 4_000_000        # ~2 ms at the H100's 1.98 GHz boost clock
 
 SHAPES = dict(Hq=16, Hkv=8, Dh=128, bs=16, L=16)   # qwen3-0.6B, block 16
@@ -53,6 +61,11 @@ SERVE_ARGS = ["--engine", "continuous", "--kv-quant", "kmeans_ls@16",
               "--prompt-len", "256", "--gen", "32", "--max-slots", "4",
               "--block-size", "16", "--max-seq-len", "512",
               "--request-rate", "8", "--attn-impl", "auto", "--seed", "0"]
+QUANT_ARGS = SERVE_ARGS + ["--quantize", "kmeans_ls@16"]
+# the seven projections of a qwen3-0.6B layer as (K, N): q, k, v, o, gate,
+# up, down
+PROJ_SHAPES = [(1024, 2048), (1024, 1024), (1024, 1024), (2048, 1024),
+               (1024, 3072), (1024, 3072), (3072, 1024)]
 
 
 def card_line() -> str:
@@ -318,6 +331,155 @@ def check_kernel(gen) -> dict:
                 prefill_bound_by=pb_by, prefill_library_ms=pre_lib)
 
 
+def qmm_inputs(gen, M, K, N, dtype, *, L=16, G=None,
+               idx_dtype=torch.uint8):
+    """Activations ~N(0, 1), codes uniform over L, an ascending codebook at
+    the scale of a PTQ'd projection."""
+    lead = () if G is None else (G,)
+    x = torch.randn(*lead, M, K, generator=gen, device="cuda").to(dtype)
+    idx = torch.randint(0, L, (*lead, K, N), generator=gen, device="cuda",
+                        dtype=torch.int64).to(idx_dtype)
+    cb = torch.sort(torch.randn(*lead, L, generator=gen, device="cuda"),
+                    dim=-1).values / K ** 0.5
+    return x, idx, cb
+
+
+def qmm_bound(x, idx, cb) -> tuple[float, str]:
+    """Least time for y = x @ cb[idx]: x, codes and codebook read once and
+    the output written once at HBM bandwidth, vs 2*G*M*K*N operations at
+    the card's peak for x's dtype (bf16 tensor cores or f32)."""
+    G = x.shape[0] if x.dim() == 3 else 1
+    M, K = x.shape[-2:]
+    N = idx.shape[-1]
+    nbytes = (x.numel() * x.element_size() + idx.numel() * idx.element_size()
+              + cb.numel() * 4 + G * M * N * x.element_size())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    peak = BF16_FLOPS if x.dtype == torch.bfloat16 else F32_FLOPS
+    t_ops = 2.0 * G * M * K * N / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_qmm(gen) -> dict:
+    """Kernels 2 and 3 (quant_matmul, quant_matmul_stacked) vs their plain
+    versions on the card: the main path's five projection shapes at M = 4
+    (a decode step of 4 slots) and M = 64 (a prefill chunk), ragged
+    (5, 33, 17), int32 codes with L = 1000, stacked G = 4; bf16 and f32.
+    Rows bitwise independent of M. Times at the main path's shapes."""
+    from repro_torch.kernels import (quant_matmul, quant_matmul_stacked,
+                                     ref_quant_matmul,
+                                     ref_quant_matmul_stacked)
+
+    worst = 0.0
+
+    def hold(name, got, ref, dtype):
+        nonlocal worst
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        torch.testing.assert_close(got.float(), ref.float(), **QMM_TOL[dtype])
+        if dtype == torch.float32:
+            worst = max(worst, err)
+        return f"{name}: max|err| {err:.3g}"
+
+    for dtype in (torch.float32, torch.bfloat16):
+        msgs = []
+        for K, N in sorted(set(PROJ_SHAPES)):
+            for M in (4, 64):
+                x, idx, cb = qmm_inputs(gen, M, K, N, dtype)
+                out = quant_matmul(x, idx, cb)
+                msgs.append(hold(f"({M},{K},{N})", out,
+                                 ref_quant_matmul(x, idx, cb), dtype))
+                if M == 64:      # rows bitwise independent of M
+                    for m in (1, 4):
+                        for r0 in (0, 29, 64 - m):
+                            if not torch.equal(
+                                    quant_matmul(x[r0:r0 + m], idx, cb),
+                                    out[r0:r0 + m]):
+                                raise AssertionError(
+                                    f"quant_matmul rows {r0}..{r0 + m} at "
+                                    f"M={m} != the same rows at M=64 "
+                                    f"({K}x{N}, {dtype})")
+        x, idx, cb = qmm_inputs(gen, 5, 33, 17, dtype)
+        msgs.append(hold("ragged (5,33,17)", quant_matmul(x, idx, cb),
+                         ref_quant_matmul(x, idx, cb), dtype))
+        x, idx, cb = qmm_inputs(gen, 16, 1024, 1024, dtype, L=1000,
+                                idx_dtype=torch.int32)
+        msgs.append(hold("int32 codes L=1000 (16,1024,1024)",
+                         quant_matmul(x, idx, cb),
+                         ref_quant_matmul(x, idx, cb), dtype))
+        x, idx, cb = qmm_inputs(gen, 64, 1024, 1024, dtype, G=4)
+        st = quant_matmul_stacked(x, idx, cb)
+        msgs.append(hold("stacked G=4 (64,1024,1024)", st,
+                         ref_quant_matmul_stacked(x, idx, cb), dtype))
+        for g in range(4):
+            if not torch.equal(st[g], quant_matmul(x[g], idx[g], cb[g])):
+                raise AssertionError(f"stacked group {g} != flat ({dtype})")
+        tol = QMM_TOL[dtype]
+        phase("qmm", f"{dtype} vs plain (atol {tol['atol']}, rtol "
+              f"{tol['rtol']:.3g}) OK: " + "; ".join(msgs))
+        phase("qmm", f"{dtype}: rows of M=64 calls == the same rows at M=1 "
+              f"and M=4, bitwise, at all five projection shapes; each "
+              f"stacked group == the flat kernel, bitwise")
+    # the gathered weight is rounded to bf16 before the product (the
+    # reference's w_tile.astype(x.dtype)): with x = diag(v) every output is
+    # one exact f32 product, so the kernel must give v * bf16(W) rounded to
+    # bf16 bit for bit; the f32 codebook value in the product differs in
+    # the last bit of most entries, within the tolerance above
+    for L, idx_dtype in ((16, torch.uint8), (1000, torch.int32)):
+        _, idx, cb = qmm_inputs(gen, 1, 1024, 1024, torch.bfloat16, L=L,
+                                idx_dtype=idx_dtype)
+        v = torch.randn(1024, generator=gen, device="cuda")
+        x = torch.diag(v).to(torch.bfloat16)
+        w = cb[idx.long()]
+        vx = x.float().diagonal()[:, None]
+        want = (vx * w.to(torch.bfloat16).float()).to(torch.bfloat16)
+        miss = (want != (vx * w).to(torch.bfloat16)).float().mean().item()
+        got = quant_matmul(x, idx, cb)
+        bad = (got != want).sum().item()
+        if bad:
+            raise AssertionError(
+                f"quant_matmul bf16 with x = diag(v), L={L}: {bad} outputs "
+                f"!= v * bf16(codebook[idx]) (the gathered weight is not "
+                f"rounded to bf16 before the product)")
+        phase("qmm", f"bf16 x = diag(v) (1024,1024,1024), L={L}: every "
+              f"output == v * bf16(codebook[idx]) bitwise (the unrounded "
+              f"weight differs at {miss:.1%} of them)")
+    # times: the seven projections of one layer, bf16, at a decode step
+    # (M = 4) and a prefill chunk (M = 64)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    card = card_line()
+    per_shape, tot = {}, {}
+    for M in (4, 64):
+        for K, N in sorted(set(PROJ_SHAPES)):
+            x, idx, cb = qmm_inputs(gen, M, K, N, torch.bfloat16)
+            dense = cb[idx.long()].to(x.dtype)
+            r = dict(ms=time_ms(lambda: quant_matmul(x, idx, cb),
+                                flush=flush),
+                     plain_ms=time_ms(lambda: ref_quant_matmul(x, idx, cb),
+                                      flush=flush),
+                     library_ms=time_ms(lambda: torch.matmul(x, dense),
+                                        flush=flush))
+            r["bound_ms"], r["bound_by"] = qmm_bound(x, idx, cb)
+            per_shape[(M, K, N)] = r
+            phase("qmm", f"bf16 ({M},{K},{N}): kernel {r['ms']:.4f} ms, "
+                  f"plain {r['plain_ms']:.4f} ms, torch.matmul on the dense "
+                  f"weight {r['library_ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.5f} ms ({r['bound_by']}) on {card}")
+        tot[M] = {k: sum(per_shape[(M, K, N)][k] for K, N in PROJ_SHAPES)
+                  for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        phase("qmm", f"one layer's seven projections at M={M}, bf16: kernel "
+              f"{tot[M]['ms']:.4f} ms, plain {tot[M]['plain_ms']:.4f} ms, "
+              f"library {tot[M]['library_ms']:.4f} ms, bound "
+              f"{tot[M]['bound_ms']:.5f} ms on {card}")
+    by = {per_shape[(4, K, N)]["bound_by"] for K, N in PROJ_SHAPES}
+    return dict(max_abs_err=worst, **tot[4],
+                bound_by="bytes" if by == {"bytes"} else "operations",
+                prefill_ms=tot[64]["ms"], prefill_plain_ms=tot[64]["plain_ms"],
+                prefill_library_ms=tot[64]["library_ms"],
+                prefill_bound_ms=tot[64]["bound_ms"],
+                shapes=[{"M": M, "K": K, "N": N, **r}
+                        for (M, K, N), r in per_shape.items()])
+
+
 def check_freeze(gen) -> None:
     """quantize_pages_device on the card == on the CPU for the same rows:
     one flush at the serve path's shape (2 x 28 layers x 4 pages of
@@ -341,38 +503,153 @@ def check_freeze(gen) -> None:
           f"({dt * 1e3:.1f} ms on the card incl. first-call setup)")
 
 
-def check_serve() -> dict:
-    """Serve through the port's entry point; the kernel's launches during
-    the served trace must be layers x (decode steps + prefill chunks)."""
-    from repro_torch.kernels import paged_decode_attention
+def serve_once(argv) -> tuple:
+    """Serve SERVE_ARGS-style ``argv`` through the port's entry point with
+    every launch count set to 0 just before; returns (summary, params,
+    cfg, args, launches by kernel) read just after."""
+    from repro_torch.kernels import (paged_decode_attention, quant_matmul,
+                                     quant_matmul_stacked)
     from repro_torch.launch import serve
+    from repro_torch.quant import fallback_count
 
-    args = serve.parse_args(SERVE_ARGS)
-    paged_decode_attention.launches = 0
+    args = serve.parse_args(argv)
+    kernels = (paged_decode_attention, quant_matmul, quant_matmul_stacked)
+    for k in kernels:
+        k.launches = 0
+    fb0 = fallback_count()
     s, params, cfg = serve.serve(args)
-    launches = paged_decode_attention.launches
-    expect = cfg.n_layers * (s["decode_steps"] + s["prefill_chunks"])
+    launches = {k.__name__: k.launches for k in kernels}
+    launches["fallbacks"] = fallback_count() - fb0
+    return s, params, cfg, args, launches
+
+
+def check_launches(s, cfg, launches, quantized: bool) -> str:
+    """Paged attention: layers x (decode steps + prefill chunks); the dequant
+    matmul: 7 projections x that from codes, 0 from dense weights; no
+    stacked launch and no dense fallback on the serving path."""
+    steps = s["decode_steps"] + s["prefill_chunks"]
+    expect = {"paged_decode_attention": cfg.n_layers * steps,
+              "quant_matmul": 7 * cfg.n_layers * steps if quantized else 0,
+              "quant_matmul_stacked": 0, "fallbacks": 0}
     if s["completed"] != 8 or s["freeze_installs"] <= 0:
         raise AssertionError(f"serve: completed {s['completed']}/8, "
                              f"{s['freeze_installs']} freeze installs")
     if s["attn_impl"] != "fused" or launches != expect \
-            or s["paged_attention_launches"] != launches:
-        raise AssertionError(f"serve: {launches} kernel launches, expected "
-                             f"{cfg.n_layers} x ({s['decode_steps']} + "
-                             f"{s['prefill_chunks']}) = {expect}")
-    phase("serve", f"{launches} paged-attention launches = {cfg.n_layers} "
-          f"layers x ({s['decode_steps']} decode steps + "
-          f"{s['prefill_chunks']} prefill chunks); "
-          f"{s['freeze_installs']} freeze installs")
+            or s["paged_attention_launches"] != expect[
+                "paged_decode_attention"] \
+            or s["quant_matmul_launches"] != expect["quant_matmul"] \
+            or s["qmatmul_dequant_fallback"] != 0:
+        raise AssertionError(f"serve: launches {launches} (summary: "
+                             f"{s['paged_attention_launches']} paged, "
+                             f"{s['quant_matmul_launches']} quant_matmul, "
+                             f"{s['qmatmul_dequant_fallback']} fallbacks), "
+                             f"expected {expect}")
+    return (f"{expect['paged_decode_attention']} paged-attention launches = "
+            f"{cfg.n_layers} layers x ({s['decode_steps']} decode steps + "
+            f"{s['prefill_chunks']} prefill chunks); "
+            f"{expect['quant_matmul']} quant_matmul launches"
+            + (" = 7 x that" if quantized else "")
+            + f"; qmatmul_dequant_fallback=0; {s['freeze_installs']} freeze "
+            f"installs")
+
+
+def serve_line(s) -> str:
+    return (f"TTFT mean {s['ttft_mean_s'] * 1e3:.1f} ms p99 "
+            f"{s['ttft_p99_s'] * 1e3:.1f} ms, TPOT p50 "
+            f"{s['tpot_p50_s'] * 1e3:.2f} ms p99 {s['tpot_p99_s'] * 1e3:.2f} "
+            f"ms, {s['throughput_tok_s']:.1f} gen tok/s on {card_line()}")
+
+
+def check_serve_fp() -> None:
+    """Slice 1's path: the same trace from dense bf16 weights (full width
+    and depth); its replays run on the main path below."""
+    s, _, cfg, _, launches = serve_once(SERVE_ARGS)
+    phase("serve-fp", check_launches(s, cfg, launches, quantized=False))
+    phase("serve-fp", serve_line(s))
+
+
+def check_serve() -> dict:
+    """The main path: PTQ every projection to kmeans_ls@16 on the card,
+    serve the trace from the codes, run the launcher's replay checks, the
+    fused-vs-gather replay and the profile."""
+    from repro_torch.launch import serve
+
+    s, params, cfg, args, launches = serve_once(QUANT_ARGS)
+    ptq = s["ptq"]
+    if ptq["tensors"] != 7 * cfg.n_layers:
+        raise AssertionError(f"PTQ quantized {ptq['tensors']} tensors, "
+                             f"expected 7 x {cfg.n_layers}")
+    phase("serve", f"PTQ kmeans_ls@16: {ptq['tensors']} projections in "
+          f"{ptq['time_s']:.1f} s on the card, {ptq['compression']:.2f}x "
+          f"smaller than bf16")
+    phase("serve", check_launches(s, cfg, launches, quantized=True))
     serve.verify(params, cfg, args)      # the launcher's replay checks
     check_fused_vs_gather(params, cfg, args)
     profile_engine(params, cfg, args)
-    card = card_line()
-    phase("serve", f"TTFT mean {s['ttft_mean_s'] * 1e3:.1f} ms p99 "
-          f"{s['ttft_p99_s'] * 1e3:.1f} ms, TPOT p50 "
-          f"{s['tpot_p50_s'] * 1e3:.2f} ms p99 {s['tpot_p99_s'] * 1e3:.2f} "
-          f"ms, {s['throughput_tok_s']:.1f} gen tok/s on {card}")
-    return dict(launches=launches)
+    phase("serve", serve_line(s))
+    return dict(launches=launches, params=params, cfg=cfg)
+
+
+def check_stacked_path(params, cfg, gen) -> dict:
+    """qmatmul's stacked branch over the served model's codes: the 28
+    layers' w_gate stacked (codebooks (28, 16), codes (28, 1024*3072)),
+    one decode step's activations per layer (28, 4, 1024) bf16, then one
+    layer's (4, 1024) with no group axis. One stacked launch each, no
+    dense fallback, each group bitwise the flat kernel on that layer's
+    codes, the first held against the plain version."""
+    from repro_torch.core import stack_quantized
+    from repro_torch.kernels import (quant_matmul, quant_matmul_stacked,
+                                     ref_quant_matmul_stacked)
+    from repro_torch.quant import fallback_count, qmatmul
+
+    ws = [layer["ffn"]["w_gate"] for layer in params["layers"]]
+    st = stack_quantized(ws)
+    G, (K, N) = len(ws), st.shape
+    x = torch.randn(G, 4, K, generator=gen, device="cuda").to(torch.bfloat16)
+    fb0 = fallback_count()
+    quant_matmul_stacked.launches = 0
+    y = qmatmul(x, st)
+    launches = quant_matmul_stacked.launches
+    if launches != 1 or fallback_count() != fb0:
+        raise AssertionError(f"stacked qmatmul: {launches} stacked launches, "
+                             f"{fallback_count() - fb0} fallbacks")
+    idx = st.indices.reshape(G, K, N)
+    # one decode step's x without the group axis: x @ W[g] for every layer,
+    # x copied to each group, again one stacked launch and no fallback
+    yb = qmatmul(x[0], st)
+    if quant_matmul_stacked.launches != 2 or fallback_count() != fb0:
+        raise AssertionError("qmatmul with no group axis: "
+                             f"{quant_matmul_stacked.launches - 1} stacked "
+                             f"launches, {fallback_count() - fb0} fallbacks")
+    for g in range(G):
+        if not torch.equal(yb[g], quant_matmul(x[0], idx[g], st.codebook[g])):
+            raise AssertionError(f"broadcast stacked group {g} != the flat "
+                                 f"kernel")
+    launches = quant_matmul_stacked.launches
+    ref = ref_quant_matmul_stacked(x, idx, st.codebook)
+    torch.cuda.synchronize()
+    err = (y.float() - ref.float()).abs().max().item()
+    torch.testing.assert_close(y.float(), ref.float(), **BF16_TOL)
+    for g in range(G):
+        if not torch.equal(y[g], quant_matmul(x[g], idx[g], st.codebook[g])):
+            raise AssertionError(f"stacked group {g} != the flat kernel")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    dense = torch.take_along_dim(st.codebook, st.indices.long(), dim=1
+                                 ).reshape(G, K, N).to(x.dtype)
+    r = dict(ms=time_ms(lambda: quant_matmul_stacked(x, idx, st.codebook),
+                        flush=flush),
+             plain_ms=time_ms(lambda: ref_quant_matmul_stacked(
+                 x, idx, st.codebook), flush=flush),
+             library_ms=time_ms(lambda: torch.bmm(x, dense), flush=flush))
+    r["bound_ms"], r["bound_by"] = qmm_bound(x, idx, st.codebook)
+    phase("stacked", f"qmatmul over {G} stacked w_gate codes, x ({G},4,{K}) "
+          f"and x (4,{K}) bf16: 1 stacked launch each, 0 fallbacks, max|err| "
+          f"{err:.3g} vs plain (bf16 tolerance), each group == the flat "
+          f"kernel bitwise")
+    phase("stacked", f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms,"
+          f" torch.bmm on the dense weights {r['library_ms']:.4f} ms, bound "
+          f"{r['bound_ms']:.5f} ms ({r['bound_by']}) on {card_line()}")
+    return dict(launches=launches, max_abs_err=err, **r)
 
 
 def check_fused_vs_gather(params, cfg, args) -> None:
@@ -455,6 +732,11 @@ def profile_engine(params, cfg, args) -> None:
           f"{1 - busy / wall_us:.1%}; {len(spans)} kernels")
     for name, (n, t) in top:
         phase("profile", f"  {t / 1e3:8.2f} ms  {n:6d}x  {name[:90]}")
+    for kname in ("paged_attention_kernel", "quant_matmul_kernel"):
+        n = sum(c for k, (c, _) in by_name.items() if kname in k)
+        t = sum(v for k, (_, v) in by_name.items() if kname in k)
+        phase("profile", f"{kname}: {t / 1e3:.2f} ms over {n} launches, "
+              f"{t / busy:.1%} of the device's busy time")
 
 
 def main() -> int:
@@ -470,21 +752,35 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    build.load("paged_attention")
-    log = build.library_path("paged_attention").with_suffix(".log")
-    ptxas = [ln.strip() for ln in log.read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
-    phase("build", f"paged_attention.cu -> sm_90a in "
-          f"{time.perf_counter() - t0:.1f} s; ptxas: {' | '.join(ptxas)}")
+    sources = ("paged_attention", "quant_matmul")
+    build.load_all(sources)              # one nvcc per source, in parallel
+    for name in sources:
+        log = build.library_path(name).with_suffix(".log")
+        ptxas = sorted({ln.strip() for ln in log.read_text().splitlines()
+                        if "registers" in ln or "spill" in ln})
+        phase("build", f"{name}.cu -> sm_90a ({len(sources)} sources in "
+              f"parallel, {time.perf_counter() - t0:.1f} s); ptxas: "
+              f"{' | '.join(ptxas)}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     k = check_kernel(gen)
+    q = check_qmm(gen)
     check_freeze(gen)
+    check_serve_fp()
     sv = check_serve()
-    record = {"kernels": [{
-        "name": "paged_decode_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
-        "replaces": "src/repro/kernels/paged_attention.py:242",
-        "launches": sv["launches"], **k}]}
+    st = check_stacked_path(sv["params"], sv["cfg"], gen)
+    record = {"kernels": [
+        {"name": "paged_decode_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention.py:242",
+         "launches": sv["launches"]["paged_decode_attention"], **k},
+        {"name": "quant_matmul", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
+         "replaces": "src/repro/kernels/quant_matmul.py:50",
+         "launches": sv["launches"]["quant_matmul"], **q},
+        {"name": "quant_matmul_stacked", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
+         "replaces": "src/repro/kernels/quant_matmul.py:105", **st},
+    ]}
     phase("done", f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
     print(card_line())

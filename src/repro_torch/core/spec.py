@@ -1,5 +1,5 @@
-"""QuantSpec for KV-page freezing (port of ``repro/core/spec.py``, the
-part slice 1 needs).
+"""QuantSpec, the one quantizer configuration of PTQ and KV-page freezing
+(port of ``repro/core/spec.py``).
 
 The compact string form round-trips as in the reference::
 
@@ -7,63 +7,24 @@ The compact string form round-trips as in the reference::
     kmeans_ls@16:weighted=true,seed=3,clip=-1.0..1.0
 
 ``QuantSpec.parse(str(spec)) == spec`` holds for every valid spec. The
-reference validates against its full solver registry; the port's table
-(``METHODS``) holds only the methods it can run. Today that is kmeans_ls,
-whose batched device solver (``kernels.page_quant``) freezes KV pages. Any
-other method raises at construction, naming the methods the port has.
+reference validates against its full solver registry; the port's
+(``core.registry``) holds only the methods it can run: kmeans_ls, which
+also freezes KV pages (``kernels.page_quant``), and kmeans. Any other
+method raises at construction, naming the methods the port has.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any
 
-
-@dataclasses.dataclass(frozen=True)
-class Method:
-    """One quantization method the port can run.
-
-    ``param_kind`` is "count" (budget-parameterised, ``method@L``);
-    ``device_batch`` is the batched row solver ``(rows, spec) -> (codes,
-    cb)`` used by KV-page freezing, or None."""
-
-    name: str
-    param_kind: str
-    device_batch: Callable | None = None
-    description: str = ""
-
-
-def _kmeans_ls_pages(rows, spec):
-    from repro_torch.kernels.page_quant import quantize_pages_kmeans_spec
-
-    return quantize_pages_kmeans_spec(rows, spec)
-
-
-METHODS: dict[str, Method] = {
-    "kmeans_ls": Method("kmeans_ls", "count", _kmeans_ls_pages,
-                        "alg. 3 - k-means support + LS values (device "
-                        "backend: exact 1-D k-means DP on a quantile "
-                        "sketch, then an LS refit)"),
-}
-
-
-def device_methods() -> list[str]:
-    """Methods with a batched device solver: the ones that freeze pages."""
-    return sorted(m for m, s in METHODS.items() if s.device_batch is not None)
-
-
-def get_method(name: str) -> Method:
-    try:
-        return METHODS[name]
-    except KeyError:
-        raise ValueError(f"unknown quantization method {name!r}; registered "
-                         f"methods: {', '.join(sorted(METHODS))}") from None
+from . import registry
 
 
 @dataclasses.dataclass(frozen=True)
 class QuantSpec:
     """Frozen, hashable quantizer configuration.
 
-    method      a name in ``METHODS``.
+    method      a name in ``core.registry``.
     num_values  codebook budget (count methods).
     weighted    optimize the multiplicity-weighted loss.
     clip        optional (lo, hi) clamp on the codebook (eq. 21).
@@ -78,7 +39,7 @@ class QuantSpec:
     seed: int = 0
 
     def __post_init__(self) -> None:
-        m = get_method(self.method)
+        m = registry.get(self.method)
         _set = object.__setattr__
         if self.num_values is not None:
             _set(self, "num_values", int(self.num_values))
@@ -99,15 +60,15 @@ class QuantSpec:
 
     @property
     def param_kind(self) -> str:
-        return get_method(self.method).param_kind
+        return registry.get(self.method).param_kind
 
     @property
     def device_capable(self) -> bool:
-        return get_method(self.method).device_batch is not None
+        return registry.get(self.method).device_batch is not None
 
     def device_solve(self, rows):
         """Run this spec's batched device row solver."""
-        return get_method(self.method).device_batch(rows, self)
+        return registry.get(self.method).device_batch(rows, self)
 
     def replace(self, **kw: Any) -> "QuantSpec":
         return dataclasses.replace(self, **kw)
@@ -138,7 +99,7 @@ class QuantSpec:
         method, _, budget = head.partition("@")
         if not method:
             raise ValueError(f"empty method in spec {s!r}")
-        get_method(method)          # an unknown method names the known ones
+        registry.get(method)        # an unknown method names the known ones
         kw: dict[str, Any] = {}
         if budget:
             try:

@@ -48,23 +48,37 @@ def library_path(name: str) -> Path:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel library for ``csrc/<name>.cu``, built if needed; the
-    ``nvcc`` log (ptxas register and spill lines included) is left beside
-    it as ``<library>.log``."""
-    lib = _LIBS.get(name)
-    if lib is None:
+    """The kernel library for ``csrc/<name>.cu``, built if needed."""
+    return load_all([name])[0]
+
+
+def load_all(names) -> list[ctypes.CDLL]:
+    """The kernel libraries for ``csrc/<name>.cu``, one per name. The ones
+    not built yet compile at once, one ``nvcc`` process per source, and
+    each leaves its ``nvcc`` log (ptxas register and spill lines included)
+    beside its library as ``<library>.log``."""
+    jobs = {}
+    for name in names:
         path = library_path(name)
-        if not path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
-            r = subprocess.run(
-                [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                 str(CSRC / f"{name}.cu")],
-                capture_output=True, text=True)
-            path.with_suffix(".log").write_text(r.stdout + r.stderr)
-            if r.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {name} (rc "
-                                   f"{r.returncode}):\n{r.stdout}{r.stderr}")
+        if name in _LIBS or path.exists() or name in jobs:
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
+        jobs[name] = (path, tmp, subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (path, tmp, proc) in jobs.items():
+        log, _ = proc.communicate()
+        path.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name} (rc {proc.returncode}):"
+                          f"\n{log}")
+        else:
             os.replace(tmp, path)
-        lib = _LIBS[name] = ctypes.CDLL(str(path))
-    return lib
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name in names:
+        if name not in _LIBS:
+            _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+    return [_LIBS[name] for name in names]

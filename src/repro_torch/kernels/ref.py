@@ -1,9 +1,13 @@
-"""Plain PyTorch version of the paged-attention kernel (port of
-``repro/kernels/ref.py:ref_paged_decode``).
+"""Plain PyTorch versions of the port's kernels (port of
+``repro/kernels/ref.py``): what each wrapper runs for CPU tensors, and
+what ``chip_smoke.py`` holds the CUDA kernels against.
 
-Materializes every table page at full width (dequantizing frozen pages),
-then a masked softmax. It is what ``paged_decode_attention`` runs for CPU
-tensors, and what ``chip_smoke.py`` holds the CUDA kernel against.
+- ``ref_paged_decode`` materializes every table page at full width
+  (dequantizing frozen pages), then a masked softmax.
+- ``ref_quant_matmul`` / ``ref_quant_matmul_stacked`` materialize
+  ``W = codebook[idx]`` rounded to x's dtype, then multiply in f32 (exact
+  products of bf16 operands, f32 sums: the reference's
+  ``preferred_element_type=f32``) and round once to the output dtype.
 """
 from __future__ import annotations
 
@@ -12,6 +16,21 @@ import math
 import torch
 
 BIG_NEG = -2.3819763e38
+
+
+def ref_quant_matmul(x, idx, codebook, out_dtype=None):
+    """y = x @ codebook[idx]: x (M, K), idx (K, N) codes, codebook (L,)."""
+    w = codebook[idx.long()].to(x.dtype)
+    return (x.float() @ w.float()).to(out_dtype or x.dtype)
+
+
+def ref_quant_matmul_stacked(x, idx, codebook, out_dtype=None):
+    """y[g] = x[g] @ codebook[g][idx[g]]: x (G, M, K), idx (G, K, N),
+    codebook (G, L)."""
+    G = idx.shape[0]
+    w = torch.take_along_dim(codebook, idx.reshape(G, -1).long(), dim=1)
+    w = w.reshape(idx.shape).to(x.dtype)
+    return torch.bmm(x.float(), w.float()).to(out_dtype or x.dtype)
 
 
 def unpack4(packed: torch.Tensor) -> torch.Tensor:

@@ -2,15 +2,23 @@
 engine).
 
 Continuous batching under Poisson arrivals over a paged KV pool whose full
-pages freeze to kmeans_ls codebooks, with chunked prefill:
+pages freeze to kmeans_ls codebooks, with chunked prefill, optionally from
+PTQ'd weights:
 
     python -m repro_torch.launch.serve --engine continuous \\
-        --kv-quant kmeans_ls@16 --prefill-chunk 64
+        --kv-quant kmeans_ls@16 --quantize kmeans_ls@16 --prefill-chunk 64
 
 It runs on the card (``--device cuda``, the default, which fails without
 a GPU); ``--device cpu --reduced`` runs the reduced config on the host.
 Weights are seeded random (``--arch``'s full width and depth unless
 ``--reduced``).
+
+``--quantize SPEC`` post-training quantizes every projection on the
+serving device (embed and lm_head stay dense) and serves the codes
+undequantized through the codebook-dequant kernel; the run fails if any
+quantized matmul fell back to a dense weight
+(``qmatmul_dequant_fallback != 0``). The replays below serve the same
+codes: their f32 copies change only the dense dtype of a quantized leaf.
 
 With ``--kv-quant`` the run replays a deterministic batch through the fp
 engine and the quantized one and fails on a logit deviation above the
@@ -30,6 +38,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import math
+import time
 
 import numpy as np
 import torch
@@ -44,6 +53,12 @@ import torch
 # 1% between that and the readings of planted faults (PERF.md).
 CHUNKED_REL_TOL = {"fp": 1e-4, "quantized": 0.01}
 SERVING_ABS_TOL, SERVING_REL_TOL = 2.5, 0.08
+# the reference launcher's PTQ skip list (embed and lm_head stay dense),
+# with one change: its "mix" (meant for RWKV's token-mix leaves) also
+# matches the "mixer" subtree, which left q/k/v/o dense there; "mix(?!er)"
+# keeps the attention projections quantized (ROADMAP, section C)
+PTQ_SKIP = ("ln", "norm", "router", "A_log", "mix(?!er)", "dt_bias",
+            "D_skip", "w0", "embed", "lm_head")
 
 
 def _make_engine(params, cfg, args, *, kv_quant, record_logits=False,
@@ -62,7 +77,9 @@ def _make_engine(params, cfg, args, *, kv_quant, record_logits=False,
 
 
 def f32_copy(params, cfg):
-    """f32 copies of the weights and the config computing in f32."""
+    """f32 copies of the weights and the config computing in f32. A
+    QuantizedTensor leaf keeps its codes and codebook (``.float()``
+    changes only its dense dtype): the replay serves the same model."""
     def up(t):
         if isinstance(t, dict):
             return {k: up(v) for k, v in t.items()}
@@ -183,9 +200,36 @@ def _verify_chunked(params, cfg, args) -> bool:
     return ok
 
 
+def _ptq_spec(args) -> str:
+    """--quantize value -> spec string (a bare method name combines with
+    --num-values and the weighted objective, as in the reference)."""
+    q = args.quantize
+    if "@" in q or ":" in q:
+        return q
+    return f"{q}@{args.num_values}:weighted=true"
+
+
+def quantize_params(params, args, dev):
+    """PTQ every projection on ``dev``; prints the reference's report line
+    plus the PTQ time. Returns (qparams, {tensors, compression, time_s})."""
+    from repro_torch.quant import compression_ratio, quantize_tree
+
+    spec = _ptq_spec(args)
+    t0 = time.perf_counter()
+    params, report = quantize_tree(params, spec, skip_patterns=PTQ_SKIP)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    info = {"tensors": len(report), "compression": compression_ratio(report),
+            "time_s": time.perf_counter() - t0}
+    print(f"[serve] PTQ {spec}: {info['tensors']} tensors, "
+          f"{info['compression']:.1f}x, serving undequantized via qmatmul "
+          f"({info['time_s']:.1f}s on {dev})")
+    return params, info
+
+
 def serve(args):
-    """Serve a Poisson trace on seeded random weights and print the
-    summary. Returns (summary, params, cfg)."""
+    """Serve a Poisson trace on seeded random weights (PTQ'd with
+    --quantize) and print the summary. Returns (summary, params, cfg)."""
     from repro_torch import models
     from repro_torch.configs import get_config, get_reduced_config
     from repro_torch.device import resolve_device
@@ -195,6 +239,9 @@ def serve(args):
     cfg = (get_reduced_config if args.reduced else get_config)(args.arch)
     params = models.init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    ptq = None
+    if args.quantize:
+        params, ptq = quantize_params(params, args, dev)
     eng = _make_engine(params, cfg, args, kv_quant=args.kv_quant)
     trace = poisson_trace(args.num_requests, args.request_rate,
                           vocab=cfg.vocab, prompt_len=args.prompt_len,
@@ -206,6 +253,8 @@ def serve(args):
           f"x {args.max_seq_len} tokens, block {args.block_size}, "
           f"kv={eng.kv_spec or 'fp'}, attn_impl={eng.attn_impl}")
     s = eng.run(trace)
+    if ptq is not None:
+        s["ptq"] = ptq
     if not s["completed"]:
         raise SystemExit(f"[serve] no requests completed ({s['rejected']} "
                          f"rejected: prompt+gen must fit --max-seq-len "
@@ -234,6 +283,14 @@ def serve(args):
     if args.prefill_chunk:
         print(f"[serve] chunked prefill: {s['prefill_chunks']} chunks of <= "
               f"{args.prefill_chunk} tokens interleaved with decode steps")
+    if args.quantize:
+        fb = s["qmatmul_dequant_fallback"]
+        print(f"[serve] quantized weights: {s['quant_matmul_launches']} "
+              f"quant_matmul launches, qmatmul_dequant_fallback={fb} "
+              f"(every PTQ'd projection must serve from codes)")
+        if fb:
+            raise SystemExit("[serve] PTQ run took a dense dequant fallback "
+                             "in qmatmul")
     if args.kv_quant:
         print(f"[serve] cache bytes: frozen-page compression "
               f"{s['page_compression']:.1f}x per page; measured mean "
@@ -275,6 +332,11 @@ def parse_args(argv=None):
     ap.add_argument("--max-seq-len", type=int, default=256)
     ap.add_argument("--kv-quant", default=None,
                     help="page codebook QuantSpec (kmeans_ls@16)")
+    ap.add_argument("--quantize", default=None,
+                    help="PTQ the projections with this QuantSpec "
+                         "(kmeans_ls@16; a bare method name combines with "
+                         "--num-values)")
+    ap.add_argument("--num-values", type=int, default=16)
     ap.add_argument("--attn-impl", choices=("auto", "fused", "gather"),
                     default="auto",
                     help="read path: the paged-attention kernel vs dense "

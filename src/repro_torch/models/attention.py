@@ -2,6 +2,9 @@
 ``repro/models/attention.py``: ``attention``, ``sdpa``, ``_pos_mask``,
 ``_sdpa_block``; MLA and cross-attention come with their model families).
 
+Projections go through ``quant.serve.qmatmul``: dense weights are a plain
+matmul, PTQ'd QuantizedTensor weights the codebook-dequant kernel.
+
 A KV cache is anything ``cache.as_adapter`` accepts. Adapters that opt in
 take the fused branches: single decode steps through ``fused_decode`` and
 prefill chunks through ``fused_prefill``, which the paged serving cache
@@ -12,6 +15,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from repro_torch.quant.serve import qmatmul
 
 from .cache import as_adapter, supports_fused_decode, supports_fused_prefill
 from .ffn import _dense
@@ -115,9 +120,9 @@ def attention(params, cfg, spec, x, positions, *, cache=None,
     """Self-attention. Returns (out, new_cache)."""
     B, S, _ = x.shape
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ params["wq"]).reshape(B, S, H, Dh)
-    k = (x @ params["wk"]).reshape(B, S, Hkv, Dh)
-    v = (x @ params["wv"]).reshape(B, S, Hkv, Dh)
+    q = qmatmul(x, params["wq"]).reshape(B, S, H, Dh)
+    k = qmatmul(x, params["wk"]).reshape(B, S, Hkv, Dh)
+    v = qmatmul(x, params["wv"]).reshape(B, S, Hkv, Dh)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
@@ -146,5 +151,5 @@ def attention(params, cfg, spec, x, positions, *, cache=None,
     else:
         out = sdpa(q, k, v, causal=causal, window=spec.window,
                    softcap=cfg.attn_softcap, q_chunk=cfg.attn_q_chunk)
-    y = out.reshape(B, S, H * Dh) @ params["wo"]
+    y = qmatmul(out.reshape(B, S, H * Dh), params["wo"])
     return y, new_cache

@@ -5,11 +5,19 @@
 axis into the port's per-layer list, so both packages compute the same
 function. The paged-cache converter lives beside the cache
 (``serving.kv_cache.paged_layer_from_reference``).
+
+A PTQ'd reference tree carries QuantizedTensor leaves (numpy codebook and
+indices under ``jax.tree.map``). They cross as the port's QuantizedTensor,
+codes unchanged; a stacked leaf (codebook (G, L), indices (G, n)) becomes
+layer g's flat ``QuantizedTensor(codebook[g], indices[g])``, its padded
+codebook entries kept (no code references them).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.core.types import QuantizedTensor
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
@@ -23,9 +31,19 @@ def _t(a, device, dtype=None) -> torch.Tensor:
     return t.to(device)
 
 
+def _torch_dtype(dtype) -> torch.dtype:
+    return getattr(torch, np.dtype(dtype).name)
+
+
 def _tree(tree, device, index=None):
     if isinstance(tree, dict):
         return {k: _tree(v, device, index) for k, v in tree.items()}
+    if hasattr(tree, "codebook") and hasattr(tree, "indices"):
+        cb, idx = np.asarray(tree.codebook), np.asarray(tree.indices)
+        if idx.ndim == 2:                     # stacked: one group's slice
+            cb, idx = cb[index], idx[index]
+        return QuantizedTensor(_t(cb, device), _t(idx, device),
+                               tuple(tree.shape), _torch_dtype(tree.dtype))
     a = np.asarray(tree)
     return _t(a if index is None else a[index], device)
 

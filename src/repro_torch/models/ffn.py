@@ -1,7 +1,7 @@
 """Dense gated MLP (port of ``repro/models/ffn.py``).
 
-Projections are plain ``x @ w``; the reference's ``qmatmul`` dispatch to
-the codebook-dequant kernel arrives with quantized weights in slice 2.
+Projections go through ``quant.serve.qmatmul``: dense weights are a plain
+matmul, PTQ'd QuantizedTensor weights the codebook-dequant kernel.
 """
 from __future__ import annotations
 
@@ -9,6 +9,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.quant.serve import qmatmul
 
 
 def _dense(gen: torch.Generator, d_in: int, d_out: int, dtype,
@@ -32,5 +34,6 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 def ffn(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
-    h = _act(x @ params["w_gate"], cfg.act) * (x @ params["w_up"])
-    return h @ params["w_down"]
+    h = _act(qmatmul(x, params["w_gate"]), cfg.act) * qmatmul(
+        x, params["w_up"])
+    return qmatmul(h, params["w_down"])

@@ -12,6 +12,12 @@ validated at construction. ``prefill_chunk=C`` splits every admitted
 prompt into C-token chunks and advances one chunk per engine iteration,
 interleaved with decode steps for the live batch.
 
+Each run's summary reports ``paged_attention_launches`` and
+``quant_matmul_launches``, the two kernels' launches during the run, and
+``qmatmul_dequant_fallback``, the dense-materialization fallbacks of
+quantized projections (0 certifies that every PTQ'd matmul served from
+codes).
+
 The engine runs on the card by default (``device="cuda"``, which raises
 without a GPU); ``device="cpu"`` runs it on the host.
 """
@@ -23,8 +29,9 @@ from collections import deque
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels import paged_decode_attention
+from repro_torch.kernels import paged_decode_attention, quant_matmul
 from repro_torch.obs.trace import NULL_TRACER
+from repro_torch.quant.serve import fallback_count
 
 from .kv_cache import resolve_kv_spec
 from .metrics import MetricsCollector
@@ -98,10 +105,11 @@ class ContinuousBatchingEngine:
     def run(self, requests: list[Request], *, poll_s: float = 0.002) -> dict:
         """Serve a trace (arrival_time = seconds from start). Wall-clock
         driven: a request becomes visible when the loop's clock passes its
-        arrival; the loop sleeps only when idle. The summary carries
-        ``paged_attention_launches``: kernel launches during this run."""
+        arrival; the loop sleeps only when idle. The summary carries this
+        run's kernel launches and dequant fallbacks."""
         w = self.worker
         launches0 = paged_decode_attention.launches
+        qmm0, fallbacks0 = quant_matmul.launches, fallback_count()
         pending = deque(sorted(requests, key=lambda r: (r.arrival_time, r.id)))
         t0 = time.perf_counter()
         now_fn = lambda: time.perf_counter() - t0
@@ -142,6 +150,10 @@ class ContinuousBatchingEngine:
         out["prefill_chunks"] = self.prefill.counters["prefill_chunks"]
         out["paged_attention_launches"] = (paged_decode_attention.launches
                                            - launches0)
+        out["quant_matmul_launches"] = quant_matmul.launches - qmm0
+        fallbacks = fallback_count() - fallbacks0
+        out["qmatmul_dequant_fallback"] = fallbacks
+        self.metrics.stats.counter("qmatmul_dequant_fallback").inc(fallbacks)
         if out.get("seq_decode_steps"):
             out["tokens_per_step"] = ((out.get("gen_tokens", 0)
                                        - out.get("completed", 0))

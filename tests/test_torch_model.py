@@ -1,6 +1,7 @@
 """LM forward, prefill and decode: the port against ``repro.models`` on the
 reference's own parameters (converted by ``params_from_reference``), on
-the reduced qwen3 config (4 layers, d_model 64, Hkv 2, Dh 32, f32).
+the reduced qwen3 config (4 layers, d_model 64, Hkv 2, Dh 32, f32), with
+dense weights and with the reference's kmeans_ls@16 PTQ'd weights.
 
 Tolerance: atol 1e-4 / rtol 1e-4 on f32 logits of magnitude ~10. Both
 packages run the same f32 math; matmuls and reductions sum in different
@@ -14,10 +15,14 @@ import torch
 
 from repro import models as jmodels
 from repro.configs import get_reduced_config as jax_reduced_config
+from repro.quant.ptq import quantize_tree as jax_quantize_tree
 from repro.serving.kv_cache import init_paged_cache as jax_init_paged_cache
 from repro.serving.kv_cache import with_tables as jax_with_tables
 from repro_torch import models
 from repro_torch.configs import get_reduced_config
+from repro_torch.core import QuantizedTensor
+from repro_torch.launch.serve import PTQ_SKIP
+from repro_torch.quant import fallback_count
 from repro_torch.serving.kv_cache import init_paged_cache, with_tables
 
 # tiny tensors: one intra-op thread (more make these shapes far slower)
@@ -124,3 +129,28 @@ def test_prefill_then_decode_over_dense_ring_cache_matches_reference(
         np.testing.assert_allclose(plog.numpy(), np.asarray(jlog),
                                    atol=ATOL, rtol=RTOL)
         toks = np.asarray(jlog[:, -1]).argmax(-1)[:, None]
+
+
+def test_lm_forward_on_quantized_weights_matches_reference(reduced):
+    """The reference's PTQ'd tree (kmeans_ls@16 on all seven projections of
+    every layer) carried across: the port serves the same codes through
+    qmatmul and gives the reference's logits (which run its quant_matmul
+    kernel in interpret mode)."""
+    jcfg, jparams, cfg, _ = reduced
+    jq, _ = jax_quantize_tree(jparams, "kmeans_ls@16",
+                              skip_patterns=PTQ_SKIP)
+    params = models.params_from_reference(jax.tree.map(np.asarray, jq), cfg,
+                                          "cpu")
+    wq = params["layers"][2]["mixer"]["wq"]
+    assert isinstance(wq, QuantizedTensor) and not wq.stacked
+    np.testing.assert_array_equal(
+        wq.indices.numpy(), np.asarray(jq["groups"]["l0"]["mixer"]["wq"]
+                                       .indices[2]))
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 11))
+    ref = jmodels.forward(jq, jcfg, {"tokens": jnp.asarray(toks)},
+                          train=False)
+    n0 = fallback_count()
+    got = models.forward(params, cfg, {"tokens": torch.from_numpy(toks)})
+    assert fallback_count() == n0
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL,
+                               rtol=RTOL)

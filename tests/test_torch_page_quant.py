@@ -55,18 +55,18 @@ def test_prefix_sum_order_is_the_reference_cpu_order(N):
 
 
 def test_spec_strings_match_reference():
-    """kmeans_ls specs parse and print as in the reference; any other
-    method raises, naming the methods the port has."""
+    """kmeans_ls and kmeans specs parse and print as in the reference; any
+    other method raises, naming the methods the port has."""
     from repro.core import QuantSpec as JaxSpec
     from repro_torch.core import as_spec
 
     for text in ("kmeans_ls@16", "kmeans_ls@8:weighted=true,seed=3",
-                 "kmeans_ls@16:clip=-1.0..1.0"):
+                 "kmeans_ls@16:clip=-1.0..1.0", "kmeans@16"):
         ours = QuantSpec.parse(text)
         assert str(ours) == str(JaxSpec.parse(text)) and str(ours) == text
         assert QuantSpec.parse(str(ours)) == ours == as_spec(ours)
     assert as_spec("kmeans_ls@16", num_values=8).num_values == 8
-    for bad in ("l1_ls:lam=0.02", "kmeans@16", "kmeans_ls"):
+    for bad in ("l1_ls:lam=0.02", "l0@16", "kmeans_ls"):
         with pytest.raises(ValueError, match="kmeans_ls"):
             QuantSpec.parse(bad)
 

@@ -1,6 +1,7 @@
 """Serving: the port's allocator, scheduler, spec resolution and
 continuous-batching engine, held against the JAX package's engine on the
-reduced qwen3 config (f32) with kmeans_ls@16 KV pages and chunked prefill.
+reduced qwen3 config (f32) with kmeans_ls@16 KV pages and chunked prefill,
+with dense weights and with the reference's kmeans_ls@16 PTQ'd weights.
 
 Tolerances: request logits within atol 1e-3 of the reference engine's
 (the reference's own fused-vs-gather engine bar, tests/test_serving.py);
@@ -21,11 +22,15 @@ import torch
 
 from repro import models as jmodels
 from repro.configs import get_reduced_config as jax_reduced_config
+from repro.quant.ptq import quantize_tree as jax_quantize_tree
 from repro.serving import ContinuousBatchingEngine as JaxEngine
 from repro.serving.scheduler import poisson_trace as jax_poisson_trace
 from repro_torch import models
 from repro_torch.configs import get_reduced_config
 from repro_torch.core import QuantSpec
+from repro_torch.kernels import quant_matmul
+from repro_torch.launch.serve import PTQ_SKIP
+from repro_torch.quant import fallback_count
 from repro_torch.serving import (BlockAllocator, ContinuousBatchingEngine,
                                  ContinuousBatchingScheduler, DoubleFree,
                                  PoolExhausted, Request, poisson_trace,
@@ -207,6 +212,40 @@ def test_engine_matches_reference_engine(reduced, jax_run, attn_impl):
                                    atol=1e-3, rtol=0)
 
 
+@pytest.fixture(scope="module")
+def quantized(reduced):
+    """The reference's PTQ'd tree (kmeans_ls@16, the launcher's skip list:
+    all seven projections of every layer), the port's conversion of it,
+    and one live reference engine run on it."""
+    jcfg, jparams, cfg, _ = reduced
+    jq, _ = jax_quantize_tree(jparams, "kmeans_ls@16",
+                              skip_patterns=PTQ_SKIP)
+    params = models.params_from_reference(jax.tree.map(np.asarray, jq), cfg,
+                                          "cpu")
+    eng = JaxEngine(jq, jcfg, attn_impl="gather", prefill_chunk=7,
+                    **_engine_kw())
+    out = eng.generate(_prompts(cfg), max_new_tokens=GEN)
+    return params, out, eng.request_logits
+
+
+@pytest.mark.parametrize("attn_impl", ["fused", "gather"])
+def test_engine_on_quantized_weights_matches_reference_engine(
+        reduced, quantized, attn_impl):
+    """Both packages serve the same codes: same greedy tokens, request
+    logits within 1e-3, no dense fallback."""
+    _, _, cfg, _ = reduced
+    params, ref_out, ref_logits = quantized
+    eng = ContinuousBatchingEngine(params, cfg, device="cpu",
+                                   attn_impl=attn_impl, prefill_chunk=7,
+                                   **_engine_kw())
+    n0 = fallback_count()
+    out = eng.generate(_prompts(cfg), max_new_tokens=GEN)
+    assert out == ref_out and fallback_count() == n0
+    for i in range(len(PROMPT_LENS)):
+        np.testing.assert_allclose(eng.request_logits[i], ref_logits[i],
+                                   atol=1e-3, rtol=0)
+
+
 def test_chunked_prefill_matches_whole_prompt(reduced):
     """Inside the port: prompts prefilled in chunks of 5 through the fused
     path == whole-prompt prefill (same tokens, logits within 1e-4)."""
@@ -226,21 +265,27 @@ def test_chunked_prefill_matches_whole_prompt(reduced):
 
 
 def test_port_runs_without_jax():
-    """Import the whole port with jax blocked and serve one reduced
-    request: the port needs no JAX."""
+    """Import the whole port with jax blocked, PTQ the reduced model and
+    serve one request from its codes: the port needs no JAX."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
         import torch
-        import repro_torch.launch.serve, repro_torch.serving
+        import repro_torch.launch.serve, repro_torch.quant
+        import repro_torch.serving
         from repro_torch import models
         from repro_torch.configs import get_reduced_config
+        from repro_torch.launch.serve import PTQ_SKIP
+        from repro_torch.quant import quantize_tree
         from repro_torch.serving import ContinuousBatchingEngine
         assert not any(m == "repro" or m.startswith(("repro.", "jax"))
                        for m in sys.modules if sys.modules[m] is not None)
         cfg = get_reduced_config("qwen3_0_6b")
         params = models.init_params(cfg, torch.Generator().manual_seed(0),
                                     "cpu")
+        params, report = quantize_tree(params, "kmeans_ls@16",
+                                       skip_patterns=PTQ_SKIP)
+        assert len(report) == 7 * cfg.n_layers
         eng = ContinuousBatchingEngine(params, cfg, device="cpu",
                                        max_slots=1, block_size=8,
                                        max_seq_len=32, kv_quant="kmeans_ls@16",
@@ -272,5 +317,28 @@ def test_launcher_serves_and_passes_both_replay_checks(capsys):
     assert s["completed"] == 3 and s["freeze_installs"] > 0
     assert "serving check (kmeans_ls@16)" in out
     assert out.count("chunked-prefill check") == 2
+    assert out.count("greedy tokens equal") == 2
+    assert out.count("-> OK") == 3, out
+
+
+def test_launcher_serves_quantized_weights_and_passes_replays(capsys):
+    """The CI serve gate's configuration on the CPU: --quantize
+    kmeans_ls@16 PTQs all seven projections of every layer, the trace is
+    served from their codes with no dense fallback, and the replays (which
+    serve the same codes, in f32 for the chunked one) pass."""
+    from repro_torch.launch import serve
+
+    q0 = quant_matmul.launches
+    s = serve.main(["--reduced", "--device", "cpu", "--quantize",
+                    "kmeans_ls@16", "--kv-quant", "kmeans_ls@16",
+                    "--prefill-chunk", "7", "--num-requests", "3",
+                    "--request-rate", "8"])
+    out = capsys.readouterr().out
+    assert s["completed"] == 3 and s["qmatmul_dequant_fallback"] == 0
+    assert s["ptq"]["tensors"] == 28 and s["ptq"]["compression"] > 7
+    # the CPU takes the plain version: no kernel launches
+    assert s["quant_matmul_launches"] == 0 and quant_matmul.launches == q0
+    assert "PTQ kmeans_ls@16: 28 tensors" in out
+    assert "qmatmul_dequant_fallback=0" in out
     assert out.count("greedy tokens equal") == 2
     assert out.count("-> OK") == 3, out
