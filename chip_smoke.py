@@ -1,12 +1,16 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): builds the CUDA
-kernels from this checkout (paged attention and the codebook-dequant
-matmul, one nvcc each, in parallel), holds each against its plain PyTorch
-version, times it, checks the page-freeze solver on the card against the
-CPU, then serves qwen3-0.6B (full width and depth, bf16, seeded random
-weights) through continuous batching with kmeans_ls@16 KV pages and
-chunked prefill: once from dense weights, and once, the main path, from
-kmeans_ls@16 PTQ'd weights served as codes, with the launcher's replay
-checks. Last, the stacked qmatmul path over the 28 layers' codes.
+kernels from this checkout (paged attention, the codebook-dequant matmul
+and batched FISTA, one nvcc each, in parallel), holds each against its
+plain PyTorch version, times it, checks the page-freeze solver on the card
+against the CPU, then serves qwen3-0.6B (full width and depth, bf16,
+seeded random weights) through continuous batching with chunked prefill:
+with kmeans_ls@16 KV pages once from dense weights, and once, the main
+path, from kmeans_ls@16 PTQ'd weights served as codes, with the launcher's
+replay checks; then the stacked qmatmul path over the 28 layers' codes;
+then the same PTQ'd weights with iter_l1@16 KV pages (every freeze a
+14-step lambda bisection through the FISTA kernel), with the replay
+checks; last, a batched l1_ls PTQ of the whole model in one FISTA launch,
+served for a few requests.
 
     python3 chip_smoke.py
 
@@ -47,7 +51,12 @@ BF16_TOL = dict(atol=1e-5, rtol=2.0 ** -6)
 # differences in the pages it freezes into quantization-sized ones
 # (0.11-0.18% of the range on the H100); 1% lies between them and what a
 # fused path reading a wrong page's codebook gives (PERF.md).
-REPLAY_REL_TOL = {None: 1e-3, "kmeans_ls@16": 0.01}
+# iter_l1@16 pool: the lambda bisection turns those differences into
+# whole-codebook changes of a page row where the DP flips a few codes:
+# 1.13-1.22% of the range on prompt seeds 0-2, 13.7% with the next page's
+# K codebook planted in the fused kernel (tools/replay_readings.py on the
+# H100, PERF.md); 4% lies between them.
+REPLAY_REL_TOL = {None: 1e-3, "kmeans_ls@16": 0.01, "iter_l1@16": 0.04}
 # quant_matmul vs its plain version: f32 at the reference's bar
 # (tests/test_kernels.py:32, 1e-4); bf16 as BF16_TOL (both sum exact
 # products in f32 and round once to bf16)
@@ -62,6 +71,25 @@ SERVE_ARGS = ["--engine", "continuous", "--kv-quant", "kmeans_ls@16",
               "--block-size", "16", "--max-seq-len", "512",
               "--request-rate", "8", "--attn-impl", "auto", "--seed", "0"]
 QUANT_ARGS = SERVE_ARGS + ["--quantize", "kmeans_ls@16"]
+# argparse keeps a flag's last value
+ITER_ARGS = QUANT_ARGS + ["--kv-quant", "iter_l1@16"]
+# batched l1_ls PTQ of the whole model: lambda for the weighted objective
+# (counts of up to 88M weights a group) that leaves every group <= 256
+# values (uint8 codes); the short serve from its codes
+PTQ_LAM = 20.0
+PTQ_SPEC = f"l1_ls:lam={PTQ_LAM},weighted=true"
+PTQB_ARGS = SERVE_ARGS + ["--num-requests", "4", "--gen", "16",
+                          "--quantize", PTQ_SPEC]
+# FISTA kernel vs plain version: the reference's bar (tests/test_kernels.py
+# :67). On the preconditioned PTQ problems f32 FISTA after 1000 steps
+# depends on summation order beyond that bar (two f32 plain versions
+# already do on the CPU: tests/test_torch_fista.py), so there the kernel
+# is held to the plain version's eq.-6 objective and to its distance from
+# a float64 run, at the bounds that test holds the two plain versions to
+FISTA_TOL = dict(atol=2e-4, rtol=1e-3)
+FISTA_OBJ_RTOL = 1e-3
+FISTA_F64_RATIO = 3.0
+FISTA_OPS_PER_COL = 18         # f32 operations per column and step
 # the seven projections of a qwen3-0.6B layer as (K, N): q, k, v, o, gate,
 # up, down
 PROJ_SHAPES = [(1024, 2048), (1024, 1024), (1024, 1024), (2048, 1024),
@@ -503,37 +531,48 @@ def check_freeze(gen) -> None:
           f"({dt * 1e3:.1f} ms on the card incl. first-call setup)")
 
 
-def serve_once(argv) -> tuple:
-    """Serve SERVE_ARGS-style ``argv`` through the port's entry point with
-    every launch count set to 0 just before; returns (summary, params,
-    cfg, args, launches by kernel) read just after."""
-    from repro_torch.kernels import (paged_decode_attention, quant_matmul,
-                                     quant_matmul_stacked)
+def serve_once(argv, params=None) -> tuple:
+    """Serve SERVE_ARGS-style ``argv`` through the port's entry point
+    (from ``params`` if given) with every launch count set to 0 just
+    before; returns (summary, params, cfg, args, launches by kernel) read
+    just after."""
+    from repro_torch.kernels import (fista_quant, paged_decode_attention,
+                                     quant_matmul, quant_matmul_stacked)
     from repro_torch.launch import serve
     from repro_torch.quant import fallback_count
 
     args = serve.parse_args(argv)
-    kernels = (paged_decode_attention, quant_matmul, quant_matmul_stacked)
+    kernels = (paged_decode_attention, quant_matmul, quant_matmul_stacked,
+               fista_quant)
     for k in kernels:
         k.launches = 0
     fb0 = fallback_count()
-    s, params, cfg = serve.serve(args)
+    s, params, cfg = serve.serve(args, params)
     launches = {k.__name__: k.launches for k in kernels}
     launches["fallbacks"] = fallback_count() - fb0
     return s, params, cfg, args, launches
 
 
-def check_launches(s, cfg, launches, quantized: bool) -> str:
+def check_launches(s, cfg, launches, quantized: bool, *, fista: bool = False,
+                   requests: int = 8) -> str:
     """Paged attention: layers x (decode steps + prefill chunks); the dequant
-    matmul: 7 projections x that from codes, 0 from dense weights; no
-    stacked launch and no dense fallback on the serving path."""
+    matmul: 7 projections x that from codes, 0 from dense weights; FISTA:
+    14 per freeze dispatch on an iter_l1 pool, else 0; no stacked launch
+    and no dense fallback on the serving path."""
+    from repro_torch.kernels.page_quant import BISECT_STEPS
+
     steps = s["decode_steps"] + s["prefill_chunks"]
     expect = {"paged_decode_attention": cfg.n_layers * steps,
               "quant_matmul": 7 * cfg.n_layers * steps if quantized else 0,
-              "quant_matmul_stacked": 0, "fallbacks": 0}
-    if s["completed"] != 8 or s["freeze_installs"] <= 0:
-        raise AssertionError(f"serve: completed {s['completed']}/8, "
-                             f"{s['freeze_installs']} freeze installs")
+              "quant_matmul_stacked": 0,
+              "fista_quant": (BISECT_STEPS * s["freeze_dispatches"]
+                              if fista else 0),
+              "fallbacks": 0}
+    if s["completed"] != requests or s["freeze_installs"] <= 0 \
+            or s["freeze_dispatches"] <= 0:
+        raise AssertionError(f"serve: completed {s['completed']}/{requests}"
+                             f", {s['freeze_dispatches']} freeze dispatches"
+                             f", {s['freeze_installs']} installs")
     if s["attn_impl"] != "fused" or launches != expect \
             or s["paged_attention_launches"] != expect[
                 "paged_decode_attention"] \
@@ -549,6 +588,9 @@ def check_launches(s, cfg, launches, quantized: bool) -> str:
             f"{s['prefill_chunks']} prefill chunks); "
             f"{expect['quant_matmul']} quant_matmul launches"
             + (" = 7 x that" if quantized else "")
+            + f"; {expect['fista_quant']} fista_quant launches"
+            + (f" = {BISECT_STEPS} x {s['freeze_dispatches']} freeze "
+               f"dispatches" if fista else "")
             + f"; qmatmul_dequant_fallback=0; {s['freeze_installs']} freeze "
             f"installs")
 
@@ -584,7 +626,7 @@ def check_serve() -> dict:
           f"smaller than bf16")
     phase("serve", check_launches(s, cfg, launches, quantized=True))
     serve.verify(params, cfg, args)      # the launcher's replay checks
-    check_fused_vs_gather(params, cfg, args)
+    check_fused_vs_gather(params, cfg, args, (None, "kmeans_ls@16"))
     profile_engine(params, cfg, args)
     phase("serve", serve_line(s))
     return dict(launches=launches, params=params, cfg=cfg)
@@ -652,26 +694,36 @@ def check_stacked_path(params, cfg, gen) -> dict:
     return dict(launches=launches, max_abs_err=err, **r)
 
 
-def check_fused_vs_gather(params, cfg, args) -> None:
+def fused_vs_gather(params, cfg, args, kv) -> dict:
     """The fused engine and the gather engine on one deterministic batch
-    (synchronous freezing), full width and depth in f32, on an fp pool and
-    on a kmeans_ls@16 pool: same greedy tokens, logits within
-    REPLAY_REL_TOL of the logit range."""
+    (synchronous freezing), full width and depth in f32 (``params`` and
+    ``cfg`` already f32), on a ``kv`` pool (None: fp): the deviation of
+    ``compare_replays`` plus whether the greedy tokens are equal."""
+    from repro_torch.launch import serve
+
+    prompts = serve._replay_prompts(cfg, args)
+    runs = []
+    for impl in ("fused", "gather"):
+        eng = serve._make_engine(params, cfg, args, kv_quant=kv,
+                                 record_logits=True, freeze_async=False,
+                                 attn_impl=impl)
+        runs.append((eng, eng.generate(prompts, max_new_tokens=args.gen)))
+    (fe, fo), (ge, go) = runs
+    r = serve.compare_replays(fe, ge, fo, go)
+    r["tokens_equal"] = fo == go
+    return r
+
+
+def check_fused_vs_gather(params, cfg, args, kvs) -> None:
+    """``fused_vs_gather`` on each pool of ``kvs``: same greedy tokens,
+    logits within REPLAY_REL_TOL of the logit range."""
     from repro_torch.launch import serve
 
     params, cfg = serve.f32_copy(params, cfg)
-    prompts = serve._replay_prompts(cfg, args)
-    for kv, tol in REPLAY_REL_TOL.items():
-        runs = []
-        for impl in ("fused", "gather"):
-            eng = serve._make_engine(params, cfg, args, kv_quant=kv,
-                                     record_logits=True, freeze_async=False,
-                                     attn_impl=impl)
-            runs.append((eng, eng.generate(prompts,
-                                           max_new_tokens=args.gen)))
-        (fe, fo), (ge, go) = runs
-        r = serve.compare_replays(fe, ge, fo, go)
-        if fo != go or r["rel"] > tol:
+    for kv in kvs:
+        tol = REPLAY_REL_TOL[kv]
+        r = fused_vs_gather(params, cfg, args, kv)
+        if not r["tokens_equal"] or r["rel"] > tol:
             raise AssertionError(
                 f"fused vs gather (kv={kv or 'fp'}): tokens "
                 f"{r['agree']}/{r['total']}, max|dlogit| {r['dmax']:.4g} "
@@ -739,6 +791,233 @@ def profile_engine(params, cfg, args) -> None:
               f"{t / busy:.1%} of the device's busy time")
 
 
+def fista_bound(args, n_iters) -> tuple[float, str]:
+    """Least time for ``n_iters`` FISTA steps: FISTA_OPS_PER_COL f32
+    operations per live column (n > 0) and step at the f32 peak, vs w, d,
+    n, lam read and alpha written once (and eta) at HBM bandwidth."""
+    w = args[0]
+    live = int((args[2] > 0).sum())
+    t_ops = FISTA_OPS_PER_COL * live * n_iters / F32_FLOPS * 1e3
+    t_bytes = (5 * w.numel() * 4 + args[4].numel() * 4) / HBM_BYTES_PER_S \
+        * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fista_objective(args, alpha) -> torch.Tensor:
+    """Eq. 6 per row in float64 on the kernel's (preconditioned) inputs:
+    0.5 * sum n (w - cumsum(alpha d))^2 + sum lam |alpha|."""
+    B = alpha.shape[0]
+    w, d, n, lam = (a.reshape(B, -1).double() for a in args[:4])
+    a = alpha.reshape(B, -1).double()
+    r = w - torch.cumsum(a * d, dim=1)
+    return 0.5 * (n * r * r).sum(1) + (lam * a.abs()).sum(1)
+
+
+def fista_page_inputs(gen, R=224):
+    """A page freeze's kernel inputs at the serve path's shape: R = 2 x 28
+    layers x 4 pages rows of 16 x 8 x 128 values, sketched to 128 columns,
+    at a lambda halfway to each row's lam_hi (a bisection step)."""
+    from repro_torch.kernels.page_quant import fista_page_problem
+
+    E = SHAPES["bs"] * SHAPES["Hkv"] * SHAPES["Dh"]
+    rows = torch.randn(R, E, generator=gen, device="cuda")
+    rows[::3] *= torch.linspace(0.1, 3.0, E, device="cuda")
+    p = fista_page_problem(rows)
+    lam = (0.5 * p["lam_hi"])[:, None] / p["scale"] * (p["n"] > 0)
+    blk = lambda a: a.reshape(R, 1, 128).contiguous()
+    return (blk(p["w"]), blk(p["dt"]), blk(p["n"]), blk(lam), p["eta"])
+
+
+def check_fista(gen) -> dict:
+    """Kernel 4 (fista_quant) vs its plain version on the card, to the
+    reference's bar: the page freeze's shape (224, 1, 128) at 100 steps
+    and the batched PTQ's (7, 32, 128) at 1000 steps (the reference's
+    kernel test inputs); a row alone bitwise the same row in the batch;
+    a page freeze with no host sync; solve_fista_batch's padding tail 0.
+    Times at the page freeze's shape (batched PTQ's on its own problems,
+    check_ptq_batched)."""
+    from repro_torch.kernels import (fista_quant, power_iter_lipschitz,
+                                     quantize_pages_fista, ref_fista,
+                                     solve_fista_batch)
+
+    def plain(args, n_iters):
+        B = args[0].shape[0]
+        return ref_fista(*[a.reshape(B, -1) for a in args[:4]], args[4],
+                         n_iters=n_iters).reshape(args[0].shape)
+
+    page = fista_page_inputs(gen)
+    # the reference kernel test's inputs (tests/test_kernels.py:47): sorted
+    # normal rows, unit weights, lambda 0.05, no preconditioning
+    w = torch.sort(torch.randn(7, 4096, generator=gen, device="cuda"),
+                   dim=1).values
+    d = torch.diff(w, dim=1, prepend=torch.zeros(7, 1, device="cuda"))
+    n = torch.ones_like(w)
+    eta = (1.0 / (power_iter_lipschitz(d, n) * 1.01)).float()
+    ptq = tuple(a.reshape(7, 32, 128) for a in (w, d, n, torch.full_like(
+        w, 0.05))) + (eta.reshape(7, 1, 1),)
+    worst = 0.0
+    for name, args, n_iters in (("page freeze (224,1,128)", page, 100),
+                                ("batched PTQ (7,32,128)", ptq, 1000)):
+        got = fista_quant(*args, n_iters=n_iters)
+        ref = plain(args, n_iters)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        torch.testing.assert_close(got, ref, **FISTA_TOL)
+        worst = max(worst, err)
+        for i in (0, 3, args[0].shape[0] - 1):
+            alone = fista_quant(*(a[i:i + 1].contiguous() for a in args),
+                                n_iters=n_iters)
+            if not torch.equal(alone[0], got[i]):
+                raise AssertionError(f"fista_quant {name}: row {i} alone "
+                                     f"!= the same row in the batch")
+        phase("fista", f"{name} x {n_iters} steps: max|err| {err:.3g} vs "
+              f"plain (atol {FISTA_TOL['atol']}, rtol {FISTA_TOL['rtol']}) "
+              f"OK; rows 0, 3, last alone == in the batch, bitwise")
+    # a freeze (sketch, power iteration, 14-step bisection, refit) makes no
+    # host sync: it stays one asynchronous dispatch on the side stream
+    E = SHAPES["bs"] * SHAPES["Hkv"] * SHAPES["Dh"]
+    rows = torch.randn(224, E, generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        quantize_pages_fista(rows, num_values=16)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    phase("fista", "quantize_pages_fista (224 rows): no host sync (CUDA "
+          "sync debug mode 'error')")
+    m1, m2 = 60, 90           # the reference's padding-mask test, on the card
+    W = torch.zeros(2, m2, device="cuda")
+    D, N = torch.zeros_like(W), torch.zeros_like(W)
+    for i, m in enumerate((m1, m2)):
+        v = torch.sort(torch.randn(m, generator=gen, device="cuda")).values
+        W[i, :m], N[i, :m] = v, 1.0
+        D[i, :m] = torch.diff(v, prepend=v.new_zeros(1))
+    a2 = solve_fista_batch(W, D, N, 0.05, n_iters=200)
+    a1 = solve_fista_batch(W[:1, :m1], D[:1, :m1], N[:1, :m1], 0.05,
+                           n_iters=200)
+    torch.testing.assert_close(a2[0, :m1], a1[0], atol=1e-4, rtol=0)
+    if not bool((a2[0, m1:] == 0).all()):
+        raise AssertionError("solve_fista_batch: padding tail is not 0")
+    phase("fista", "solve_fista_batch rows of 60 and 90: the short row's "
+          "padding tail stays 0, its columns within 1e-4 of the row solved "
+          "alone")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    r = dict(ms=time_ms(lambda: fista_quant(*page, n_iters=100),
+                        flush=flush),
+             plain_ms=time_ms(lambda: plain(page, 100), flush=flush))
+    r["bound_ms"], r["bound_by"] = fista_bound(page, 100)
+    phase("fista", f"page freeze (224,1,128) x 100 steps: kernel "
+          f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+          f"{r['bound_ms']:.5f} ms ({r['bound_by']}), library: none (no "
+          f"single PyTorch call computes FISTA) on {card_line()}")
+    return dict(max_abs_err=worst, library_ms=None, **r)
+
+
+def check_serve_iter_l1(params) -> dict:
+    """The main path's PTQ'd weights served with iter_l1@16 KV pages: every
+    freeze a 14-step lambda bisection through the FISTA kernel on the
+    side stream. Launch counts, then the launcher's replay checks and the
+    fused-vs-gather replay on an fp and an iter_l1@16 pool."""
+    from repro_torch.launch import serve
+
+    s, params, cfg, args, launches = serve_once(ITER_ARGS, params)
+    phase("serve-iter_l1", check_launches(s, cfg, launches, quantized=True,
+                                          fista=True))
+    serve.verify(params, cfg, args)      # the launcher's replay checks
+    check_fused_vs_gather(params, cfg, args, (None, "iter_l1@16"))
+    phase("serve-iter_l1", serve_line(s))
+    return dict(launches=launches["fista_quant"],
+                freeze_dispatches=s["freeze_dispatches"])
+
+
+def check_ptq_batched(cfg, gen) -> dict:
+    """Batched l1_ls PTQ of the whole model on the card: the seven problems
+    (each projection's 28 layers as one vector), kernel vs plain version
+    on them (the eq.-6 objective within FISTA_OBJ_RTOL, and no farther
+    from a float64 run than FISTA_F64_RATIO x the f32 plain version: on
+    these rows the iterates after 1000 steps depend on summation order
+    beyond the elementwise bar) and their times; then ``quantize_tree(...,
+    batched=True)`` through the entry point (one FISTA launch, every
+    group <= 256 values), then a short serve from its codes."""
+    from repro_torch import models
+    from repro_torch.core import QuantSpec
+    from repro_torch.kernels import fista_quant, ref_fista
+    from repro_torch.kernels.ops import fista_batch_problem
+    from repro_torch.launch.serve import PTQ_SKIP
+    from repro_torch.quant import compression_ratio, quantize_tree
+    from repro_torch.quant.ptq import tree_problems
+
+    dense = models.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    _, W, D, N = tree_problems(dense, QuantSpec.parse(PTQ_SPEC),
+                               skip_patterns=PTQ_SKIP)
+    p = fista_batch_problem(W, D, N, PTQ_LAM)
+    args = (p["w"], p["d"], p["n"], p["lam"], p["eta"])
+    B = args[0].shape[0]
+    plain = lambda: ref_fista(*[a.reshape(B, -1) for a in args[:4]],
+                              args[4], n_iters=1000).reshape(args[0].shape)
+    got, ref = fista_quant(*args, n_iters=1000), plain()
+    exact = ref_fista(*[a.reshape(B, -1).double() for a in args[:4]],
+                      args[4].double(), n_iters=1000).reshape(got.shape)
+    fk, fr = fista_objective(args, got), fista_objective(args, ref)
+    gap = ((fk - fr).abs() / fr.abs()).max().item()
+    err = (got - ref).abs().max().item()
+    err_k = (got - exact).abs().max().item()
+    err_p = (ref - exact).abs().max().item()
+    if gap > FISTA_OBJ_RTOL or err_k > FISTA_F64_RATIO * err_p:
+        raise AssertionError(
+            f"fista_quant on the PTQ problems: objective {fk.tolist()} vs "
+            f"plain {fr.tolist()}; max|kernel - f64| {err_k:.4g} vs "
+            f"max|plain - f64| {err_p:.4g}")
+    phase("ptq-batched", f"fista_quant on the {B} PTQ problems "
+          f"{tuple(args[0].shape)} x 1000 steps: eq.-6 objective within "
+          f"{gap:.2e} of the plain version's (limit {FISTA_OBJ_RTOL:g}); "
+          f"max|kernel - plain| {err:.4g}; against the plain version in "
+          f"float64: kernel {err_k:.4g}, plain f32 {err_p:.4g} (limit "
+          f"{FISTA_F64_RATIO:g}x), max|alpha| {exact.abs().max().item():.4g}")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    r = dict(ms=time_ms(lambda: fista_quant(*args, n_iters=1000),
+                        flush=flush, reps=10),
+             plain_ms=time_ms(plain, flush=flush, reps=5))
+    r["bound_ms"], r["bound_by"] = fista_bound(args, 1000)
+    phase("ptq-batched", f"batched PTQ {tuple(args[0].shape)} x 1000 steps: "
+          f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+          f"{r['bound_ms']:.5f} ms ({r['bound_by']}), library: none on "
+          f"{card_line()}")
+
+    fista_quant.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qparams, report = quantize_tree(dense, PTQ_SPEC, batched=True,
+                                    skip_patterns=PTQ_SKIP)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = fista_quant.launches
+    groups = {}
+    for row in report.values():
+        groups.setdefault(row["group"], set()).add(row["n_values"])
+    if launches != 1 or len(report) != 7 * cfg.n_layers \
+            or len(groups) != 7 or any(
+                len(v) != 1 or max(v) > 256 for v in groups.values()):
+        raise AssertionError(f"batched PTQ: {launches} FISTA launches, "
+                             f"{len(report)} tensors, groups {groups}")
+    del dense
+    nv = ", ".join(f"{k.split('/')[-1]} {v.pop()}" for k, v in
+                   groups.items())
+    phase("ptq-batched", f"quantize_tree({PTQ_SPEC!r}, batched=True): "
+          f"{len(report)} tensors in {len(groups)} shared-codebook groups, "
+          f"1 FISTA launch, lambda {PTQ_LAM:g}, n_values per group: {nv}; "
+          f"{compression_ratio(report):.2f}x smaller than bf16, "
+          f"{dt:.2f} s on the card")
+    s, _, cfg, _, sl = serve_once(PTQB_ARGS, qparams)
+    phase("ptq-batched", check_launches(s, cfg, sl, quantized=True,
+                                        requests=4))
+    phase("ptq-batched", serve_line(s))
+    return dict(ptq_launches=launches, ptq_ms=r["ms"],
+                ptq_plain_ms=r["plain_ms"], ptq_bound_ms=r["bound_ms"],
+                ptq_bound_by=r["bound_by"], ptq_objective_gap=gap)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -752,7 +1031,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    sources = ("paged_attention", "quant_matmul")
+    sources = ("paged_attention", "quant_matmul", "fista_quant")
     build.load_all(sources)              # one nvcc per source, in parallel
     for name in sources:
         log = build.library_path(name).with_suffix(".log")
@@ -764,10 +1043,14 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     k = check_kernel(gen)
     q = check_qmm(gen)
+    f = check_fista(gen)
     check_freeze(gen)
     check_serve_fp()
     sv = check_serve()
     st = check_stacked_path(sv["params"], sv["cfg"], gen)
+    cfg = sv["cfg"]
+    it = check_serve_iter_l1(sv.pop("params"))
+    pb = check_ptq_batched(cfg, gen)
     record = {"kernels": [
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -780,6 +1063,11 @@ def main() -> int:
         {"name": "quant_matmul_stacked", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul.py:105", **st},
+        {"name": "fista_quant", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/fista_quant.cu",
+         "replaces": "src/repro/kernels/fista_quant.py:79",
+         "launches": it["launches"],
+         "freeze_dispatches": it["freeze_dispatches"], **f, **pb},
     ]}
     phase("done", f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))

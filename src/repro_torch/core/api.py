@@ -4,11 +4,13 @@ thin driver over the solver registry::
     from repro_torch.core import quantize
 
     qt, info = quantize(w, "kmeans_ls@16")
+    qt, info = quantize(w, "l1_ls:lam=0.02")   # a lam method
     w_approx = qt.to_dense()
 
 It builds the sorted-unique problem on ``w``'s device, runs the method's
 host solver, applies the spec's clip (eq. 21) and returns the
-QuantizedTensor with the reference's ``info`` keys. The reference's
+QuantizedTensor with the reference's ``info`` keys (``alpha`` too, for
+methods that solve for it). The reference's
 deprecated loose-kwargs form (``quantize(w, method=..., num_values=...)``)
 is not ported: pass a QuantSpec or its string.
 """

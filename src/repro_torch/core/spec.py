@@ -3,13 +3,15 @@
 
 The compact string form round-trips as in the reference::
 
-    kmeans_ls@16
+    kmeans_ls@16                    count method @ budget
+    l1_ls:lam=0.02                  lam method : penalty
     kmeans_ls@16:weighted=true,seed=3,clip=-1.0..1.0
 
 ``QuantSpec.parse(str(spec)) == spec`` holds for every valid spec. The
-reference validates against its full solver registry; the port's
-(``core.registry``) holds only the methods it can run: kmeans_ls, which
-also freezes KV pages (``kernels.page_quant``), and kmeans. Any other
+spec validates against ``core.registry`` as the reference's does: a count
+method needs ``num_values`` and rejects ``lam``; a lam method needs
+``lam`` and rejects ``num_values``; ``lam2`` only where the method accepts
+it. The port's registry holds only the methods it can run, so any other
 method raises at construction, naming the methods the port has.
 """
 from __future__ import annotations
@@ -26,6 +28,8 @@ class QuantSpec:
 
     method      a name in ``core.registry``.
     num_values  codebook budget (count methods).
+    lam         l1 penalty (lam methods).
+    lam2        negative-l2 strength, only for a method that accepts it.
     weighted    optimize the multiplicity-weighted loss.
     clip        optional (lo, hi) clamp on the codebook (eq. 21).
     seed        clustering seed (the device solver is deterministic and
@@ -34,6 +38,8 @@ class QuantSpec:
 
     method: str
     num_values: int | None = None
+    lam: float | None = None
+    lam2: float | None = None
     weighted: bool = False
     clip: tuple[float, float] | None = None
     seed: int = 0
@@ -43,12 +49,25 @@ class QuantSpec:
         _set = object.__setattr__
         if self.num_values is not None:
             _set(self, "num_values", int(self.num_values))
+        for k in ("lam", "lam2"):
+            if getattr(self, k) is not None:
+                _set(self, k, float(getattr(self, k)))
         _set(self, "weighted", bool(self.weighted))
         _set(self, "seed", int(self.seed))
         if self.clip is not None:
             lo, hi = self.clip
             _set(self, "clip", (float(lo), float(hi)))
-        if m.param_kind == "count":
+        if m.param_kind == "lam":
+            if self.lam is None:
+                raise ValueError(
+                    f"method {self.method!r} is lam-parameterised: "
+                    f"QuantSpec requires lam= (e.g. '{self.method}:lam=0.02')")
+            if self.num_values is not None:
+                raise ValueError(
+                    f"num_values= is not valid for lam-parameterised method "
+                    f"{self.method!r}; count-parameterised methods: "
+                    f"{', '.join(registry.count_methods())}")
+        else:
             if self.num_values is None:
                 raise ValueError(
                     f"method {self.method!r} is count-parameterised: "
@@ -57,6 +76,16 @@ class QuantSpec:
             if self.num_values < 1:
                 raise ValueError(f"num_values must be >= 1, got "
                                  f"{self.num_values}")
+            if self.lam is not None or self.lam2 is not None:
+                raise ValueError(
+                    f"lam=/lam2= are not valid for count-parameterised "
+                    f"method {self.method!r}; lam-parameterised methods: "
+                    f"{', '.join(registry.lam_methods())}")
+        if self.lam2 is not None and not m.accepts_lam2:
+            raise ValueError(f"lam2= is only valid for methods that accept "
+                             f"it, not {self.method!r}")
+        if self.lam is not None and self.lam < 0:
+            raise ValueError(f"lam must be >= 0, got {self.lam}")
 
     @property
     def param_kind(self) -> str:
@@ -78,6 +107,10 @@ class QuantSpec:
         if self.num_values is not None:
             head += f"@{self.num_values}"
         opts: list[str] = []
+        if self.lam is not None:
+            opts.append(f"lam={self.lam!r}")
+        if self.lam2 is not None:
+            opts.append(f"lam2={self.lam2!r}")
         if self.weighted:
             opts.append("weighted=true")
         if self.clip is not None:
@@ -113,7 +146,9 @@ class QuantSpec:
             if not sep or not k:
                 raise ValueError(f"bad option {item!r} in spec {s!r} "
                                  f"(want key=value)")
-            if k in ("num_values", "seed"):
+            if k in ("lam", "lam2"):
+                kw[k] = float(v)
+            elif k in ("num_values", "seed"):
                 kw[k] = int(v)
             elif k == "weighted":
                 kw[k] = _parse_bool(v, s)
@@ -125,7 +160,8 @@ class QuantSpec:
                 kw[k] = (float(lo), float(hi))
             else:
                 raise ValueError(f"unknown spec option {k!r} in {s!r}; "
-                                 f"one of num_values, weighted, clip, seed")
+                                 f"one of lam, lam2, num_values, weighted, "
+                                 f"clip, seed")
         return cls(method, **kw)
 
 

@@ -8,11 +8,15 @@ what ``chip_smoke.py`` holds the CUDA kernels against.
   ``W = codebook[idx]`` rounded to x's dtype, then multiply in f32 (exact
   products of bf16 operands, f32 sums: the reference's
   ``preferred_element_type=f32``) and round once to the output dtype.
+- ``ref_fista`` runs the FISTA iterates of ``fista_quant`` on (B, M) rows
+  with ``torch.cumsum`` for both scans.
 """
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 
 BIG_NEG = -2.3819763e38
@@ -83,3 +87,38 @@ def ref_paged_decode(q, k_fp, v_fp, k_codes, v_codes, k_cb, v_cb, blk_q,
     out = torch.einsum("bwhgs,bshd->bwhgd", p, v_all)
     out = out.reshape(B, W, Hq, Dh).to(q.dtype)
     return out if windowed else out[:, 0]
+
+
+@functools.cache
+def fista_momentum(n_iters: int) -> tuple[float, ...]:
+    """FISTA's momentum coefficients (t_i - 1) / t_{i+1}, t_0 = 1,
+    t_{i+1} = (1 + sqrt(1 + 4 t_i^2)) / 2, in f32 as the reference's
+    kernel computes them (the CUDA kernel computes the same sequence with
+    round-to-nearest intrinsics)."""
+    f = np.float32
+    t, out = f(1.0), []
+    for _ in range(n_iters):
+        t_next = f(0.5) * (f(1.0) + np.sqrt(f(1.0) + f(4.0) * t * t))
+        out.append(float((t - f(1.0)) / t_next))
+        t = t_next
+    return tuple(out)
+
+
+def ref_fista(w, d, n, lam, eta, *, n_iters: int = 300):
+    """FISTA with the iterates of ``fista_quant`` on (B, M) f32 rows:
+    w, d, n, lam (B, M) and eta (B,) or (B, 1[, 1]). Starts from
+    x = y = 1 and returns x after ``n_iters`` steps."""
+    B = w.shape[0]
+    eta = eta.reshape(B, 1)
+    x_prev = y = torch.ones_like(w)
+    for c in fista_momentum(n_iters):
+        recon = torch.cumsum(y * d, dim=1)
+        r = n * (w - recon)
+        cums = torch.cumsum(r, dim=1)
+        suffix = cums[:, -1:] - cums + r
+        grad = -d * suffix
+        v = y - eta * grad
+        x = torch.sign(v) * torch.clamp_min(v.abs() - eta * lam, 0.0)
+        y = x + c * (x - x_prev)
+        x_prev = x
+    return x_prev

@@ -2,8 +2,9 @@
 engine).
 
 Continuous batching under Poisson arrivals over a paged KV pool whose full
-pages freeze to kmeans_ls codebooks, with chunked prefill, optionally from
-PTQ'd weights:
+pages freeze to 16-value codebooks (``--kv-quant kmeans_ls@16``, the exact
+k-means DP, or ``iter_l1@16``, batched FISTA under a per-row lambda
+bisection), with chunked prefill, optionally from PTQ'd weights:
 
     python -m repro_torch.launch.serve --engine continuous \\
         --kv-quant kmeans_ls@16 --quantize kmeans_ls@16 --prefill-chunk 64
@@ -14,7 +15,9 @@ Weights are seeded random (``--arch``'s full width and depth unless
 ``--reduced``).
 
 ``--quantize SPEC`` post-training quantizes every projection on the
-serving device (embed and lm_head stay dense) and serves the codes
+serving device (embed and lm_head stay dense), one leaf at a time with the
+spec's host solver (a count spec like ``kmeans_ls@16`` or a lam spec like
+``l1_ls:lam=0.05``), and serves the codes
 undequantized through the codebook-dequant kernel; the run fails if any
 quantized matmul fell back to a dense weight
 (``qmatmul_dequant_fallback != 0``). The replays below serve the same
@@ -227,9 +230,11 @@ def quantize_params(params, args, dev):
     return params, info
 
 
-def serve(args):
-    """Serve a Poisson trace on seeded random weights (PTQ'd with
-    --quantize) and print the summary. Returns (summary, params, cfg)."""
+def serve(args, params=None):
+    """Serve a Poisson trace and print the summary. Returns (summary,
+    params, cfg). The weights are ``params`` if given (for ``--arch``'s
+    config: already PTQ'd weights are served as they are), else seeded
+    random ones, PTQ'd with --quantize."""
     from repro_torch import models
     from repro_torch.configs import get_config, get_reduced_config
     from repro_torch.device import resolve_device
@@ -237,11 +242,12 @@ def serve(args):
 
     dev = resolve_device(args.device)
     cfg = (get_reduced_config if args.reduced else get_config)(args.arch)
-    params = models.init_params(
-        cfg, torch.Generator(device=dev).manual_seed(0), dev)
     ptq = None
-    if args.quantize:
-        params, ptq = quantize_params(params, args, dev)
+    if params is None:
+        params = models.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        if args.quantize:
+            params, ptq = quantize_params(params, args, dev)
     eng = _make_engine(params, cfg, args, kv_quant=args.kv_quant)
     trace = poisson_trace(args.num_requests, args.request_rate,
                           vocab=cfg.vocab, prompt_len=args.prompt_len,
@@ -331,11 +337,13 @@ def parse_args(argv=None):
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--max-seq-len", type=int, default=256)
     ap.add_argument("--kv-quant", default=None,
-                    help="page codebook QuantSpec (kmeans_ls@16)")
+                    help="page codebook QuantSpec of a method that can "
+                         "freeze pages (kmeans_ls@16, iter_l1@16, "
+                         "kmeans@16)")
     ap.add_argument("--quantize", default=None,
                     help="PTQ the projections with this QuantSpec "
-                         "(kmeans_ls@16; a bare method name combines with "
-                         "--num-values)")
+                         "(kmeans_ls@16, l1_ls:lam=0.05; a bare method "
+                         "name combines with --num-values)")
     ap.add_argument("--num-values", type=int, default=16)
     ap.add_argument("--attn-impl", choices=("auto", "fused", "gather"),
                     default="auto",

@@ -106,7 +106,9 @@ def test_kv_spec_resolution_and_unfreezable_specs(reduced):
     assert resolve_kv_spec("kmeans_ls@16") == QuantSpec("kmeans_ls", 16)
     assert resolve_kv_spec(None, method="kmeans_ls", num_values=8) \
         == QuantSpec("kmeans_ls", num_values=8)
-    for bad in ("tv:lam=0.05", "l1_ls@16", "kmeans@16"):
+    for good in ("iter_l1@16", "kmeans@16"):
+        assert resolve_kv_spec(good) == QuantSpec.parse(good)
+    for bad in ("tv:lam=0.05", "l1_ls@16", "l1_ls:lam=0.05"):
         with pytest.raises(ValueError, match="kmeans_ls"):
             ContinuousBatchingEngine(params, cfg, device="cpu", max_slots=1,
                                      block_size=8, max_seq_len=16,
