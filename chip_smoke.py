@@ -24,6 +24,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -94,6 +95,59 @@ FISTA_OPS_PER_COL = 18         # f32 operations per column and step
 # up, down
 PROJ_SHAPES = [(1024, 2048), (1024, 1024), (1024, 1024), (2048, 1024),
                (1024, 3072), (1024, 3072), (3072, 1024)]
+
+
+def ptxas_by_kernel(name: str) -> dict:
+    """Registers and spills of each kernel in ``csrc/<name>.cu``'s build log
+    (nvcc -Xptxas -v), by mangled entry name."""
+    from repro_torch.kernels import build
+
+    out, entry = {}, None
+    log = build.library_path(name).with_suffix(".log").read_text()
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            entry = m.group(1)
+        elif entry and "spill" in ln:
+            out[entry] = ln.strip()
+        elif entry and "Used" in ln:
+            regs = re.search(r"Used (\d+) registers", ln).group(1)
+            out[entry] = f"{regs} registers, {out.get(entry, '')}"
+            entry = None
+    return out
+
+
+def qmm_ptxas() -> dict:
+    """quant_matmul_kernel's ptxas line per instantiation, as
+    "<x dtype>/<code dtype>/<tensor copies or element loads>"."""
+    names = {"13__nv_bfloat16": "bf16", "f": "f32", "h": "uint8",
+             "i": "int32", "1": "tma", "0": "elementwise"}
+    out = {}
+    for entry, line in ptxas_by_kernel("quant_matmul").items():
+        m = re.search(r"quant_matmul_kernelI(13__nv_bfloat16|f)([hi])Lb([01])E",
+                      entry)
+        if m:
+            out["/".join(names[g] for g in m.groups())] = line
+    return out
+
+
+def qmm_plan(K: int, N: int, x_dtype, idx_dtype=torch.uint8, *, M: int = 4,
+             G: int = 1, L: int = 16) -> dict:
+    """The dequant kernel's launch plan for a (K, N) weight and the blocks
+    it launches for (G, M, K) activations."""
+    from repro_torch.kernels.quant_matmul import kernel_smem, plan
+
+    pl = plan(K, N, L, x_dtype, idx_dtype)
+    stages, smem = kernel_smem(pl, L, x_dtype, idx_dtype)
+    return dict(splits=pl.splits, split_steps=pl.split_steps,
+                stages=stages, cluster=list(pl.cluster), smem=smem,
+                blocks=pl.blocks_per_row_tile * -(-M // 64) * G)
+
+
+def plan_text(r: dict) -> str:
+    return (f"S={r['splits']} x {r['split_steps']} steps, {r['stages']} "
+            f"stages, cluster {tuple(r['cluster'])}, {r['smem']} B smem, "
+            f"{r['blocks']} blocks")
 
 
 def card_line() -> str:
@@ -391,8 +445,9 @@ def check_qmm(gen) -> dict:
     """Kernels 2 and 3 (quant_matmul, quant_matmul_stacked) vs their plain
     versions on the card: the main path's five projection shapes at M = 4
     (a decode step of 4 slots) and M = 64 (a prefill chunk), ragged
-    (5, 33, 17), int32 codes with L = 1000, stacked G = 4; bf16 and f32.
-    Rows bitwise independent of M. Times at the main path's shapes."""
+    (5, 33, 17), int32 codes with L = 1000 and 32768, stacked G = 4; bf16
+    and f32. Rows bitwise independent of M. Each shape's launch plan and
+    the kernel's registers; times at the main path's shapes."""
     from repro_torch.kernels import (quant_matmul, quant_matmul_stacked,
                                      ref_quant_matmul,
                                      ref_quant_matmul_stacked)
@@ -429,11 +484,12 @@ def check_qmm(gen) -> dict:
         x, idx, cb = qmm_inputs(gen, 5, 33, 17, dtype)
         msgs.append(hold("ragged (5,33,17)", quant_matmul(x, idx, cb),
                          ref_quant_matmul(x, idx, cb), dtype))
-        x, idx, cb = qmm_inputs(gen, 16, 1024, 1024, dtype, L=1000,
-                                idx_dtype=torch.int32)
-        msgs.append(hold("int32 codes L=1000 (16,1024,1024)",
-                         quant_matmul(x, idx, cb),
-                         ref_quant_matmul(x, idx, cb), dtype))
+        for L in (1000, 32768):
+            x, idx, cb = qmm_inputs(gen, 16, 1024, 1024, dtype, L=L,
+                                    idx_dtype=torch.int32)
+            msgs.append(hold(f"int32 codes L={L} (16,1024,1024)",
+                             quant_matmul(x, idx, cb),
+                             ref_quant_matmul(x, idx, cb), dtype))
         x, idx, cb = qmm_inputs(gen, 64, 1024, 1024, dtype, G=4)
         st = quant_matmul_stacked(x, idx, cb)
         msgs.append(hold("stacked G=4 (64,1024,1024)", st,
@@ -471,6 +527,15 @@ def check_qmm(gen) -> dict:
         phase("qmm", f"bf16 x = diag(v) (1024,1024,1024), L={L}: every "
               f"output == v * bf16(codebook[idx]) bitwise (the unrounded "
               f"weight differs at {miss:.1%} of them)")
+    # the launch plan of each projection shape (from K, N, L and the dtypes
+    # alone) and the kernel's registers and spills
+    ptxas = qmm_ptxas()
+    for K, N in sorted(set(PROJ_SHAPES)):
+        phase("qmm", f"plan ({K},{N}) bf16 L=16: " + "; ".join(
+            f"M={M}: " + plan_text(qmm_plan(K, N, torch.bfloat16, M=M))
+            for M in (4, 64)))
+    phase("qmm", "ptxas: " + "; ".join(f"{k} {v}" for k, v in
+                                       sorted(ptxas.items())))
     # times: the seven projections of one layer, bf16, at a decode step
     # (M = 4) and a prefill chunk (M = 64)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -487,6 +552,7 @@ def check_qmm(gen) -> dict:
                      library_ms=time_ms(lambda: torch.matmul(x, dense),
                                         flush=flush))
             r["bound_ms"], r["bound_by"] = qmm_bound(x, idx, cb)
+            r["plan"] = qmm_plan(K, N, torch.bfloat16, M=M)
             per_shape[(M, K, N)] = r
             phase("qmm", f"bf16 ({M},{K},{N}): kernel {r['ms']:.4f} ms, "
                   f"plain {r['plain_ms']:.4f} ms, torch.matmul on the dense "
@@ -500,6 +566,7 @@ def check_qmm(gen) -> dict:
               f"{tot[M]['bound_ms']:.5f} ms on {card}")
     by = {per_shape[(4, K, N)]["bound_by"] for K, N in PROJ_SHAPES}
     return dict(max_abs_err=worst, **tot[4],
+                ptxas=ptxas["bf16/uint8/tma"],
                 bound_by="bytes" if by == {"bytes"} else "operations",
                 prefill_ms=tot[64]["ms"], prefill_plain_ms=tot[64]["plain_ms"],
                 prefill_library_ms=tot[64]["library_ms"],
@@ -684,6 +751,9 @@ def check_stacked_path(params, cfg, gen) -> dict:
                  x, idx, st.codebook), flush=flush),
              library_ms=time_ms(lambda: torch.bmm(x, dense), flush=flush))
     r["bound_ms"], r["bound_by"] = qmm_bound(x, idx, st.codebook)
+    r["plan"] = qmm_plan(K, N, x.dtype, idx.dtype, M=4, G=G,
+                         L=st.codebook.shape[1])
+    phase("stacked", f"plan ({K},{N}) G={G} M=4: {plan_text(r['plan'])}")
     phase("stacked", f"qmatmul over {G} stacked w_gate codes, x ({G},4,{K}) "
           f"and x (4,{K}) bf16: 1 stacked launch each, 0 fallbacks, max|err| "
           f"{err:.3g} vs plain (bf16 tolerance), each group == the flat "

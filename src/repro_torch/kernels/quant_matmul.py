@@ -13,37 +13,110 @@ kernel launches in ``.launches`` (never plain-version calls).
 Any M, K, N: the kernel masks ragged edges itself. A decode step calls
 this once per projection and layer (7 x 28 on qwen3-0.6B), so the CUDA
 path does no host sync, no padding copy and no host-side shape tensor:
-it checks attributes, allocates the output and makes one ctypes call.
+it checks attributes, looks up the cached launch ``plan``, allocates the
+output and makes one ctypes call (one kernel launch).
+
+``plan(K, N, L, x_dtype, idx_dtype)`` chooses the kernel's split of K over
+a thread-block cluster from the weight's shape and the dtypes alone: never
+from M or G, so a row's result does not depend on how many rows or groups
+share its call. The kernel lays out its own shared memory
+(``kernel_smem``).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from . import build
 from .ref import ref_quant_matmul, ref_quant_matmul_stacked
 
-__all__ = ["quant_matmul", "quant_matmul_stacked"]
+__all__ = ["QmmPlan", "kernel_smem", "plan", "quant_matmul",
+           "quant_matmul_stacked"]
 
-L_MAX = 32768           # codebook entries the kernel stages (csrc L_MAX)
+# the kernel's constants (csrc/quant_matmul.cu)
+L_MAX = 32768           # codebook entries the kernel stages
+BM, BN, BK = 64, 64, 64  # output rows and columns of a block; depth of a step
+MAX_SPLITS = 8          # the portable cluster size
+# 128-192 blocks a projection at G = 1 (132 SMs): fewer splits lost to the
+# blocks' residency on the H100 (tools/qmm_probe.py --sweep, PERF.md)
+TARGET_BLOCKS = 176
 _X_DTYPES = (torch.float32, torch.bfloat16)
 _IDX_DTYPES = (torch.uint8, torch.int32)
+
+
+class QmmPlan(NamedTuple):
+    """How the kernel cuts one (K, N) weight: ``splits`` K ranges of
+    ``split_steps`` whole BK steps (the last may be shorter), the splits of
+    a column tile one cluster of (splits, 1, 1) blocks."""
+    bn: int
+    bk: int
+    splits: int
+    split_steps: int
+    col_tiles: int
+
+    @property
+    def cluster(self) -> tuple[int, int, int]:
+        return (self.splits, 1, 1)
+
+    @property
+    def blocks_per_row_tile(self) -> int:
+        """Blocks a (BM-row tile, group) launches: every row tile and every
+        group adds as many."""
+        return self.col_tiles * self.splits
+
+    def k_ranges(self, K: int) -> list[tuple[int, int]]:
+        """Each split's [k0, k1): whole BK steps, K ends the last."""
+        step = self.split_steps * self.bk
+        return [(s * step, min((s + 1) * step, K))
+                for s in range(self.splits)]
+
+
+@functools.cache
+def plan(K: int, N: int, L: int, x_dtype: torch.dtype,
+         idx_dtype: torch.dtype) -> QmmPlan:
+    """The launch plan of a (K, N) weight with L codebook entries: enough
+    splits of K (at most MAX_SPLITS) that the column tiles times the splits
+    reach TARGET_BLOCKS, every split whole BK steps. L and the dtypes size
+    only the kernel's shared memory, which fits at every split (at most
+    211 KB of 227 KB, at L = L_MAX with f32 x and int32 codes)."""
+    steps = -(-K // BK)
+    col_tiles = -(-N // BN)
+    want = min(MAX_SPLITS, steps, -(-TARGET_BLOCKS // col_tiles))
+    split_steps = -(-steps // want)
+    splits = -(-steps // split_steps)
+    return QmmPlan(BN, BK, splits, split_steps, col_tiles)
 
 
 @functools.cache
 def _kernel():
     fn = build.load("quant_matmul").quant_matmul_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(wrapper, x, idx, codebook, out_dtype):
+def kernel_smem(pl: QmmPlan, L: int, x_dtype: torch.dtype,
+                idx_dtype: torch.dtype) -> tuple[int, int]:
+    """(ring slots, shared-memory bytes) of a block of the kernel under
+    plan ``pl``, as the kernel lays them out (builds the kernel)."""
+    fn = build.load("quant_matmul").quant_matmul_smem
+    stages = ctypes.c_int()
+    smem = fn(L, int(x_dtype == torch.bfloat16),
+              int(idx_dtype == torch.int32), pl.split_steps,
+              ctypes.byref(stages))
+    if smem < 0:
+        raise ValueError(f"kernel_smem: no layout for L={L}, {pl}")
+    return stages.value, smem
+
+
+def _launch(wrapper, x, idx, codebook, out_dtype, pl=None):
     """x (G, M, K), idx (G, K, N), codebook (G, L), all on one CUDA
-    device -> (G, M, N) in x's dtype; counts the launch on ``wrapper``."""
+    device -> (G, M, N) in x's dtype; counts the launch on ``wrapper``.
+    ``pl`` replaces the weight's own plan (tools/qmm_probe.py --sweep)."""
     name = wrapper.__name__
     G, M, K = x.shape
     N = idx.shape[2]
@@ -78,10 +151,11 @@ def _launch(wrapper, x, idx, codebook, out_dtype):
         return out
     if K == 0:
         return out.zero_()
+    pl = pl or plan(K, N, L, x.dtype, idx.dtype)
     rc = _kernel()(x.data_ptr(), idx.data_ptr(), codebook.data_ptr(),
                    out.data_ptr(), G, M, K, N, L,
                    int(x.dtype == torch.bfloat16),
-                   int(idx.dtype == torch.int32),
+                   int(idx.dtype == torch.int32), pl.splits, pl.split_steps,
                    torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")

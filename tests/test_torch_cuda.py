@@ -20,6 +20,7 @@ from repro_torch.kernels import (fista_quant, power_iter_lipschitz,
                                  solve_fista_batch)
 from repro_torch.kernels.ops import fista_batch_problem
 from repro_torch.kernels.page_quant import fista_page_problem
+from repro_torch.kernels.quant_matmul import kernel_smem, plan
 from repro_torch.quant import fallback_count, qmatmul
 
 pytestmark = pytest.mark.cuda
@@ -175,6 +176,110 @@ def test_qmatmul_stacked_weight_without_group_axis_uses_the_kernel(gen):
     assert fallback_count() == f0 and out.shape == (G, M, N)
     for g in range(G):
         assert torch.equal(out[g], quant_matmul(x[0], idx[g], cb[g]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,N", [(3072, 1024), (1000, 1024)])
+def test_quant_matmul_rows_are_bitwise_independent_of_m_under_split_k(
+        gen, K, N, dtype):
+    """The plan splits K over a cluster (here 8 splits; K = 1000 ends the
+    last split inside its last step): rows of an M=128 call (two row tiles)
+    equal the same rows at M = 1, 4 and 64 at any offset, bitwise."""
+    pl = plan(K, N, 16, dtype, torch.uint8)
+    assert pl.splits > 1
+    x, idx, cb = _qmm_inputs(gen, 128, K, N, dtype=dtype)
+    full = quant_matmul(x, idx, cb)          # two 64-row tiles
+    torch.testing.assert_close(full.float(),
+                               ref_quant_matmul(x, idx, cb).float(),
+                               **_QMM_TOL[dtype])
+    for m in (1, 4, 64):
+        for r0 in (0, 13, 64 - m, 64):
+            assert torch.equal(quant_matmul(x[r0:r0 + m], idx, cb),
+                               full[r0:r0 + m])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_matmul_stacked_groups_are_the_flat_kernel_under_split_k(
+        gen, dtype):
+    G, M, K, N = 3, 4, 1024, 1024
+    assert plan(K, N, 16, dtype, torch.uint8).splits == 8
+    x, idx, cb = _qmm_inputs(gen, M, K, N, G=G, dtype=dtype)
+    out = quant_matmul_stacked(x, idx, cb)
+    torch.testing.assert_close(
+        out.float(), ref_quant_matmul_stacked(x, idx, cb).float(),
+        **_QMM_TOL[dtype])
+    for g in range(G):
+        assert torch.equal(out[g], quant_matmul(x[g], idx[g], cb[g]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("idx_dtype,bad", [(torch.uint8, 200),
+                                           (torch.int32, -1),
+                                           (torch.int32, 1 << 20)])
+def test_quant_matmul_out_of_range_code_is_nan_in_its_column(
+        gen, dtype, idx_dtype, bad):
+    """A code outside [0, L) reads as NaN (the reference's jnp.take fill):
+    every row of its column is NaN, every other output finite."""
+    M, K, N = 4, 1000, 1024
+    x, idx, cb = _qmm_inputs(gen, M, K, N, dtype=dtype, idx_dtype=idx_dtype)
+    idx[517, 300] = bad
+    out = quant_matmul(x, idx, cb)
+    assert bool(torch.isnan(out[:, 300]).all())
+    rest = torch.cat([out[:, :300], out[:, 301:]], dim=1)
+    assert bool(torch.isfinite(rest).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [1000, 33])
+def test_quant_matmul_terms_past_k_are_exactly_zero(gen, K, dtype):
+    """Codebook entry 0 is inf and no code uses it: the ragged last step's
+    positions past K (whose codes the kernel zero-fills) must add nothing,
+    not 0 * inf."""
+    x, idx, cb = _qmm_inputs(gen, 4, K, 256, dtype=dtype)
+    idx = idx.clamp(min=1)
+    cb[0] = float("inf")
+    out = quant_matmul(x, idx, cb)
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out.float(),
+                               ref_quant_matmul(x, idx, cb).float(),
+                               **_QMM_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [(16, 1024, 1024), (4, 2048, 1024),
+                                   (5, 33, 17)])
+def test_quant_matmul_codebook_of_32768_entries(gen, M, K, N, dtype):
+    """L = 32768 with int32 codes: the largest codebook the kernel stages
+    (64 KB in bf16, 128 KB in f32) beside its ring, clusters of up to 8
+    such blocks."""
+    x, idx, cb = _qmm_inputs(gen, M, K, N, L=32768, dtype=dtype,
+                             idx_dtype=torch.int32)
+    n0 = quant_matmul.launches
+    out = quant_matmul(x, idx, cb)
+    assert quant_matmul.launches == n0 + 1
+    torch.testing.assert_close(out.float(),
+                               ref_quant_matmul(x, idx, cb).float(),
+                               **_QMM_TOL[dtype])
+
+
+@pytest.mark.parametrize("L,x_dtype,idx_dtype", [
+    (L, x, i) for L in (16, 1000, 32768)
+    for x in (torch.bfloat16, torch.float32)
+    for i in (torch.uint8, torch.int32)
+    if i == torch.int32 or L <= 256])       # uint8 codes address 256
+def test_kernel_shared_memory_fits_every_plan(gen, L, x_dtype,
+                                              idx_dtype):
+    """The block the kernel lays out for any weight's plan fits Hopper's
+    227 KB, up to L = 32768; at the main path's L = 16 (bf16, uint8 codes)
+    four blocks fit an SM's 228 KB, 1 KB each reserved."""
+    for K, N in [(1024, 1024), (1024, 2048), (1024, 3072), (2048, 1024),
+                 (3072, 1024), (33, 17), (64, 64), (8192, 8192)]:
+        pl = plan(K, N, L, x_dtype, idx_dtype)
+        stages, smem = kernel_smem(pl, L, x_dtype, idx_dtype)
+        assert stages == min(2, pl.split_steps)
+        assert smem <= 232448
+        if (L, x_dtype, idx_dtype) == (16, torch.bfloat16, torch.uint8):
+            assert 4 * (smem + 1024) <= 233472
 
 
 def test_quant_matmul_wrapper_rejects_what_the_kernel_does_not_take(gen):
