@@ -265,11 +265,14 @@ def bound(p, q, out_bytes, keys) -> tuple[float, str]:
     """Least time for the call: bytes it must move (each live page once,
     as codes + codebooks when frozen, fp otherwise; q; the output; table
     and lengths) over HBM bandwidth, vs its operations at the card's peak
-    for their types. QK^T multiplies q by K in the pool's dtype (the bf16
-    tensor-core rate when both are bf16); P@V multiplies f32 probabilities
-    (the f32 rate). The tensor cores and the FMA units can run at once, so
-    the operations take the longer of the two. 2 flops per multiply-add,
-    per query head and live key (``keys`` counts (row, key) pairs)."""
+    for their types. QK^T multiplies q by K in the pool's dtype; P@V
+    multiplies f32 probabilities by V in the pool's dtype. With bf16 pools
+    both are priced at the bf16 tensor-core rate, one product per
+    multiply-add: the least costly way of doing the work (the kernel runs
+    P@V as two bf16 products, P's hi and lo halves, for f32 accuracy), so
+    the bound stays a lower bound; with f32 pools both at the f32 rate.
+    2 flops per multiply-add, per query head and live key (``keys`` counts
+    (row, key) pairs)."""
     bs, Hkv, Dh = p["k_fp"].shape[1:]
     fp_page = 2 * bs * Hkv * Dh * p["k_fp"].element_size()
     code_page = 2 * (bs * Hkv * Dh // 2 + p["k_cb"].shape[1] * 4)
@@ -284,8 +287,7 @@ def bound(p, q, out_bytes, keys) -> tuple[float, str]:
     t_bytes = total / HBM_BYTES_PER_S * 1e3
     flops = 2.0 * SHAPES["Hq"] * Dh * keys            # each of QK^T, P@V
     bf16 = q.dtype == p["k_fp"].dtype == torch.bfloat16
-    t_ops = max(flops / (BF16_FLOPS if bf16 else F32_FLOPS),
-                flops / F32_FLOPS) * 1e3
+    t_ops = 2 * flops / (BF16_FLOPS if bf16 else F32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -308,6 +310,57 @@ def model_ms(p, valid=None) -> float:
 def live_keys(valid, W: int) -> int:
     """(query row, key) pairs the causal mask lets through."""
     return sum(max(int(v) - (W - 1 - w), 0) for v in valid for w in range(W))
+
+
+def pa_plan(p, W: int, dtype) -> dict:
+    """The attention kernel's launch plan for a call of W queries over the
+    pool ``p``: pages a split, splits of the longest sequence, the blocks
+    that compute a split and the blocks launched, shared memory a block."""
+    from repro_torch.kernels.paged_attention import kernel_smem, plan
+
+    Hq, Hkv, Dh, bs, L = (SHAPES[k] for k in ("Hq", "Hkv", "Dh", "bs", "L"))
+    pl = plan(bs, Dh, dtype)
+    rows = W * Hq // Hkv
+    tiles = -(-rows // pl.tile_rows)
+    working = 0
+    for v in p["kv_valid_len"].tolist():
+        for t in range(tiles):      # the tile's longest row sees these keys
+            last_w = (min((t + 1) * pl.tile_rows, rows) - 1) // (Hq // Hkv)
+            n = max(0, v - (W - 1 - last_w))
+            working += max(1, len(pl.split_ranges(-(-n // bs))))
+    B = p["kv_valid_len"].numel()
+    return dict(split_pages=pl.split_pages, tile_rows=pl.tile_rows,
+                cluster=pl.cluster,
+                splits=len(pl.split_ranges(-(-max(p["kv_valid_len"].tolist())
+                                             // bs))),
+                working_blocks=working * Hkv,
+                blocks=pl.blocks(B, rows, Hkv),
+                smem=kernel_smem(pl, bs, Dh, L, dtype))
+
+
+def pa_plan_text(r: dict) -> str:
+    return (f"P={r['split_pages']} pages a split, {r['splits']} splits, "
+            f"tiles of {r['tile_rows']} rows, cluster {r['cluster']}, "
+            f"{r['working_blocks']} working of {r['blocks']} blocks, "
+            f"{r['smem']} B smem")
+
+
+def host_us(fn, *, calls=200, reps=25) -> tuple[float, float]:
+    """The host's time of one call, in us: ``calls`` calls enqueued back to
+    back after a sync (fewer than the launch queue holds, so none waits for
+    the device), on the CPU clock; the median and the least of ``reps``
+    (the least is the one other work on the host disturbed least)."""
+    for _ in range(calls):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return float(np.median(times)), float(np.min(times))
 
 
 # ------------------------------------------------------------ phases
@@ -388,6 +441,14 @@ def check_kernel(gen) -> dict:
     lib_ms = time_ms(lambda: gather_sdpa(q[:, None], p), flush=flush)
     b_ms, b_by = bound(p, q, q.numel() * 2,
                        live_keys(p["kv_valid_len"].tolist(), 1))
+    # the serve path's longest decode step: 4 slots at max_seq_len 512
+    p5 = make_pool(gen, valid=[512, 512, 512, 512], dtype=torch.bfloat16)
+    d512 = dict(ms=time_ms(lambda: kernel(q, p5), flush=flush),
+                plain_ms=time_ms(lambda: plain(q, p5), flush=flush),
+                library_ms=time_ms(lambda: gather_sdpa(q[:, None], p5),
+                                   flush=flush))
+    d512["bound_ms"], d512["bound_by"] = bound(
+        p5, q, q.numel() * 2, live_keys(p5["kv_valid_len"].tolist(), 1))
     pp = make_pool(gen, valid=[256], dtype=torch.bfloat16)
     qp = torch.randn(1, 64, Hq, Dh, generator=gen,
                      device="cuda").to(torch.bfloat16)
@@ -398,19 +459,42 @@ def check_kernel(gen) -> dict:
     pre_plain = time_ms(lambda: plain(qp, pp, valid=off + 64), flush=flush)
     pre_lib = time_ms(lambda: gather_sdpa(qp, pp), flush=flush)
     pb_ms, pb_by = bound(pp, qp, qp.numel() * 2, live_keys([256], 64))
+    plans = {"decode": pa_plan(p, 1, torch.bfloat16),
+             "decode_512": pa_plan(p5, 1, torch.bfloat16),
+             "prefill": pa_plan(dict(kv_valid_len=off + 64), 64,
+                                torch.bfloat16)}
+    host = host_us(lambda: kernel(q, p))[1]
+    ptxas = {}
+    for k, v in ptxas_by_kernel("paged_attention").items():
+        m = re.search(r"paged_attention_kernelI(13__nv_bfloat16|f)Li(\d+)E", k)
+        if m:
+            dt = "f32" if m.group(1) == "f" else "bf16"
+            ptxas[f"{dt}/Dh={m.group(2)}"] = v
     card = card_line()
+    for name, r in plans.items():
+        phase("kernel", f"plan {name}: {pa_plan_text(r)}")
+    phase("kernel", "ptxas paged_attention_kernel: " + "; ".join(
+        f"{k} {v}" for k, v in sorted(ptxas.items())))
     phase("kernel", f"decode B=4 x 272 tokens bf16: kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, gather+sdpa {lib_ms:.4f} ms, bound "
           f"{b_ms:.4f} ms ({b_by}; bytes model {model_ms(p):.4f} ms) on "
           f"{card}")
+    phase("kernel", f"decode B=4 x 512 tokens bf16: kernel "
+          f"{d512['ms']:.4f} ms, plain {d512['plain_ms']:.4f} ms, "
+          f"gather+sdpa {d512['library_ms']:.4f} ms, bound "
+          f"{d512['bound_ms']:.4f} ms ({d512['bound_by']}) on {card}")
     phase("kernel", f"prefill chunk 64 @ 192 bf16: kernel {pre_ms:.4f} ms, "
           f"plain {pre_plain:.4f} ms, gather+sdpa {pre_lib:.4f} ms, bound "
           f"{pb_ms:.5f} ms ({pb_by}; bytes model "
           f"{model_ms(pp, off + 64):.4f} ms) on {card}")
+    phase("kernel", f"wrapper host time, decode B=4 x 272: {host:.2f} us a "
+          f"call (least of 25 x 200 calls) on {card}")
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms, prefill_ms=pre_ms,
                 prefill_plain_ms=pre_plain, prefill_bound_ms=pb_ms,
-                prefill_bound_by=pb_by, prefill_library_ms=pre_lib)
+                prefill_bound_by=pb_by, prefill_library_ms=pre_lib,
+                decode_512=d512, host_us_per_call=host, plan=plans,
+                ptxas=ptxas)
 
 
 def qmm_inputs(gen, M, K, N, dtype, *, L=16, G=None,

@@ -7,6 +7,8 @@ pytest -q -m cuda tests/test_torch_cuda.py`` (this file imports no JAX).
 Tolerance: paged attention atol 2e-5 / rtol 1e-4 at f32 (the reference's
 kernel bar); quant_matmul and fista_quant below.
 """
+import importlib
+
 import pytest
 import torch
 
@@ -77,6 +79,208 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(gen):
     valid = torch.tensor([3], dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="int32"):
         paged_decode_attention(q, *state, table, valid, quantized=True)
+
+
+# The redesigned kernel's splits (64 keys a split, plan(bs, Dh, dtype)) at
+# qwen3-0.6B's head shape (Dh 128, block 16, G = 2). Tolerances: f32 the
+# reference's bar (above); bf16: kernel and plain version both compute in
+# f32 and round the output once to bf16 (chip_smoke.py's BF16_TOL).
+_PA_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4),
+           torch.bfloat16: dict(atol=1e-5, rtol=2.0 ** -6)}
+_SPLIT = 64
+
+
+def _big_pool(gen, lens, dtype, *, Hkv=2, Dh=128, bs=16, L=16):
+    """Pools for sequences of the given lengths (0 = an idle slot on the
+    null page with valid 1), each on its own pages, half of them
+    frozen."""
+    pages = [-(-max(n, 1) // bs) for n in lens]
+    nb = 1 + sum(p for p, n in zip(pages, lens) if n)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    k_fp, v_fp = rnd(nb, bs, Hkv, Dh).to(dtype), rnd(nb, bs, Hkv, Dh).to(dtype)
+    codes = torch.randint(0, L, (2, nb, bs, Hkv, Dh), generator=gen,
+                          device="cuda", dtype=torch.uint8)
+    blk_q = torch.rand(nb, generator=gen, device="cuda") < 0.5
+    blk_q[0] = False
+    table = torch.zeros(len(lens), max(pages), dtype=torch.int32)
+    nxt = 1
+    for b, (p, n) in enumerate(zip(pages, lens)):
+        if n:
+            table[b, :p] = torch.arange(nxt, nxt + p)
+            nxt += p
+    state = [k_fp, v_fp, pack4(codes[0]), pack4(codes[1]), rnd(nb, L),
+             rnd(nb, L), blk_q, table.cuda()]
+    valid = torch.tensor([max(n, 1) for n in lens], dtype=torch.int32,
+                         device="cuda")
+    return state, valid
+
+
+def _stale_nan(state, valid):
+    """A copy of the pools with NaN in every fp row past each sequence's
+    last key inside its last page (never read by the kernel; the plain
+    version, which reads every table page, would turn them into NaN)."""
+    k_fp, v_fp = state[0].clone(), state[1].clone()
+    bs = k_fp.shape[1]
+    for b, n in enumerate(valid.tolist()):
+        last = int(state[-1][b, (n - 1) // bs])
+        k_fp[last, (n - 1) % bs + 1:] = float("nan")
+        v_fp[last, (n - 1) % bs + 1:] = float("nan")
+    return [k_fp, v_fp, *state[2:]]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("softcap", [None, 30.0])
+def test_decode_kernel_at_split_boundaries(gen, dtype, softcap):
+    """Valid lengths one short of, at, and one past 1, 2 and 8 splits, a
+    2048-token sequence and an idle slot, one launch."""
+    lens = [_SPLIT - 1, _SPLIT, _SPLIT + 1, 2 * _SPLIT - 1, 2 * _SPLIT + 1,
+            8 * _SPLIT - 1, 8 * _SPLIT, 8 * _SPLIT + 1, 2048, 0]
+    state, valid = _big_pool(gen, lens, dtype)
+    q = torch.randn(len(lens), 4, 128, generator=gen, device="cuda").to(dtype)
+    kw = dict(softcap=softcap, quantized=True, packed=True)
+    ref = ref_paged_decode(q, *state, valid, **kw)
+    out = paged_decode_attention(q, *_stale_nan(state, valid), valid, **kw)
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out.float(), ref.float(), **_PA_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sequence_alone_is_bitwise_the_sequence_among_eight(gen, dtype):
+    lens = [300, 17, 2048, 64, 0, 129, 511, 1000]
+    state, valid = _big_pool(gen, lens, dtype)
+    q = torch.randn(len(lens), 4, 128, generator=gen, device="cuda").to(dtype)
+    out = paged_decode_attention(q, *state, valid, quantized=True)
+    for b in range(len(lens)):
+        alone = paged_decode_attention(
+            q[b:b + 1], *state[:-1], state[-1][b:b + 1].clone(),
+            valid[b:b + 1].clone(), quantized=True)
+        assert torch.equal(alone[0], out[b])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunked_prefill_and_window_bitwise_across_splits(gen, dtype):
+    """A 300-token prompt (5 splits) in chunks of 64 and of 7 equals the
+    whole prompt; a W = 5 window at 700 tokens (11 splits, two rounds of
+    the cluster) equals 5 single-row calls. Bitwise."""
+    state, _ = _big_pool(gen, [300], dtype)
+    q = torch.randn(1, 300, 4, 128, generator=gen, device="cuda").to(dtype)
+    zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+    whole = paged_prefill_attention(q, *state, zero, quantized=True)
+    torch.testing.assert_close(whole.float(), ref_paged_decode(
+        q, *state, zero + 300, quantized=True).float(), **_PA_TOL[dtype])
+    for C in (64, 7):
+        parts = torch.cat([paged_prefill_attention(
+            q[:, o:o + C], *state, zero + o, quantized=True)
+            for o in range(0, 300, C)], dim=1)
+        assert torch.equal(whole, parts), C
+    W = 5
+    state, valid = _big_pool(gen, [700, 90, 6], dtype)
+    qw = torch.randn(3, W, 4, 128, generator=gen, device="cuda").to(dtype)
+    win = paged_decode_attention(qw, *state, valid, quantized=True)
+    rows = torch.stack([paged_decode_attention(
+        qw[:, w], *state, valid - (W - 1 - w), quantized=True)
+        for w in range(W)], dim=1)
+    assert torch.equal(win, rows)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fold_is_in_split_order_whatever_the_cluster(gen, dtype):
+    """The splits are folded in split order, not by rank: clusters of 1, 3
+    and 8 blocks (32, 11 and 4 rounds at 2048 tokens) give the plan's
+    output bitwise."""
+    pa = importlib.import_module("repro_torch.kernels.paged_attention")
+    state, valid = _big_pool(gen, [2048, 700, 5], dtype)
+    q = torch.randn(3, 6, 4, 128, generator=gen, device="cuda").to(dtype)
+    kw = dict(softcap=None, quantized=True, packed=True)
+    want = pa._launch(q, *state, valid, **kw)
+    base = pa.plan(16, 128, dtype)
+    for cluster in (1, 3, 8):
+        got = pa._launch(q, *state, valid, **kw,
+                         pl=base._replace(cluster=cluster))
+        assert torch.equal(got, want), cluster
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs", [1, 4, 8, 32])
+def test_decode_kernel_at_other_block_sizes(gen, dtype, bs):
+    """Pages of 1-32 keys (several pages a warp, or a page over two warps),
+    packed and unpacked codes, Dh 64."""
+    for packed, L in ((True, 16), (False, 200)):
+        lens = [130, 1, 64 + bs, 0]
+        pages = [-(-max(n, 1) // bs) for n in lens]
+        nb = 1 + sum(pages)
+        rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+        codes = torch.randint(0, L, (2, nb, bs, 2, 64), generator=gen,
+                              device="cuda", dtype=torch.uint8)
+        if packed:
+            codes = pack4(codes)
+        blk_q = torch.rand(nb, generator=gen, device="cuda") < 0.5
+        table = torch.zeros(len(lens), max(pages), dtype=torch.int32)
+        nxt = 1
+        for b, p in enumerate(pages):
+            table[b, :p] = torch.arange(nxt, nxt + p)
+            nxt += p
+        state = [rnd(nb, bs, 2, 64).to(dtype), rnd(nb, bs, 2, 64).to(dtype),
+                 codes[0].contiguous(), codes[1].contiguous(), rnd(nb, L),
+                 rnd(nb, L), blk_q, table.cuda()]
+        valid = torch.tensor([max(n, 1) for n in lens], dtype=torch.int32,
+                             device="cuda")
+        q = torch.randn(len(lens), 3, 6, 64, generator=gen,
+                        device="cuda").to(dtype)
+        kw = dict(quantized=True, packed=packed)
+        torch.testing.assert_close(
+            paged_decode_attention(q, *state, valid, **kw).float(),
+            ref_paged_decode(q, *state, valid, **kw).float(),
+            **_PA_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_shared_memory_fits_every_plan(gen, dtype):
+    """The block the kernel lays out fits Hopper's 227 KB for every block
+    size, head_dim and codebook width the wrapper takes; at the main
+    path's shape (bs 16, Dh 128, L 16, bf16) four blocks fit an SM's 228
+    KB, 1 KB each reserved."""
+    pa = importlib.import_module("repro_torch.kernels.paged_attention")
+    for bs in (1, 2, 4, 8, 16, 32):
+        for Dh in (32, 64, 96, 128):
+            for L in (1, 16, 256):
+                smem = pa.kernel_smem(pa.plan(bs, Dh, dtype), bs, Dh, L,
+                                      dtype)
+                assert 0 < smem <= 232448, (bs, Dh, L)
+    main = pa.kernel_smem(pa.plan(16, 128, torch.bfloat16), 16, 128, 16,
+                          torch.bfloat16)
+    assert 4 * (main + 1024) <= 233472
+
+
+def test_paged_attention_wrapper_rejects_what_the_kernel_does_not_take(gen):
+    pa = importlib.import_module("repro_torch.kernels.paged_attention")
+    state = _pool(gen)
+    table = torch.tensor([[1, 2]], dtype=torch.int32, device="cuda")
+    valid = torch.tensor([9], dtype=torch.int32, device="cuda")
+    q = torch.randn(1, 4, 32, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="q dtype"):
+        paged_decode_attention(q.half(), *state, table, valid, quantized=True)
+    with pytest.raises(ValueError, match="k_fp/v_fp"):
+        paged_decode_attention(q.to(torch.bfloat16), *state, table, valid,
+                               quantized=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        strided = torch.tensor([[1, 0, 2, 0]], dtype=torch.int32,
+                               device="cuda")[:, ::2]
+        paged_decode_attention(q, *state, strided, valid, quantized=True)
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_decode_attention(q[..., :16], *[t[..., :16] for t in state[:2]],
+                               *state[2:], table, valid)
+    with pytest.raises(ValueError, match="codes shape"):
+        paged_decode_attention(q, *state[:2], state[2][..., :8], *state[3:],
+                               table, valid, quantized=True)
+    with pytest.raises(ValueError, match="block size"):
+        big = [torch.zeros(2, 48, 2, 32, device="cuda")] * 2
+        paged_decode_attention(q, *big, *state[2:], table, valid)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        pl = pa.plan(8, 32, torch.float32)          # 64 keys a split
+        pa._launch(q[:, None], *state, table, valid, softcap=None,
+                   quantized=True, packed=True,
+                   pl=pl._replace(split_pages=4))
 
 
 # ------------------------------------------------------------ quant_matmul
