@@ -7,10 +7,12 @@ seeded random weights) through continuous batching with chunked prefill:
 with kmeans_ls@16 KV pages once from dense weights, and once, the main
 path, from kmeans_ls@16 PTQ'd weights served as codes, with the launcher's
 replay checks; then the stacked qmatmul path over the 28 layers' codes;
-then the same PTQ'd weights with iter_l1@16 KV pages (every freeze a
-14-step lambda bisection through the FISTA kernel), with the replay
-checks; last, a batched l1_ls PTQ of the whole model in one FISTA launch,
-served for a few requests.
+then the same PTQ'd weights with iter_l1@16 KV pages (every freeze's
+solve, power iteration and 14-step lambda bisection, one launch of the
+FISTA kernel's freeze entry), with the replay checks; last, a batched
+l1_ls PTQ of the whole model in one FISTA launch, served for a few
+requests. Before serving it runs the card tests
+(``pytest -m cuda tests/test_torch_cuda.py``) in a child process.
 
     python3 chip_smoke.py
 
@@ -91,6 +93,7 @@ FISTA_TOL = dict(atol=2e-4, rtol=1e-3)
 FISTA_OBJ_RTOL = 1e-3
 FISTA_F64_RATIO = 3.0
 FISTA_OPS_PER_COL = 18         # f32 operations per column and step
+POWER_OPS_PER_COL = 12         # the same per power iteration of a freeze
 # the seven projections of a qwen3-0.6B layer as (K, N): q, k, v, o, gate,
 # up, down
 PROJ_SHAPES = [(1024, 2048), (1024, 1024), (1024, 1024), (2048, 1024),
@@ -687,14 +690,15 @@ def serve_once(argv, params=None) -> tuple:
     (from ``params`` if given) with every launch count set to 0 just
     before; returns (summary, params, cfg, args, launches by kernel) read
     just after."""
-    from repro_torch.kernels import (fista_quant, paged_decode_attention,
-                                     quant_matmul, quant_matmul_stacked)
+    from repro_torch.kernels import (fista_freeze, fista_quant,
+                                     paged_decode_attention, quant_matmul,
+                                     quant_matmul_stacked)
     from repro_torch.launch import serve
     from repro_torch.quant import fallback_count
 
     args = serve.parse_args(argv)
     kernels = (paged_decode_attention, quant_matmul, quant_matmul_stacked,
-               fista_quant)
+               fista_quant, fista_freeze)
     for k in kernels:
         k.launches = 0
     fb0 = fallback_count()
@@ -708,16 +712,15 @@ def check_launches(s, cfg, launches, quantized: bool, *, fista: bool = False,
                    requests: int = 8) -> str:
     """Paged attention: layers x (decode steps + prefill chunks); the dequant
     matmul: 7 projections x that from codes, 0 from dense weights; FISTA:
-    14 per freeze dispatch on an iter_l1 pool, else 0; no stacked launch
-    and no dense fallback on the serving path."""
-    from repro_torch.kernels.page_quant import BISECT_STEPS
-
+    one launch of its freeze entry per freeze dispatch on an iter_l1 pool,
+    else 0, and none of its fista_quant entry; no stacked launch and no
+    dense fallback on the serving path."""
     steps = s["decode_steps"] + s["prefill_chunks"]
     expect = {"paged_decode_attention": cfg.n_layers * steps,
               "quant_matmul": 7 * cfg.n_layers * steps if quantized else 0,
               "quant_matmul_stacked": 0,
-              "fista_quant": (BISECT_STEPS * s["freeze_dispatches"]
-                              if fista else 0),
+              "fista_quant": 0,
+              "fista_freeze": s["freeze_dispatches"] if fista else 0,
               "fallbacks": 0}
     if s["completed"] != requests or s["freeze_installs"] <= 0 \
             or s["freeze_dispatches"] <= 0:
@@ -739,9 +742,9 @@ def check_launches(s, cfg, launches, quantized: bool, *, fista: bool = False,
             f"{s['prefill_chunks']} prefill chunks); "
             f"{expect['quant_matmul']} quant_matmul launches"
             + (" = 7 x that" if quantized else "")
-            + f"; {expect['fista_quant']} fista_quant launches"
-            + (f" = {BISECT_STEPS} x {s['freeze_dispatches']} freeze "
-               f"dispatches" if fista else "")
+            + f"; {expect['fista_freeze']} fista_freeze launches"
+            + (f" = 1 x {s['freeze_dispatches']} freeze dispatches"
+               if fista else "") + "; 0 fista_quant launches"
             + f"; qmatmul_dequant_fallback=0; {s['freeze_installs']} freeze "
             f"installs")
 
@@ -957,6 +960,21 @@ def fista_bound(args, n_iters) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def freeze_bound(w, n) -> tuple[float, str]:
+    """Least time for a freeze's solve: per live column, POWER_ITERS power
+    iterations and BISECT_STEPS x FISTA_ITERS FISTA steps at the f32 peak,
+    vs w, d, n, x0 read and best, eta, lam_hi written once."""
+    from repro_torch.kernels.fista_quant import (BISECT_STEPS, FISTA_ITERS,
+                                                 POWER_ITERS)
+
+    live = int((n > 0).sum())
+    t_ops = live * (POWER_ITERS * POWER_OPS_PER_COL + BISECT_STEPS
+                    * FISTA_ITERS * FISTA_OPS_PER_COL) / F32_FLOPS * 1e3
+    t_bytes = (4 * w.numel() + w.shape[1] + 2 * w.shape[0]) * 4 \
+        / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def fista_objective(args, alpha) -> torch.Tensor:
     """Eq. 6 per row in float64 on the kernel's (preconditioned) inputs:
     0.5 * sum n (w - cumsum(alpha d))^2 + sum lam |alpha|."""
@@ -967,32 +985,64 @@ def fista_objective(args, alpha) -> torch.Tensor:
     return 0.5 * (n * r * r).sum(1) + (lam * a.abs()).sum(1)
 
 
-def fista_page_inputs(gen, R=224):
-    """A page freeze's kernel inputs at the serve path's shape: R = 2 x 28
-    layers x 4 pages rows of 16 x 8 x 128 values, sketched to 128 columns,
-    at a lambda halfway to each row's lam_hi (a bisection step)."""
-    from repro_torch.kernels.page_quant import fista_page_problem
-
+def page_rows(gen, R=224):
+    """A freeze's rows at the serve path's shape: R = 2 x 28 layers x 4
+    pages rows of 16 x 8 x 128 values, every third skewed."""
     E = SHAPES["bs"] * SHAPES["Hkv"] * SHAPES["Dh"]
     rows = torch.randn(R, E, generator=gen, device="cuda")
     rows[::3] *= torch.linspace(0.1, 3.0, E, device="cuda")
-    p = fista_page_problem(rows)
+    return rows
+
+
+def fista_page_inputs(gen, R=224):
+    """A page freeze's kernel inputs at the serve path's shape, sketched
+    to 128 columns, at a lambda halfway to each row's lam_hi (a bisection
+    step)."""
+    from repro_torch.kernels.page_quant import fista_page_problem
+
+    p = fista_page_problem(page_rows(gen, R))
     lam = (0.5 * p["lam_hi"])[:, None] / p["scale"] * (p["n"] > 0)
     blk = lambda a: a.reshape(R, 1, 128).contiguous()
     return (blk(p["w"]), blk(p["dt"]), blk(p["n"]), blk(lam), p["eta"])
 
 
+def count_ops(fn) -> int:
+    """aten ops ``fn()`` dispatches (what the host enqueues)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.ops += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.ops
+
+
 def check_fista(gen) -> dict:
-    """Kernel 4 (fista_quant) vs its plain version on the card, to the
+    """Kernel 4 on the card. fista_quant vs its plain version to the
     reference's bar: the page freeze's shape (224, 1, 128) at 100 steps
     and the batched PTQ's (7, 32, 128) at 1000 steps (the reference's
     kernel test inputs); a row alone bitwise the same row in the batch;
-    a page freeze with no host sync; solve_fista_batch's padding tail 0.
-    Times at the page freeze's shape (batched PTQ's on its own problems,
-    check_ptq_batched)."""
-    from repro_torch.kernels import (fista_quant, power_iter_lipschitz,
+    solve_fista_batch's padding tail 0. fista_freeze (one launch for a
+    freeze's solve) bitwise the torch composition with BISECT_STEPS
+    fista_quant launches, in best, eta, lam_hi, codes and codebooks; a row
+    alone the same row among 224; a freeze with no host sync; its host
+    time and aten ops. Times at the page freeze's shape (batched PTQ's on
+    its own problems, check_ptq_batched). Returns the two entries'
+    records."""
+    from repro_torch.kernels import (fista_freeze, fista_quant,
+                                     power_iter_lipschitz,
                                      quantize_pages_fista, ref_fista,
                                      solve_fista_batch)
+    from repro_torch.kernels.fista_quant import (BISECT_STEPS, freeze_plain,
+                                                 nnz_of, plan, start_vector)
+    from repro_torch.kernels.page_quant import (fista_page_problem,
+                                                fista_page_refit,
+                                                fista_page_sketch)
 
     def plain(args, n_iters):
         B = args[0].shape[0]
@@ -1024,21 +1074,73 @@ def check_fista(gen) -> dict:
             if not torch.equal(alone[0], got[i]):
                 raise AssertionError(f"fista_quant {name}: row {i} alone "
                                      f"!= the same row in the batch")
+        Mp = args[0].shape[1] * args[0].shape[2]
         phase("fista", f"{name} x {n_iters} steps: max|err| {err:.3g} vs "
               f"plain (atol {FISTA_TOL['atol']}, rtol {FISTA_TOL['rtol']}) "
-              f"OK; rows 0, 3, last alone == in the batch, bitwise")
-    # a freeze (sketch, power iteration, 14-step bisection, refit) makes no
-    # host sync: it stays one asynchronous dispatch on the side stream
-    E = SHAPES["bs"] * SHAPES["Hkv"] * SHAPES["Dh"]
-    rows = torch.randn(224, E, generator=gen, device="cuda")
+              f"OK; rows 0, 3, last alone == in the batch, bitwise; plan "
+              f"{plan(Mp)._asdict()}, {plan(Mp).blocks(args[0].shape[0])} "
+              f"blocks")
+    # the freeze's solve in one launch == the composition, bitwise
+    rows = page_rows(gen)
+    sk = fista_page_sketch(rows)
+    fargs = (sk["w"], sk["d"], sk["n"], start_vector(128, rows.device))
+    fused = fista_freeze(*fargs, num_values=16)
+    composed = freeze_plain(*fargs, num_values=16)
+    pp = fista_page_problem(rows)
+    same = [torch.equal(a, b) for a, b in zip(fused, composed)] + [
+        torch.equal(fused[1], pp["eta"]),
+        torch.equal(fused[2], pp["lam_hi"])]
+    same += [torch.equal(a, b) for a, b in zip(
+        fista_page_refit(rows, sk, fused[0], 16),
+        fista_page_refit(rows, sk, composed[0], 16))]
+    for i in (0, 3, rows.shape[0] - 1):
+        one = fista_freeze(*(sk[k][i:i + 1] for k in "wdn"), fargs[3],
+                           num_values=16)
+        same += [torch.equal(a[0], b[i]) for a, b in zip(one, fused)]
+    if not all(same):
+        raise AssertionError(f"fista_freeze vs the composition (best, eta, "
+                             f"lam_hi; eta, lam_hi vs fista_page_problem; "
+                             f"codes, codebooks; rows 0, 3, last alone): "
+                             f"{same}")
+    f_err = max((a - b).abs().max().item() for a, b in zip(fused, composed))
+    support = int((fused[0].abs() > 1e-12).sum())
+    phase("fista", f"fista_freeze (224 rows, one launch) == the composition "
+          f"with {BISECT_STEPS} fista_quant launches, bitwise (max|err| "
+          f"{f_err:.3g}): best ({support} support columns), eta, lam_hi (== "
+          f"fista_page_problem's), codes and codebooks; rows 0, 3, last "
+          f"alone == among 224")
+    # the freeze against its plain version on the CPU (ref_fista's cumsum
+    # order) on 16 rows: the power iteration's eta and lam_hi to rtol 1e-5,
+    # every row's support within L levels and its level count within 1 of
+    # the CPU's (f32 against f64 FISTA on the CPU moves no row's count)
+    cpu = freeze_plain(*(a[:16].cpu() for a in fargs[:3]), fargs[3].cpu(),
+                       num_values=16)
+    for k, (a, b) in enumerate(zip(fused[1:], cpu[1:])):
+        torch.testing.assert_close(a[:16].cpu(), b, rtol=1e-5, atol=0,
+                                   msg=f"fista_freeze vs CPU plain "
+                                       f"{('eta', 'lam_hi')[k]}")
+    nnz_gpu, nnz_cpu = nnz_of(fused[0][:16])[0].cpu(), nnz_of(cpu[0])[0]
+    nnz_gap = int((nnz_gpu - nnz_cpu).abs().max())
+    if nnz_gap > 1 or int(nnz_gpu.max()) > 16:
+        raise AssertionError(f"fista_freeze vs CPU plain: levels "
+                             f"{nnz_gpu.tolist()} vs {nnz_cpu.tolist()}")
+    phase("fista", f"fista_freeze vs its plain version on the CPU, rows "
+          f"0-15: eta, lam_hi within rtol 1e-5; levels {nnz_gpu.tolist()} "
+          f"(CPU {nnz_cpu.tolist()}, tolerance 1, at most 16)")
+    # a freeze (sketch, solve, refit) makes no host sync: it stays one
+    # asynchronous dispatch on the side stream
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         quantize_pages_fista(rows, num_values=16)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    phase("fista", "quantize_pages_fista (224 rows): no host sync (CUDA "
-          "sync debug mode 'error')")
+    freeze = lambda: quantize_pages_fista(rows, num_values=16)
+    ops = count_ops(freeze)
+    h_med, h_min = (t / 1e3 for t in host_us(freeze, calls=1, reps=20))
+    phase("fista", f"quantize_pages_fista (224 rows): no host sync (CUDA "
+          f"sync debug mode 'error'); {ops} aten ops; host {h_med:.3f} ms "
+          f"(least {h_min:.3f}) a freeze")
     m1, m2 = 60, 90           # the reference's padding-mask test, on the card
     W = torch.zeros(2, m2, device="cuda")
     D, N = torch.zeros_like(W), torch.zeros_like(W)
@@ -1056,22 +1158,56 @@ def check_fista(gen) -> dict:
           "padding tail stays 0, its columns within 1e-4 of the row solved "
           "alone")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    r = dict(ms=time_ms(lambda: fista_quant(*page, n_iters=100),
+    q = dict(ms=time_ms(lambda: fista_quant(*page, n_iters=100),
                         flush=flush),
              plain_ms=time_ms(lambda: plain(page, 100), flush=flush))
-    r["bound_ms"], r["bound_by"] = fista_bound(page, 100)
+    q["bound_ms"], q["bound_by"] = fista_bound(page, 100)
     phase("fista", f"page freeze (224,1,128) x 100 steps: kernel "
-          f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-          f"{r['bound_ms']:.5f} ms ({r['bound_by']}), library: none (no "
+          f"{q['ms']:.4f} ms, plain {q['plain_ms']:.4f} ms, bound "
+          f"{q['bound_ms']:.5f} ms ({q['bound_by']}), library: none (no "
           f"single PyTorch call computes FISTA) on {card_line()}")
-    return dict(max_abs_err=worst, library_ms=None, **r)
+    f = dict(ms=time_ms(lambda: fista_freeze(*fargs, num_values=16),
+                        flush=flush, reps=10),
+             plain_ms=time_ms(lambda: freeze_plain(*fargs, num_values=16),
+                              flush=flush, reps=10),
+             freeze_ms=time_ms(freeze, flush=flush, reps=10),
+             freeze_ops=ops, freeze_host_ms=h_med, freeze_host_min_ms=h_min,
+             plan=plan(128)._asdict())
+    f["bound_ms"], f["bound_by"] = freeze_bound(sk["w"], sk["n"])
+    phase("fista", f"fista_freeze (224 rows, {BISECT_STEPS} x 100 steps): "
+          f"kernel {f['ms']:.4f} ms, the composition {f['plain_ms']:.4f} ms"
+          f" (events, host gaps included), bound {f['bound_ms']:.5f} ms "
+          f"({f['bound_by']}); the whole freeze {f['freeze_ms']:.4f} ms, "
+          f"library: none on {card_line()}")
+    return dict(quant=dict(max_abs_err=worst, library_ms=None, **q),
+                freeze=dict(max_abs_err=f_err, library_ms=None, **f))
+
+
+def check_card_tests() -> None:
+    """The card tests (``pytest -q -m cuda tests/test_torch_cuda.py``) in a
+    child process; any failure fails the run."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(HERE, "src")] + [p for p in [os.environ.get(
+            "PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-m", "cuda",
+         "-p", "no:cacheprovider", "tests/test_torch_cuda.py"],
+        cwd=HERE, env=env, capture_output=True, text=True, timeout=900)
+    lines = [ln for ln in res.stdout.splitlines() if ln.strip()]
+    if res.returncode != 0:
+        print(res.stdout[-6000:], res.stderr[-2000:], file=sys.stderr)
+        raise AssertionError(f"card tests failed (rc {res.returncode}): "
+                             f"{lines[-1] if lines else ''}")
+    phase("card-tests", f"{lines[-1]} ({time.perf_counter() - t0:.1f} s)")
 
 
 def check_serve_iter_l1(params) -> dict:
     """The main path's PTQ'd weights served with iter_l1@16 KV pages: every
-    freeze a 14-step lambda bisection through the FISTA kernel on the
-    side stream. Launch counts, then the launcher's replay checks and the
-    fused-vs-gather replay on an fp and an iter_l1@16 pool."""
+    freeze's solve (power iteration, 14-step lambda bisection) one launch
+    of the FISTA kernel's freeze entry on the side stream. Launch counts,
+    then the launcher's replay checks and the fused-vs-gather replay on an
+    fp and an iter_l1@16 pool."""
     from repro_torch.launch import serve
 
     s, params, cfg, args, launches = serve_once(ITER_ARGS, params)
@@ -1080,8 +1216,9 @@ def check_serve_iter_l1(params) -> dict:
     serve.verify(params, cfg, args)      # the launcher's replay checks
     check_fused_vs_gather(params, cfg, args, (None, "iter_l1@16"))
     phase("serve-iter_l1", serve_line(s))
-    return dict(launches=launches["fista_quant"],
-                freeze_dispatches=s["freeze_dispatches"])
+    return dict(launches=launches["fista_freeze"],
+                freeze_dispatches=s["freeze_dispatches"],
+                tpot_p50_ms=s["tpot_p50_s"] * 1e3)
 
 
 def check_ptq_batched(cfg, gen) -> dict:
@@ -1199,6 +1336,7 @@ def main() -> int:
     q = check_qmm(gen)
     f = check_fista(gen)
     check_freeze(gen)
+    check_card_tests()
     check_serve_fp()
     sv = check_serve()
     st = check_stacked_path(sv["params"], sv["cfg"], gen)
@@ -1220,8 +1358,13 @@ def main() -> int:
         {"name": "fista_quant", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fista_quant.cu",
          "replaces": "src/repro/kernels/fista_quant.py:79",
+         "launches": pb.pop("ptq_launches"), **f["quant"], **pb},
+        {"name": "fista_freeze", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/fista_quant.cu",
+         "replaces": "src/repro/kernels/fista_quant.py:79",
          "launches": it["launches"],
-         "freeze_dispatches": it["freeze_dispatches"], **f, **pb},
+         "freeze_dispatches": it["freeze_dispatches"],
+         "serve_iter_l1_tpot_p50_ms": it["tpot_p50_ms"], **f["freeze"]},
     ]}
     phase("done", f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))

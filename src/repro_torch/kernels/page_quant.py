@@ -21,17 +21,17 @@ the sorted row (no atomics), so codebooks agree to rounding and do not
 change from run to run.
 
 ``quantize_pages_fista`` is the lam-method backend (registered for
-``iter_l1``): every row is sketched the same way, solved by the batched
-FISTA kernel (``fista_quant``, the paper's eq. 6) under a per-row lambda
-found by bisection so that the support fits the count budget, then
-assigned and LS-refit on the full row as on the kmeans path. All of it
-stays on the device with no host sync, so a freeze is one asynchronous
-dispatch on the side stream. Every reduction over a row runs in a fixed
-order made of elementwise ops (``_scan``, ``_fsum``, prefix-sum
-differences for the refit), so a row's codes and codebook are bitwise the
-same whatever the number of rows in the call. (``torch.cumsum`` and
-``torch.sum`` promise no such thing on the card: their kernels may change
-with the number of rows.)
+``iter_l1``): every row is sketched the same way, solved for the paper's
+eq. 6 by FISTA under a per-row lambda found by bisection so that the
+support fits the count budget (``fista_freeze``: one kernel launch on the
+card for the whole solve), then assigned and LS-refit on the full row as
+on the kmeans path. All of it stays on the device with no host sync, so a
+freeze is one asynchronous dispatch on the side stream. Every reduction
+over a row runs in a fixed order made of elementwise ops (``ref.scan``,
+``ref.fsum``, prefix-sum differences for the refit), so a row's codes and
+codebook are bitwise the same whatever the number of rows in the call.
+(``torch.cumsum`` and ``torch.sum`` promise no such thing on the card:
+their kernels may change with the number of rows.)
 
 The ``*_spec`` functions at the bottom are the registry's device entries,
 ``(rows, spec) -> (codes, cb)``.
@@ -40,7 +40,9 @@ from __future__ import annotations
 
 import torch
 
-from .fista_quant import fista_quant
+from .fista_quant import (CHUNK, fista_freeze, freeze_problem, nnz_of,
+                          start_vector)
+from .ref import fsum, scan
 
 _BIG = 1e30
 _SCAN_BLOCK = 16
@@ -68,21 +70,6 @@ def _cumsum(x: torch.Tensor) -> torch.Tensor:
     return (xb + ex[:, :, None]).reshape(R, n * _SCAN_BLOCK)[:, :N]
 
 
-def _scan(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix sum along dim 1 by doubling (Hillis-Steele):
-    log2(N) elementwise adds in a fixed order, so a row's sums are the
-    same bits whatever the other rows are, in a few dozen ops where
-    ``_cumsum`` takes hundreds (the FISTA path scans ~80 times a
-    freeze)."""
-    R, N = x.shape
-    zeros = x.new_zeros((R, N))
-    k = 1
-    while k < N:
-        x = x + torch.cat([zeros[:, :k], x[:, :N - k]], dim=1)
-        k *= 2
-    return x
-
-
 def _assign(rows: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     """Interval assignment: cluster id per value given sorted centers."""
     mid = 0.5 * (centers[:, 1:] + centers[:, :-1])           # (N, L-1)
@@ -102,7 +89,7 @@ def _seg_mean(svals: torch.Tensor, centers: torch.Tensor,
     ends = torch.cat([le, le.new_full((R, 1), E)], dim=1)         # (R, L)
     starts = torch.cat([le.new_zeros((R, 1)), le], dim=1)
     p = torch.cat([svals.new_zeros((R, 1), dtype=torch.float64),
-                   _scan(svals.double())], dim=1)
+                   scan(svals.double())], dim=1)
     num = torch.gather(p, 1, ends) - torch.gather(p, 1, starts)
     den = ends - starts
     return torch.where(den > 0, (num / den.clamp_min(1)).float(), centers)
@@ -127,8 +114,7 @@ def _dp_centers(sketch: torch.Tensor, L: int) -> torch.Tensor:
     # j <= i are real (j == i is an empty segment at zero cost); j > i is
     # unreachable
     reach = (i[None, :] >= i[:, None])[None]
-    cost = torch.where(reach, cost.clamp_min(0.0),
-                       torch.tensor(_BIG, device=dev))
+    cost = torch.where(reach, cost.clamp_min(0.0), _BIG)
 
     D = cost[:, 0, :]                                         # 1 segment
     Js = []
@@ -152,8 +138,7 @@ def _dp_centers(sketch: torch.Tensor, L: int) -> torch.Tensor:
     mean = seg / cnt.clamp_min(1.0)
     # empty segments: carry the running max so centers stay sorted
     first = torch.where(cnt[:, :1] > 0, mean[:, :1], sketch[:, :1])
-    rest = torch.where(cnt[:, 1:] > 0, mean[:, 1:],
-                       torch.tensor(-_BIG, device=dev))
+    rest = torch.where(cnt[:, 1:] > 0, mean[:, 1:], -_BIG)
     return torch.cummax(torch.cat([first, rest], dim=1), dim=1).values
 
 
@@ -185,140 +170,85 @@ def quantize_pages_device(rows: torch.Tensor, *, num_values: int,
 
 # ---------------------------------------------------------------- FISTA path
 
-_T = 128                # FISTA lane width (the kernel's column block)
-FISTA_ITERS = 100       # FISTA steps per bisection step
-BISECT_STEPS = 14       # lambda bisection steps: kernel launches a freeze
+_T = CHUNK              # sketch width: one 128-column block (a warp's)
 
 
-def _fsum(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
-    """Sum over ``dim`` in a fixed pairwise order of elementwise adds: the
-    same bits whatever the other dimensions are, on every device."""
-    while x.shape[dim] > 1:
-        n = x.shape[dim]
-        h = n // 2
-        y = x.narrow(dim, 0, h) + x.narrow(dim, h, h)
-        x = y if n % 2 == 0 else torch.cat([y, x.narrow(dim, n - 1, 1)], dim)
-    return x.squeeze(dim)
-
-
-def _suffix_sum(x: torch.Tensor) -> torch.Tensor:
-    cums = _scan(x)
-    return cums[:, -1:] - cums + x
+def fista_page_sketch(rows: torch.Tensor) -> dict:
+    """Each row sketched to ``Es = min(E, 128)`` equal-mass quantiles, both
+    extremes included (one lane block: a 2-block sketch measured worse in
+    the reference), each of weight E / Es. Returns the sorted rows
+    ``svals``, the sketch ``s`` and the padded w, d, n (R, 128) of the
+    eq.-6 problem on it."""
+    R, E = rows.shape
+    dev = rows.device
+    svals = torch.sort(rows, dim=1).values
+    Es = min(E, _T)
+    s = svals[:, _sketch_positions(E, Es, dev)]                # (R, Es)
+    pad = (0, _T - Es)
+    F = torch.nn.functional
+    return dict(
+        svals=svals, s=s, w=F.pad(s, pad),
+        d=F.pad(torch.diff(s, dim=1, prepend=s.new_zeros(R, 1)), pad),
+        n=F.pad(torch.full((R, Es), E / Es, dtype=torch.float32, device=dev),
+                pad))
 
 
 def fista_page_problem(rows: torch.Tensor) -> dict:
     """The sketched eq.-6 problem of each row, preconditioned, with its
-    step size: what ``_fista_pages`` hands the kernel.
-
-    Each row is sketched to ``Es = min(E, 128)`` equal-mass quantiles,
-    both extremes included (one lane block: a 2-block sketch measured
-    worse in the reference), each of weight E / Es. Returns the sorted
-    rows ``svals``, the sketch ``s``, the padded w, d, n (R, nb*128), the
-    preconditioned column scales ``dt`` and their ``scale``, the step
-    size ``eta`` (R, 1, 1) from 40 power iterations, and ``lam_hi``
-    (R,), a lambda above which alpha = 0."""
-    R, E = rows.shape
-    dev = rows.device
-    rows = rows.float()
-    svals = torch.sort(rows, dim=1).values
-    Es = min(E, _T)
-    s = svals[:, _sketch_positions(E, Es, dev)]                # (R, Es)
-    nb = -(-Es // _T)
-    pad = (0, nb * _T - Es)
-    F = torch.nn.functional
-    w = F.pad(s, pad)
-    d = F.pad(torch.diff(s, dim=1, prepend=s.new_zeros(R, 1)), pad)
-    n = F.pad(torch.full((R, Es), E / Es, dtype=torch.float32, device=dev),
-              pad)
-    # unit column norms (ops.solve_fista_batch's transform): the same
-    # problem with a ~14x lower Lipschitz constant
-    nsuf = _scan(n.flip(1)).flip(1)
-    z = d * d * nsuf
-    scale = torch.sqrt(torch.where(z <= 0, torch.ones_like(z), z))
-    dt = d / scale
-
-    x = torch.sin(torch.arange(nb * _T, dtype=torch.float32, device=dev)
-                  + 1.0).expand(R, nb * _T)
-    x = x / (torch.sqrt(_fsum(x * x))[:, None] + 1e-30)
-    lip = torch.ones(R, dtype=torch.float32, device=dev)
-    for _ in range(40):        # x -> V^T diag(n) V x, in cumsum form
-        y = dt * _suffix_sum(n * _scan(x * dt))
-        xy_yy = _fsum(torch.stack([x * y, y * y]), dim=2)
-        lip = torch.clamp_min(xy_yy[0], 1e-30)
-        x = y / (torch.sqrt(xy_yy[1])[:, None] + 1e-30)
-    # alpha == 0 above max |gradient at 0| in the original coordinates
-    # (the threshold is lam / scale and the gradient scales by 1 / scale)
-    g0 = d * _suffix_sum(n * w)
-    lam_hi = g0.abs().amax(dim=1) * 1.001 + 1e-12
-    return dict(svals=svals, s=s, w=w, d=d, n=n, dt=dt, scale=scale,
-                eta=(1.0 / (lip * 1.01)).reshape(R, 1, 1), lam_hi=lam_hi)
+    step size: ``fista_page_sketch``'s entries and ``freeze_problem``'s
+    (``dt``, ``scale``, ``eta`` (R, 1, 1), ``lam_hi`` (R,)), what the
+    bisection hands the kernel."""
+    sk = fista_page_sketch(rows.float())
+    return dict(sk, **freeze_problem(sk["w"], sk["d"], sk["n"],
+                                     start_vector(_T, rows.device)))
 
 
-def _nnz_of(alpha: torch.Tensor):
-    """Distinct reconstruction levels of each row's support: its size,
-    +1 for the implicit zero level when the first column is off it."""
-    sup = alpha.abs() > 1e-12
-    return sup.sum(1) + (1 - sup[:, 0].long()), sup
-
-
-def quantize_pages_fista(rows: torch.Tensor, *, num_values: int):
-    """Batched lam-method page solver: sketch -> per-row lambda bisection
-    through the FISTA kernel -> full-row assignment + LS refit.
-
-    rows (R, E) -> (codes (R, E) uint8, cb (R, L) f32), the contract of
-    ``quantize_pages_device``. Each of the BISECT_STEPS bisection steps
-    launches the kernel (FISTA_ITERS steps) once on every row; it keeps, per row, the smallest lambda whose l1
-    support fits ``num_values`` levels (the count is non-increasing in
-    lambda). The support's levels on the sketch give count-weighted means,
-    sorted (empty levels inherit their left neighbour, so codebooks are
-    exactly L wide); the codes are the full row's interval assignment to
-    them, and the codebook its per-cluster means (eq. 20). The
-    reference's optional Lloyd rounds (``lloyd_rounds``, off by default
-    there) and its ``n_iters``/``bisect_steps`` arguments (only their
-    defaults are used) are not ported."""
-    L = num_values
-    rows = rows.float()
-    R = rows.shape[0]
-    pr = fista_page_problem(rows)
-    w, dt, n, scale = pr["w"], pr["dt"], pr["n"], pr["scale"]
-    nb = w.shape[1] // _T
-    blk = lambda a: a.reshape(R, nb, _T)
-    live = (n > 0).float()
-
-    lo = torch.zeros_like(pr["lam_hi"])
-    hi = pr["lam_hi"]
-    best = torch.zeros_like(w)
-    for _ in range(BISECT_STEPS):
-        mid = 0.5 * (lo + hi)
-        # lambda scales by 1 / scale like d does: the penalty stays
-        # lambda * |alpha| in the original coordinates
-        lam = mid[:, None] / scale * live
-        alpha = fista_quant(blk(w), blk(dt), blk(n), blk(lam), pr["eta"],
-                            n_iters=FISTA_ITERS).reshape(R, -1)
-        feas = _nnz_of(alpha)[0] <= L
-        lo = torch.where(feas, lo, mid)
-        hi = torch.where(feas, mid, hi)
-        best = torch.where(feas[:, None], alpha, best)
-
-    # support -> level ids on the sketch (the pre-support zero run is its
-    # own level) -> count-weighted level means = the LS refit on the sketch
-    _, sup = _nnz_of(best)
+def fista_page_refit(rows: torch.Tensor, sk: dict, best: torch.Tensor,
+                     L: int):
+    """Codes and codebook from the solved support ``best`` (R, 128) of the
+    sketch ``sk``: the support's levels on the sketch (the pre-support
+    zero run is its own level) give count-weighted means, sorted (empty
+    levels inherit their left neighbour, so codebooks are exactly L
+    wide); the codes are the full row's interval assignment to them, and
+    the codebook its per-cluster means (eq. 20)."""
+    n = sk["n"]
+    _, sup = nnz_of(best)
     sid = torch.cumsum(sup.long(), dim=1)
     lid = torch.clamp(sid - sup[:, :1].long(), 0, L - 1)
     # one-hot by comparison: F.one_hot checks its ids on the host, a sync
     levels = torch.arange(L, device=rows.device)
     ohn = (lid[:, :, None] == levels).float() * n[:, :, None]
-    num = _fsum(w[:, :, None] * ohn)
-    den = _fsum(ohn)
+    num = fsum(sk["w"][:, :, None] * ohn)
+    den = fsum(ohn)
     mean = torch.where(den > 0, num / den.clamp_min(1e-20),
                        torch.full_like(num, -_BIG))
     # levels are contiguous runs of sorted values: nonempty means ascend
-    first = torch.where(den[:, :1] > 0, mean[:, :1], pr["s"][:, :1])
+    first = torch.where(den[:, :1] > 0, mean[:, :1], sk["s"][:, :1])
     centers = torch.cummax(torch.cat([first, mean[:, 1:]], dim=1),
                            dim=1).values
     idx = _assign(rows, centers)
-    centers = _seg_mean(pr["svals"], centers, L)
+    centers = _seg_mean(sk["svals"], centers, L)
     return idx.to(torch.uint8), centers
+
+
+def quantize_pages_fista(rows: torch.Tensor, *, num_values: int):
+    """Batched lam-method page solver: sketch -> per-row lambda bisection
+    by FISTA (``fista_freeze``) -> full-row assignment + LS refit.
+
+    rows (R, E) -> (codes (R, E) uint8, cb (R, L) f32), the contract of
+    ``quantize_pages_device``. The bisection (``fista_quant.BISECT_STEPS``
+    steps of ``FISTA_ITERS`` FISTA steps) keeps, per row, the smallest
+    lambda whose l1 support fits ``num_values`` levels;
+    ``fista_page_refit`` turns that support into codes and codebook. The
+    reference's optional Lloyd rounds (``lloyd_rounds``, off by default
+    there) and its ``n_iters``/``bisect_steps`` arguments (only their
+    defaults are used) are not ported."""
+    rows = rows.float()
+    sk = fista_page_sketch(rows)
+    best = fista_freeze(sk["w"], sk["d"], sk["n"],
+                        start_vector(_T, rows.device),
+                        num_values=num_values)[0]
+    return fista_page_refit(rows, sk, best, num_values)
 
 
 def _apply_clip(codes, cb, spec):

@@ -10,6 +10,9 @@ what ``chip_smoke.py`` holds the CUDA kernels against.
   ``preferred_element_type=f32``) and round once to the output dtype.
 - ``ref_fista`` runs the FISTA iterates of ``fista_quant`` on (B, M) rows
   with ``torch.cumsum`` for both scans.
+- ``scan`` and ``fsum`` are a prefix sum and a row sum in a fixed order of
+  elementwise ops (the page freeze's torch code, and the order its kernel
+  reproduces).
 """
 from __future__ import annotations
 
@@ -87,6 +90,32 @@ def ref_paged_decode(q, k_fp, v_fp, k_codes, v_codes, k_cb, v_cb, blk_q,
     out = torch.einsum("bwhgs,bshd->bwhgd", p, v_all)
     out = out.reshape(B, W, Hq, Dh).to(q.dtype)
     return out if windowed else out[:, 0]
+
+
+def scan(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum along dim 1 by doubling (Hillis-Steele):
+    log2(N) elementwise adds in a fixed order (offsets 1, 2, 4, ...; + 0
+    where no column lies that far back), so a row's sums are the same bits
+    whatever the other rows are."""
+    R, N = x.shape
+    zeros = x.new_zeros((R, N))
+    k = 1
+    while k < N:
+        x = x + torch.cat([zeros[:, :k], x[:, :N - k]], dim=1)
+        k *= 2
+    return x
+
+
+def fsum(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """Sum over ``dim`` in a fixed pairwise order of elementwise adds
+    (x[i] + x[i + h], h halving): the same bits whatever the other
+    dimensions are, on every device."""
+    while x.shape[dim] > 1:
+        n = x.shape[dim]
+        h = n // 2
+        y = x.narrow(dim, 0, h) + x.narrow(dim, h, h)
+        x = y if n % 2 == 0 else torch.cat([y, x.narrow(dim, n - 1, 1)], dim)
+    return x.squeeze(dim)
 
 
 @functools.cache

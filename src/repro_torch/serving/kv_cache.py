@@ -338,7 +338,9 @@ def with_tables(pool: PagedKVPool, block_table: np.ndarray,
     may be narrower than ``max_blocks``: the worker clamps it to the blocks
     the longest live sequence needs."""
     dev = pool.device
+    # lint: sync(pageable copy of the step's block table; ROADMAP A2)
     bt = torch.as_tensor(np.ascontiguousarray(block_table, np.int32)).to(dev)
+    # lint: sync(the same copy of the step's lengths)
     sl = torch.as_tensor(np.ascontiguousarray(seq_lens, np.int32)).to(dev)
     return [pool.layer(i, bt, sl) for i in range(pool.n_layers)]
 
@@ -445,6 +447,7 @@ class PendingFreeze:
 
     def wait(self) -> None:
         if self.event is not None:
+            # lint: sync(end-of-run drain: waits for the freeze's stream)
             self.event.synchronize()
 
     def drop(self, freed_ids) -> None:
@@ -474,6 +477,8 @@ def dispatch_freeze(cache, block_ids, spec=None, *,
     side = pool.freeze_stream()
     side.wait_stream(torch.cuda.current_stream(pool.device))
     with torch.cuda.stream(side):
+        # the copy waits for the side stream, which waits for the main one
+        # lint: sync(pageable copy of the page ids; ROADMAP A2)
         jb = torch.as_tensor(bids.astype(np.int64)).to(pool.device)
         codes, cb = _solve_pages(pool, jb, spec)
         event = torch.cuda.Event()
@@ -496,7 +501,9 @@ def install_freeze(cache, pending: PendingFreeze):
         # from being reused before the main stream is done with it
         codes.record_stream(main)
         cb.record_stream(main)
+    # lint: sync(pageable copy of the kept pages' slots; ROADMAP A2)
     sel = torch.as_tensor(np.flatnonzero(pending.keep)).to(pool.device)
+    # lint: sync(the same copy of their page ids)
     jb = torch.as_tensor(pending.bids[pending.keep].astype(np.int64)).to(
         pool.device)
     _install(pool, jb, codes[:, :, sel], cb[:, :, sel])
@@ -518,6 +525,7 @@ def thaw_blocks(cache, block_ids):
     pool = _stacked(cache)
     if len(block_ids) and pool.quantized:
         ids = torch.as_tensor(np.asarray(sorted(block_ids), np.int64))
+        # lint: sync(pageable copy of the freed page ids; ROADMAP A2)
         pool.blk_q[ids.to(pool.device)] = False
     return cache
 

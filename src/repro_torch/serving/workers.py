@@ -205,14 +205,16 @@ class DecodeWorker:
         t0 = tr.now()
         views = with_tables(self.pool, self.table[:, :mb_used], self.lens)
         logits, _ = models.decode_step(
+            # lint: sync(pageable copy of the step's token ids; ROADMAP A2)
             self.params, self.cfg, torch.as_tensor(toks).to(self.device),
             views, views[0].seq_lens)
         tr.complete(self._trk_decode, "dispatch", t0, blocks=mb_used)
         t0 = tr.now()
         last = logits[:, -1]
-        # step-end token sync for the scheduler
+        # lint: sync(step-end token sync: the scheduler needs the ids)
         nxt = last.argmax(-1).cpu().numpy()
         sampling = any(self.slots[i].temperature > 0.0 for i in active)
+        # lint: sync(the same sync: host sampling or recorded logits)
         rows = (last.cpu().numpy() if self.record_logits or sampling
                 else None)
         tr.complete(self._trk_decode, "sync", t0)
@@ -394,7 +396,7 @@ class PrefillWorker:
         return blocks, toks, ppad // self.block_size
 
     def _finish(self, req: Request, blocks, last, now_fn) -> FinishedPrefill:
-        last = last.cpu().numpy()             # first-token sampling sync
+        last = last.cpu().numpy()  # lint: sync(first-token sampling)
         now = now_fn()                        # TTFT includes prefill time
         rng = req.make_rng()
         tok = sample_token(last, temperature=req.temperature,
@@ -415,6 +417,7 @@ class PrefillWorker:
                             np.zeros((1,), np.int32))
         logits, _ = models.prefill(
             self.params, self.cfg,
+            # lint: sync(pageable copy of the prompt's ids; ROADMAP A2)
             {"tokens": torch.as_tensor(toks).to(self.pool.device)}, views)
         tr.complete(self._trk, "prefill", t0, rid=req.id,
                     prompt_len=req.prompt_len)
@@ -444,6 +447,7 @@ class PrefillWorker:
         off = state.off
         C = min(self.prefill_chunk, ppad - off)
         dev = self.pool.device
+        # lint: sync(pageable copy of the chunk's ids; ROADMAP A2)
         toks = torch.as_tensor(state.toks[:, off:off + C]).to(dev)
         pos = torch.arange(off, off + C, dtype=torch.int32,
                            device=dev)[None]

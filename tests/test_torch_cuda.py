@@ -18,10 +18,14 @@ from repro_torch.kernels import (pack4, paged_decode_attention,
                                  ref_quant_matmul, ref_quant_matmul_stacked)
 from repro_torch.core import QuantizedTensor
 from repro_torch.kernels import (fista_quant, power_iter_lipschitz,
-                                 quantize_pages_fista, ref_fista,
-                                 solve_fista_batch)
+                                 quantize_pages_device, quantize_pages_fista,
+                                 ref_fista, solve_fista_batch)
 from repro_torch.kernels.ops import fista_batch_problem
-from repro_torch.kernels.page_quant import fista_page_problem
+from repro_torch.kernels.fista_quant import (fista_freeze, freeze_plain,
+                                             start_vector)
+from repro_torch.kernels.page_quant import (fista_page_problem,
+                                            fista_page_refit,
+                                            fista_page_sketch)
 from repro_torch.kernels.quant_matmul import kernel_smem, plan
 from repro_torch.quant import fallback_count, qmatmul
 
@@ -616,9 +620,10 @@ def test_quantize_pages_fista_row_alone_equals_the_row_among_224(gen):
     fixed order."""
     rows = torch.randn(224, 2048, generator=gen, device="cuda")
     rows[::5] *= 4.0
-    n0 = fista_quant.launches
+    n0, f0 = fista_quant.launches, fista_freeze.launches
     codes, cb = quantize_pages_fista(rows, num_values=16)
-    assert fista_quant.launches == n0 + 14          # one per bisection step
+    # the whole solve is one launch of the freeze entry
+    assert (fista_quant.launches, fista_freeze.launches) == (n0, f0 + 1)
     assert int(codes.max()) < 16 and bool((cb.diff(dim=1) >= 0).all())
     for i in (0, 5, 117, 223):
         c1, cb1 = quantize_pages_fista(rows[i:i + 1], num_values=16)
@@ -638,6 +643,20 @@ def test_quantize_pages_fista_never_waits_for_the_card(gen):
     assert codes.shape == rows.shape and cb.shape == (56, 16)
 
 
+def test_quantize_pages_device_never_waits_for_the_card(gen):
+    """The kmeans_ls freeze (the main path's) is one asynchronous dispatch
+    too: its DP fills unreachable cells with a scalar, not a tensor copied
+    from the host."""
+    rows = torch.randn(56, 2048, generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        codes, cb = quantize_pages_device(rows, num_values=16)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert codes.shape == rows.shape and cb.shape == (56, 16)
+
+
 def test_fista_wrapper_rejects_what_the_kernel_does_not_take(gen):
     args = list(_page_inputs(gen, R=4))
     with pytest.raises(ValueError, match="f32"):
@@ -652,3 +671,96 @@ def test_fista_wrapper_rejects_what_the_kernel_does_not_take(gen):
         fista_quant(args[0], args[1].cpu(), *args[2:])
     with pytest.raises(ValueError, match="do not match"):
         fista_quant(args[0][:2], *args[1:])
+
+
+def _freeze_rows(gen, R=224, E=2048):
+    rows = torch.randn(R, E, generator=gen, device="cuda")
+    rows[::5] *= 4.0
+    rows[1::7] *= torch.linspace(0.1, 3.0, E, device="cuda")
+    return rows
+
+
+@pytest.mark.parametrize("E,L", [(2048, 16), (100, 64)])
+def test_fista_freeze_is_the_composed_freeze_bitwise(gen, E, L):
+    """One launch of the freeze entry == the torch composition with
+    BISECT_STEPS launches of fista_quant, bitwise: best, eta, lam_hi, and
+    the codes and codebooks refit from them. E = 100: the sketch has 28
+    padding columns, which stay in the support (as in the reference), so
+    a budget of 64 levels."""
+    rows = _freeze_rows(gen, E=E)
+    sk = fista_page_sketch(rows)
+    args = (sk["w"], sk["d"], sk["n"], start_vector(128, "cuda"))
+    n0, f0 = fista_quant.launches, fista_freeze.launches
+    fused = fista_freeze(*args, num_values=L)
+    assert fista_freeze.launches == f0 + 1 and fista_quant.launches == n0
+    plain = freeze_plain(*args, num_values=L)
+    assert fista_quant.launches == n0 + 14
+    for a, b in zip(fused, plain):
+        assert a.shape == b.shape and torch.equal(a, b)
+    assert int((fused[0].abs() > 1e-12).sum()) > 0
+    for a, b in zip(fista_page_refit(rows, sk, fused[0], L),
+                    fista_page_refit(rows, sk, plain[0], L)):
+        assert torch.equal(a, b)
+
+
+def test_fista_freeze_power_iteration_is_fista_page_problem_bitwise(gen):
+    """The launch's eta (40 power iterations) and lam_hi equal
+    fista_page_problem's torch ops on the card, bitwise."""
+    rows = _freeze_rows(gen)
+    p = fista_page_problem(rows)
+    _, eta, lam_hi = fista_freeze(p["w"], p["d"], p["n"],
+                                  start_vector(128, "cuda"), num_values=16)
+    assert torch.equal(eta, p["eta"]) and torch.equal(lam_hi, p["lam_hi"])
+
+
+def test_fista_freeze_row_alone_is_the_row_among_224(gen):
+    rows = _freeze_rows(gen)
+    sk = fista_page_sketch(rows)
+    x0 = start_vector(128, "cuda")
+    out = fista_freeze(sk["w"], sk["d"], sk["n"], x0, num_values=16)
+    for i in (0, 5, 117, 223):
+        one = fista_freeze(*(sk[k][i:i + 1] for k in "wdn"), x0,
+                           num_values=16)
+        for a, b in zip(one, out):
+            assert torch.equal(a[0], b[i])
+
+
+def _reference_rows(gen, B, M):
+    """The reference kernel test's inputs (sorted normal rows, unit
+    weights, lambda 0.05, the power-iteration step size) as (B, 1, M)."""
+    w = torch.sort(torch.randn(B, M, generator=gen, device="cuda"),
+                   dim=1).values
+    d = torch.diff(w, dim=1, prepend=torch.zeros(B, 1, device="cuda"))
+    n = torch.ones_like(w)
+    eta = (1.0 / (power_iter_lipschitz(d, n) * 1.01)).float()
+    return tuple(a.reshape(B, 1, M) for a in (
+        w, d, n, torch.full_like(w, 0.05))) + (eta.reshape(B, 1, 1),)
+
+
+@pytest.mark.parametrize("M", [1, 5, 100, 127, 128, 129, 255, 300, 1000,
+                               2048, 4000, 4096])
+def test_fista_kernel_bar_at_every_width(gen, M):
+    """The reference's bar (atol 2e-4 / rtol 1e-3) at widths 1-4096, one
+    warp a row up to 128 columns and a block of a warp per 128 columns
+    past it."""
+    args = _reference_rows(gen, 3, M)
+    out = fista_quant(*args, n_iters=300)
+    ref = ref_fista(*[a.reshape(3, M) for a in args[:4]], args[4],
+                    n_iters=300).reshape(out.shape)
+    torch.testing.assert_close(out, ref, atol=2e-4, rtol=1e-3)
+
+
+def test_fista_freeze_wrapper_rejects_what_the_kernel_does_not_take(gen):
+    sk = fista_page_sketch(_freeze_rows(gen, R=4))
+    w, d, n = sk["w"], sk["d"], sk["n"]
+    x0 = start_vector(128, "cuda")
+    with pytest.raises(ValueError, match="f32"):
+        fista_freeze(w.double(), d, n, x0, num_values=16)
+    with pytest.raises(ValueError, match="do not match"):
+        fista_freeze(w[:, :64].contiguous(), d, n, x0, num_values=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        fista_freeze(torch.cat([w, w], 1)[:, ::2], d, n, x0, num_values=16)
+    with pytest.raises(ValueError, match="tensors on"):
+        fista_freeze(w, d, n, x0.cpu(), num_values=16)
+    with pytest.raises(ValueError, match="num_values"):
+        fista_freeze(w, d, n, x0, num_values=0)
