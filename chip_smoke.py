@@ -9,10 +9,14 @@ path, from kmeans_ls@16 PTQ'd weights served as codes, with the launcher's
 replay checks; then the stacked qmatmul path over the 28 layers' codes;
 then the same PTQ'd weights with iter_l1@16 KV pages (every freeze's
 solve, power iteration and 14-step lambda bisection, one launch of the
-FISTA kernel's freeze entry), with the replay checks; last, a batched
-l1_ls PTQ of the whole model in one FISTA launch, served for a few
-requests. Before serving it runs the card tests
-(``pytest -m cuda tests/test_torch_cuda.py``) in a child process.
+FISTA kernel's freeze entry), with the replay checks; then the same
+weights with kmeans_ls@16 pages, speculative decoding (``--speculate 3``,
+the half-depth draft: verify windows of 4 through the attention kernel)
+and prefix sharing over a trace whose prompts share 192 tokens (prefills
+start past spliced frozen pages), with its replays; last, a batched l1_ls
+PTQ of the whole model in one FISTA launch, served for a few requests.
+Before serving it runs the card tests (``pytest -m cuda
+tests/test_torch_cuda.py``) in a child process.
 
     python3 chip_smoke.py
 
@@ -60,6 +64,21 @@ BF16_TOL = dict(atol=1e-5, rtol=2.0 ** -6)
 # K codebook planted in the fused kernel (tools/replay_readings.py on the
 # H100, PERF.md); 4% lies between them.
 REPLAY_REL_TOL = {None: 1e-3, "kmeans_ls@16": 0.01, "iter_l1@16": 0.04}
+# The serve-spec replays' limits, from tools/replay_readings.py
+# --speculate on the H100 (NVIDIA H100 80GB HBM3, 700 W; PERF.md, PR 17),
+# prompt seeds 0-2 and a copy of src/ with one line planted. The
+# speculative replays (auto and untied draft) are held to the launcher's
+# SPEC_REL_TOL, beside its readings in serve.py.
+# Fused vs gather of speculative engines, kmeans_ls@16, f32: sound
+# 0.0384%, 0.0697%, 0.1656%; the kernel's window dropping its own key
+# (valid - 1 for W > 1) 0.8669%, its greedy tokens unchanged (a random
+# model's argmax is mostly its input token, by a wide margin).
+SPEC_FVG_REL_TOL = 0.004
+# Shared vs unshared prompt pages, fp pool, f32: sound 0 (bitwise) on
+# seeds 0-2; a shared prefill reading its tokens from position 0 instead
+# of the splice offset 95.99%, 16 of 56 tokens differ. The chunked
+# replay's fp bar.
+PREFIX_REPLAY_REL_TOL = 1e-4
 # quant_matmul vs its plain version: f32 at the reference's bar
 # (tests/test_kernels.py:32, 1e-4); bf16 as BF16_TOL (both sum exact
 # products in f32 and round once to bf16)
@@ -76,6 +95,12 @@ SERVE_ARGS = ["--engine", "continuous", "--kv-quant", "kmeans_ls@16",
 QUANT_ARGS = SERVE_ARGS + ["--quantize", "kmeans_ls@16"]
 # argparse keeps a flag's last value
 ITER_ARGS = QUANT_ARGS + ["--kv-quant", "iter_l1@16"]
+# speculative decoding with the half-depth draft plus prefix sharing: 12
+# of each 256-token prompt's 16 pages are shareable
+SPEC_K = 3
+SPEC_ARGS = QUANT_ARGS + ["--speculate", str(SPEC_K), "--draft-config",
+                          "auto", "--prefix-cache", "--shared-prefix-len",
+                          "192"]
 # batched l1_ls PTQ of the whole model: lambda for the weighted objective
 # (counts of up to 88M weights a group) that leaves every group <= 256
 # values (uint8 codes); the short serve from its codes
@@ -452,6 +477,14 @@ def check_kernel(gen) -> dict:
                                    flush=flush))
     d512["bound_ms"], d512["bound_by"] = bound(
         p5, q, q.numel() * 2, live_keys(p5["kv_valid_len"].tolist(), 1))
+    # the speculative verify window: 4 slots at 272 tokens, W = 4
+    qv = torch.randn(4, 4, Hq, Dh, generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    ver = dict(ms=time_ms(lambda: kernel(qv, p), flush=flush),
+               plain_ms=time_ms(lambda: plain(qv, p), flush=flush),
+               library_ms=time_ms(lambda: gather_sdpa(qv, p), flush=flush))
+    ver["bound_ms"], ver["bound_by"] = bound(
+        p, qv, qv.numel() * 2, live_keys(p["kv_valid_len"].tolist(), 4))
     pp = make_pool(gen, valid=[256], dtype=torch.bfloat16)
     qp = torch.randn(1, 64, Hq, Dh, generator=gen,
                      device="cuda").to(torch.bfloat16)
@@ -486,6 +519,10 @@ def check_kernel(gen) -> dict:
           f"{d512['ms']:.4f} ms, plain {d512['plain_ms']:.4f} ms, "
           f"gather+sdpa {d512['library_ms']:.4f} ms, bound "
           f"{d512['bound_ms']:.4f} ms ({d512['bound_by']}) on {card}")
+    phase("kernel", f"verify window B=4 x W=4 at 272 tokens bf16: kernel "
+          f"{ver['ms']:.4f} ms, plain {ver['plain_ms']:.4f} ms, gather+sdpa "
+          f"{ver['library_ms']:.4f} ms, bound {ver['bound_ms']:.5f} ms "
+          f"({ver['bound_by']}) on {card}")
     phase("kernel", f"prefill chunk 64 @ 192 bf16: kernel {pre_ms:.4f} ms, "
           f"plain {pre_plain:.4f} ms, gather+sdpa {pre_lib:.4f} ms, bound "
           f"{pb_ms:.5f} ms ({pb_by}; bytes model "
@@ -496,7 +533,8 @@ def check_kernel(gen) -> dict:
                 bound_by=b_by, library_ms=lib_ms, prefill_ms=pre_ms,
                 prefill_plain_ms=pre_plain, prefill_bound_ms=pb_ms,
                 prefill_bound_by=pb_by, prefill_library_ms=pre_lib,
-                decode_512=d512, host_us_per_call=host, plan=plans,
+                decode_512=d512, verify=ver, host_us_per_call=host,
+                plan=plans,
                 ptxas=ptxas)
 
 
@@ -624,11 +662,12 @@ def check_qmm(gen) -> dict:
     phase("qmm", "ptxas: " + "; ".join(f"{k} {v}" for k, v in
                                        sorted(ptxas.items())))
     # times: the seven projections of one layer, bf16, at a decode step
-    # (M = 4) and a prefill chunk (M = 64)
+    # (M = 4), a verify window of 4 slots x 4 rows (M = 16) and a prefill
+    # chunk (M = 64)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     card = card_line()
     per_shape, tot = {}, {}
-    for M in (4, 64):
+    for M in (4, 16, 64):
         for K, N in sorted(set(PROJ_SHAPES)):
             x, idx, cb = qmm_inputs(gen, M, K, N, torch.bfloat16)
             dense = cb[idx.long()].to(x.dtype)
@@ -658,6 +697,8 @@ def check_qmm(gen) -> dict:
                 prefill_ms=tot[64]["ms"], prefill_plain_ms=tot[64]["plain_ms"],
                 prefill_library_ms=tot[64]["library_ms"],
                 prefill_bound_ms=tot[64]["bound_ms"],
+                verify={k: tot[16][k] for k in ("ms", "plain_ms",
+                                                 "library_ms", "bound_ms")},
                 shapes=[{"M": M, "K": K, "N": N, **r}
                         for (M, K, N), r in per_shape.items()])
 
@@ -685,39 +726,65 @@ def check_freeze(gen) -> None:
           f"({dt * 1e3:.1f} ms on the card incl. first-call setup)")
 
 
-def serve_once(argv, params=None) -> tuple:
-    """Serve SERVE_ARGS-style ``argv`` through the port's entry point
-    (from ``params`` if given) with every launch count set to 0 just
-    before; returns (summary, params, cfg, args, launches by kernel) read
-    just after."""
+def counting_launches(fn):
+    """``fn()`` with every kernel's launch count set to 0 just before;
+    returns (its result, launches by kernel and dense fallbacks, read just
+    after)."""
     from repro_torch.kernels import (fista_freeze, fista_quant,
                                      paged_decode_attention, quant_matmul,
                                      quant_matmul_stacked)
-    from repro_torch.launch import serve
     from repro_torch.quant import fallback_count
 
-    args = serve.parse_args(argv)
     kernels = (paged_decode_attention, quant_matmul, quant_matmul_stacked,
                fista_quant, fista_freeze)
     for k in kernels:
         k.launches = 0
     fb0 = fallback_count()
-    s, params, cfg = serve.serve(args, params)
+    out = fn()
     launches = {k.__name__: k.launches for k in kernels}
     launches["fallbacks"] = fallback_count() - fb0
+    return out, launches
+
+
+def serve_once(argv, params=None) -> tuple:
+    """Serve SERVE_ARGS-style ``argv`` through the port's entry point
+    (from ``params`` if given) with every launch count set to 0 just
+    before; returns (summary, params, cfg, args, launches by kernel) read
+    just after."""
+    from repro_torch.launch import serve
+
+    args = serve.parse_args(argv)
+    (s, params, cfg), launches = counting_launches(
+        lambda: serve.serve(args, params))
     return s, params, cfg, args, launches
 
 
 def check_launches(s, cfg, launches, quantized: bool, *, fista: bool = False,
-                   requests: int = 8) -> str:
+                   requests: int = 8, spec: int = 0) -> str:
     """Paged attention: layers x (decode steps + prefill chunks); the dequant
     matmul: 7 projections x that from codes, 0 from dense weights; FISTA:
     one launch of its freeze entry per freeze dispatch on an iter_l1 pool,
     else 0, and none of its fista_quant entry; no stacked launch and no
-    dense fallback on the serving path."""
+    dense fallback on the serving path. With ``spec`` = k, a decode step
+    is one verify window of the target (the same launches), and the draft
+    (gather path: no attention launch) makes one call per request's
+    attach and k per decode step, each 7 dequant launches a draft layer
+    from the target's codes."""
     steps = s["decode_steps"] + s["prefill_chunks"]
+    draft_calls = 0
+    if spec:
+        draft_calls = s["draft_prefills"] + s["draft_steps"]
+        if s["draft_steps"] != spec * s["decode_steps"] \
+                or s["draft_prefills"] != requests:
+            raise AssertionError(
+                f"serve: {s['draft_steps']} draft windows for "
+                f"{s['decode_steps']} verify steps (want {spec} each), "
+                f"{s['draft_prefills']} draft prefills for {requests} "
+                f"requests")
+    draft_mm = 7 * s.get("draft_layers", 0) * draft_calls
     expect = {"paged_decode_attention": cfg.n_layers * steps,
-              "quant_matmul": 7 * cfg.n_layers * steps if quantized else 0,
+              "quant_matmul": (7 * cfg.n_layers * steps + draft_mm
+                               if quantized else 0),
               "quant_matmul_stacked": 0,
               "fista_quant": 0,
               "fista_freeze": s["freeze_dispatches"] if fista else 0,
@@ -738,10 +805,14 @@ def check_launches(s, cfg, launches, quantized: bool, *, fista: bool = False,
                              f"{s['qmatmul_dequant_fallback']} fallbacks), "
                              f"expected {expect}")
     return (f"{expect['paged_decode_attention']} paged-attention launches = "
-            f"{cfg.n_layers} layers x ({s['decode_steps']} decode steps + "
-            f"{s['prefill_chunks']} prefill chunks); "
+            f"{cfg.n_layers} layers x ({s['decode_steps']} "
+            + ("verify steps" if spec else "decode steps")
+            + f" + {s['prefill_chunks']} prefill chunks); "
             f"{expect['quant_matmul']} quant_matmul launches"
             + (" = 7 x that" if quantized else "")
+            + (f" + 7 x {s.get('draft_layers', 0)} draft layers x "
+               f"({s['draft_prefills']} draft prefills + "
+               f"{s['draft_steps']} draft windows)" if spec else "")
             + f"; {expect['fista_freeze']} fista_freeze launches"
             + (f" = 1 x {s['freeze_dispatches']} freeze dispatches"
                if fista else "") + "; 0 fista_quant launches"
@@ -783,7 +854,7 @@ def check_serve() -> dict:
     check_fused_vs_gather(params, cfg, args, (None, "kmeans_ls@16"))
     profile_engine(params, cfg, args)
     phase("serve", serve_line(s))
-    return dict(launches=launches, params=params, cfg=cfg)
+    return dict(launches=launches, params=params, cfg=cfg, summary=s)
 
 
 def check_stacked_path(params, cfg, gen) -> dict:
@@ -871,21 +942,25 @@ def fused_vs_gather(params, cfg, args, kv) -> dict:
     return r
 
 
-def check_fused_vs_gather(params, cfg, args, kvs) -> None:
-    """``fused_vs_gather`` on each pool of ``kvs``: same greedy tokens,
-    logits within REPLAY_REL_TOL of the logit range."""
+def check_fused_vs_gather(params, cfg, args, kvs, name="serve",
+                          tols=None) -> None:
+    """``fused_vs_gather`` on each pool of ``kvs`` (speculative engines
+    when ``args.speculate``): same greedy tokens, logits within ``tols``
+    (default REPLAY_REL_TOL) of the logit range."""
     from repro_torch.launch import serve
 
     params, cfg = serve.f32_copy(params, cfg)
     for kv in kvs:
-        tol = REPLAY_REL_TOL[kv]
+        tol = (tols or REPLAY_REL_TOL)[kv]
         r = fused_vs_gather(params, cfg, args, kv)
         if not r["tokens_equal"] or r["rel"] > tol:
             raise AssertionError(
                 f"fused vs gather (kv={kv or 'fp'}): tokens "
                 f"{r['agree']}/{r['total']}, max|dlogit| {r['dmax']:.4g} "
                 f"rel {r['rel']:.4%} (tolerance {tol:.2%})")
-        phase("serve", f"fused vs gather replay (f32, kv={kv or 'fp'}): "
+        phase(name, f"fused vs gather replay (f32, kv={kv or 'fp'}"
+              + (f", speculate={args.speculate}" if args.speculate else "")
+              + "): "
               f"greedy tokens {r['agree']}/{r['total']} equal, max|dlogit| "
               f"{r['dmax']:.4g} rel {r['rel']:.4%} (tolerance {tol:.2%})")
 
@@ -1221,6 +1296,144 @@ def check_serve_iter_l1(params) -> dict:
                 tpot_p50_ms=s["tpot_p50_s"] * 1e3)
 
 
+def untied_draft(params, cfg) -> tuple:
+    """The half-depth draft with an untied random head: the auto draft of
+    random weights agrees with the target at every position (both mostly
+    repeat their input token), this one at almost none."""
+    import dataclasses
+
+    from repro_torch.serving import derive_draft
+
+    dparams, dcfg = derive_draft(params, cfg)
+    dev = params["embed"].device
+    g = torch.Generator(device=dev).manual_seed(11)
+    head = torch.randn(cfg.d_model, cfg.vocab, generator=g, device=dev)
+    dparams = dict(dparams, lm_head=(head / math.sqrt(cfg.d_model)).to(
+        params["embed"].dtype))
+    return dparams, dataclasses.replace(dcfg, tie_embeddings=False)
+
+
+def rollback_run(params, cfg, args) -> tuple[dict, list, int]:
+    """Full width with ``untied_draft``, so nearly every verify window
+    rolls back, through the kernel, on a kmeans_ls@16 pool whose freezes
+    run on the side stream: 4 requests of ``--prompt-len`` + 24 tokens,
+    the rollback watermark (``frozen_past_watermark``) read after every
+    step. Returns the engine's summary, the violations and the steps."""
+    from repro_torch.serving import ContinuousBatchingEngine, make_requests
+
+    eng = ContinuousBatchingEngine(
+        params, cfg, device=args.device, max_slots=args.max_slots,
+        block_size=args.block_size, max_seq_len=args.max_seq_len,
+        kv_quant=args.kv_quant, prefill_chunk=args.prefill_chunk,
+        speculate=SPEC_K, draft=untied_draft(params, cfg), prefix_cache=True)
+    w, violations, steps = eng.worker, [], [0]
+    step = w.step
+
+    def checked_step(now_fn):
+        step(now_fn)
+        steps[0] += 1
+        violations.extend(w.frozen_past_watermark())
+
+    w.step = checked_step
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, args.prompt_len).tolist()
+               for _ in range(4)]
+    return eng.run(make_requests(prompts, 24)), violations, steps[0]
+
+
+def spec_replay_line(r, what) -> str:
+    """``serve.speculative_replay``'s result held to the launcher's limit
+    (SPEC_REL_TOL): the phase line, or AssertionError."""
+    from repro_torch.launch import serve
+
+    line = (f"{what} speculative vs non-speculative replay (f32, "
+            f"kv=kmeans_ls@16): greedy tokens {r['agree']}/{r['total']} "
+            f"{'identical' if r['tokens_equal'] else 'DIFFER'}, max|dlogit| "
+            f"{r['dmax']:.4g} rel {r['rel']:.4%} (tolerance "
+            f"{serve.SPEC_REL_TOL:.2%}); acceptance {r['acceptance']:.1%}, "
+            f"{r['rollbacks']} rollbacks")
+    if not r["tokens_equal"] or r["rel"] > serve.SPEC_REL_TOL:
+        raise AssertionError(line)
+    return line
+
+
+def check_serve_spec(params, main: dict) -> dict:
+    """The main path's weights and pages with speculative decoding (k = 3,
+    the half-depth draft from the same codes) and prefix sharing over a
+    trace whose prompts share 192 tokens: the launch gate on the verify,
+    draft and shared-prefix paths, acceptance and prefix hits; a rollback
+    run with a draft that disagrees, the rollback watermark after each of
+    its steps; the launcher's speculative replay with either draft, its
+    prefix replay and the fused-vs-gather replay of speculative engines;
+    and the served numbers beside the main path's."""
+    from repro_torch.launch import serve
+
+    s, params, cfg, args, launches = serve_once(SPEC_ARGS, params)
+    (rb, violations, steps), rb_launches = counting_launches(
+        lambda: rollback_run(params, cfg, args))
+    if violations:
+        raise AssertionError(f"frozen past the accepted seq_lens "
+                             f"(page, slot, index, lens): {violations[:8]}")
+    phase("serve-spec", f"rollback run: no page frozen, queued or in "
+          f"flight past a slot's accepted seq_lens after any of {steps} "
+          f"steps")
+    phase("serve-spec", check_launches(s, cfg, launches, quantized=True,
+                                       spec=SPEC_K))
+    if not rb["spec_rollbacks"] > rb["completed"]:
+        raise AssertionError(f"rollback run: {rb['spec_rollbacks']} "
+                             f"rollbacks over {rb['completed']} requests")
+    phase("serve-spec", f"rollback run (a draft with an untied random "
+          f"head): acceptance {rb['spec_acceptance_rate']:.1%}, "
+          f"{rb['spec_rollbacks']} rollbacks in {rb['spec_steps']} verify "
+          f"slices, {rb['freeze_installs']} freeze installs; "
+          + check_launches(rb, cfg, rb_launches, quantized=True, spec=SPEC_K,
+                           requests=4))
+    phase("serve-spec", f"speculative: acceptance "
+          f"{s['spec_acceptance_rate']:.1%} ({s['spec_accepted']}/"
+          f"{s['spec_proposed']} drafts), {s['spec_rollbacks']} rollbacks, "
+          f"tokens/step {s['tokens_per_step']:.3f}; prefix cache: "
+          f"{s['prefix_hits']} hits, {s['prefix_shared_pages']} pages "
+          f"spliced shared, {s['cow_copies']} copy-on-write; "
+          f"{s['prefill_chunks']} prefill chunks for {s['completed']} "
+          f"prompts of {args.prompt_len} tokens")
+    if not (s["spec_accepted"] > 0 and s["tokens_per_step"] > 1
+            and s["prefix_hits"] >= 1):
+        raise AssertionError("serve-spec took neither mechanism's path: "
+                             f"{s['spec_accepted']} accepted, tokens/step "
+                             f"{s['tokens_per_step']}, {s['prefix_hits']} "
+                             f"prefix hits")
+    phase("serve-spec", spec_replay_line(
+        serve.speculative_replay(params, cfg, args), "auto draft:"))
+    r = serve.speculative_replay(params, cfg, args, untied_draft)
+    if not r["rollbacks"] > len(serve._replay_prompts(cfg, args)):
+        raise AssertionError(f"untied-draft replay: {r['rollbacks']} "
+                             f"rollbacks")
+    phase("serve-spec", spec_replay_line(r, "untied draft:"))
+    p = serve.prefix_replay(params, cfg, args)
+    if not (p["tokens_equal"] and p["drained"] and p["prefix_hits"] >= 1
+            and p["rel"] <= PREFIX_REPLAY_REL_TOL):
+        raise AssertionError(f"prefix replay: {p}")
+    phase("serve-spec", f"shared vs unshared replay (f32, fp pool): "
+          f"{p['prefix_hits']} hits, {p['prefix_shared_pages']} pages "
+          f"shared, {p['cow_copies']} copy-on-write, greedy tokens "
+          f"{p['agree']}/{p['total']} identical, max|dlogit| "
+          f"{p['dmax']:.4g} rel {p['rel']:.3g} (tolerance "
+          f"{PREFIX_REPLAY_REL_TOL:g})")
+    check_fused_vs_gather(params, cfg, args, ("kmeans_ls@16",),
+                          name="serve-spec",
+                          tols={"kmeans_ls@16": SPEC_FVG_REL_TOL})
+    m = main["summary"]
+    phase("serve-spec", f"serve-spec {serve_line(s)}")
+    phase("serve-spec", f"main path  {serve_line(m)}")
+    return dict(launches=launches, steps=s["decode_steps"],
+                chunks=s["prefill_chunks"],
+                tpot_p50_ms=s["tpot_p50_s"] * 1e3,
+                main_tpot_p50_ms=m["tpot_p50_s"] * 1e3,
+                acceptance=s["spec_acceptance_rate"],
+                tokens_per_step=s["tokens_per_step"],
+                prefix_hits=s["prefix_hits"])
+
+
 def check_ptq_batched(cfg, gen) -> dict:
     """Batched l1_ls PTQ of the whole model on the card: the seven problems
     (each projection's 28 layers as one vector), kernel vs plain version
@@ -1341,17 +1554,21 @@ def main() -> int:
     sv = check_serve()
     st = check_stacked_path(sv["params"], sv["cfg"], gen)
     cfg = sv["cfg"]
-    it = check_serve_iter_l1(sv.pop("params"))
+    it = check_serve_iter_l1(sv["params"])
+    sp = check_serve_spec(sv.pop("params"), sv)
     pb = check_ptq_batched(cfg, gen)
     record = {"kernels": [
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:242",
-         "launches": sv["launches"]["paged_decode_attention"], **k},
+         "launches": sv["launches"]["paged_decode_attention"],
+         "serve_spec_launches": sp["launches"]["paged_decode_attention"],
+         **k},
         {"name": "quant_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul.py:50",
-         "launches": sv["launches"]["quant_matmul"], **q},
+         "launches": sv["launches"]["quant_matmul"],
+         "serve_spec_launches": sp["launches"]["quant_matmul"], **q},
         {"name": "quant_matmul_stacked", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul.py:105", **st},

@@ -44,6 +44,7 @@ from pathlib import Path
 #: the modules the engine's step, a freeze and the kernel wrappers run
 HOT_MODULES = (
     "serving/workers.py",
+    "serving/speculative.py",
     "serving/kv_cache.py",
     "kernels/paged_attention.py",
     "kernels/quant_matmul.py",

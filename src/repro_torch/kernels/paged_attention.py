@@ -34,6 +34,7 @@ from .ref import BIG_NEG, ref_paged_decode, unpack4
 
 __all__ = ["BIG_NEG", "PaPlan", "kernel_smem", "pack4", "unpack4",
            "paged_decode_attention", "paged_prefill_attention", "plan",
+           "shape_refusal",
            "modeled_hbm_bytes_per_token",
            "modeled_prefill_hbm_bytes_per_token"]
 
@@ -112,6 +113,23 @@ def kernel_smem(pl: PaPlan, bs: int, Dh: int, L: int,
     return smem
 
 
+def shape_refusal(head_dim: int, block_size: int,
+                  num_values: int | None = None, *,
+                  packed: bool = True) -> str | None:
+    """Why the kernel refuses a pool of this geometry, or None if it takes
+    it: head_dim a multiple of 32 up to 128, block a power of two up to
+    32, a codebook of at most 16 entries packed or 256 unpacked
+    (``num_values=None``: an fp pool, no codebook). The engine asks this
+    before it routes a CUDA pool to the kernel."""
+    if head_dim % 32 or head_dim > _DH_MAX:
+        return f"head_dim {head_dim} (want a multiple of 32, <= {_DH_MAX})"
+    if block_size > _BS_MAX or block_size & (block_size - 1):
+        return f"block size {block_size} (want a power of two <= {_BS_MAX})"
+    if num_values is not None and num_values > (16 if packed else _L_MAX):
+        return f"codebook width {num_values}"
+    return None
+
+
 def _fail(msg: str):
     raise ValueError(f"paged_decode_attention: {msg}")
 
@@ -133,10 +151,9 @@ def _launch(q, k_fp, v_fp, k_codes, v_codes, k_cb, v_cb, blk_q, block_table,
         _fail(f"pool shape {tuple(k_fp.shape)} vs head_dim {Dh}")
     if Hq % Hkv:
         _fail(f"Hq {Hq} not a multiple of Hkv {Hkv}")
-    if Dh % 32 or Dh > _DH_MAX:
-        _fail(f"head_dim {Dh} (want a multiple of 32, <= 128)")
-    if bs > _BS_MAX or bs & (bs - 1):
-        _fail(f"block size {bs} (want a power of two <= {_BS_MAX})")
+    refusal = shape_refusal(Dh, bs)
+    if refusal:
+        _fail(refusal)
     if (block_table.dtype != torch.int32 or block_table.dim() != 2
             or block_table.shape[0] != B):
         _fail("block_table must be (B, mb) int32")
@@ -156,8 +173,9 @@ def _launch(q, k_fp, v_fp, k_codes, v_codes, k_cb, v_cb, blk_q, block_table,
         if k_cb.dtype != torch.float32 or not k_cb.shape == v_cb.shape == (
                 nb, L):
             _fail("codebooks must be (nb, L) f32")
-        if L > (16 if packed else _L_MAX):
-            _fail(f"codebook width {L}")
+        refusal = shape_refusal(Dh, bs, L, packed=packed)
+        if refusal:
+            _fail(refusal)
         if blk_q.dtype not in (torch.bool, torch.uint8) or blk_q.shape != (
                 nb,):
             _fail("blk_q must be (nb,) bool")

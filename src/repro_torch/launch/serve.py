@@ -35,6 +35,20 @@ equal and their logits agree within ``CHUNKED_REL_TOL`` of the range. The
 quantized-vs-fp replay compares logits while the two runs' greedy
 contexts agree: once a near-tie flips a token the runs score different
 contexts, and their logits say nothing about the quantizer.
+
+``--speculate k`` drafts k tokens a step with ``--draft-config`` (auto:
+the target's first half of layers, sharing its embed, norm, head and
+codes; self: the target itself; or an arch name with the same vocab) and
+verifies them in one (B, k+1) window of the target; greedy only. The run
+then replays a batch of page-aligned prompts through the non-speculative
+and the speculative engine, both with ``--kv-quant``, in f32, and fails
+unless their greedy tokens are identical and their logits agree within
+``SPEC_REL_TOL`` of the range. ``--prefix-cache`` shares full prompt pages across sequences
+with a common page-aligned prefix (``--shared-prefix-len N`` gives every
+prompt of the trace the same first N tokens); the run then replays
+requests with a shared prefix on an fp pool, shared against unshared, and
+fails unless some prefill spliced shared pages, the greedy tokens are
+identical and the logits agree within ``CHUNKED_REL_TOL["fp"]``.
 """
 from __future__ import annotations
 
@@ -56,6 +70,20 @@ import torch
 # 1% between that and the readings of planted faults (PERF.md).
 CHUNKED_REL_TOL = {"fp": 1e-4, "quantized": 0.01}
 SERVING_ABS_TOL, SERVING_REL_TOL = 2.5, 0.08
+# Speculative vs non-speculative, both on the --kv-quant pool, in f32, the
+# freeze budget covering the batch, on page-aligned prompts and fewer new
+# tokens than a page holds (speculative_replay): every page either freezes
+# at its attach in both engines or never fills, so no verify window reads
+# a page exact that the one-token engine reads frozen, whatever k and the
+# draft's acceptance (where one does, the reduced config reads 1.3-4.1%
+# of the range on the CPU). What is left is the lm_head's torch.matmul at
+# B*(k+1) rows instead of B. Readings at full width (tools/
+# replay_readings.py --speculate, PERF.md; NVIDIA H100 80GB HBM3, 700 W):
+# 0.0001% on prompt seeds 0-2 with the auto draft (91.7% accepted) and
+# with chip_smoke.untied_draft (0% accepted, 42 rollbacks), tokens
+# identical; the kernel's verify window dropping its own key 0.9011%
+# with either draft, every token still identical. 0.1% lies between.
+SPEC_REL_TOL = 1e-3
 # the reference launcher's PTQ skip list (embed and lm_head stay dense),
 # with one change: its "mix" (meant for RWKV's token-mix leaves) also
 # matches the "mixer" subtree, which left q/k/v/o dense there; "mix(?!er)"
@@ -64,17 +92,51 @@ PTQ_SKIP = ("ln", "norm", "router", "A_log", "mix(?!er)", "dt_bias",
             "D_skip", "w0", "embed", "lm_head")
 
 
+def _make_draft(params, cfg, args):
+    """--draft-config -> (draft_params, draft_cfg): "auto" the target's
+    first half of layers (shared embed, norm, head and, PTQ'd, codes),
+    "self" the target, or an arch's seeded random weights."""
+    from repro_torch import models
+    from repro_torch.configs import get_config, get_reduced_config
+    from repro_torch.serving import derive_draft
+
+    name = args.draft_config
+    if name in (None, "auto"):
+        return derive_draft(params, cfg)
+    if name == "self":
+        return params, cfg
+    dcfg = (get_reduced_config if args.reduced else get_config)(name)
+    if dcfg.vocab != cfg.vocab:
+        raise SystemExit(f"[serve] draft {name} vocab {dcfg.vocab} != "
+                         f"target vocab {cfg.vocab}")
+    dev = params["embed"].device
+    dparams = models.init_params(
+        dcfg, torch.Generator(device=dev).manual_seed(7), dev)
+    if cfg.param_dtype != dcfg.param_dtype:       # the f32 replays
+        dparams, dcfg = f32_copy(dparams, dcfg)
+    return dparams, dcfg
+
+
 def _make_engine(params, cfg, args, *, kv_quant, record_logits=False,
                  freeze_async=True, attn_impl=None, prefill_chunk=-1,
-                 freeze_page_budget=4):
+                 freeze_page_budget=4, speculate=None, prefix_cache=False,
+                 max_slots=None, draft=None):
+    """The engine ``args`` asks for; ``speculate`` (default
+    ``--speculate``) drafts with ``draft`` (params, cfg), by default
+    built from ``params`` by ``--draft-config``."""
     from repro_torch.serving import ContinuousBatchingEngine
 
+    speculate = args.speculate if speculate is None else speculate
     return ContinuousBatchingEngine(
-        params, cfg, device=args.device, max_slots=args.max_slots,
+        params, cfg, device=args.device,
+        max_slots=max_slots or args.max_slots,
         block_size=args.block_size, max_seq_len=args.max_seq_len,
         kv_quant=kv_quant, attn_impl=attn_impl or args.attn_impl,
         record_logits=record_logits, freeze_async=freeze_async,
-        freeze_page_budget=freeze_page_budget,
+        freeze_page_budget=freeze_page_budget, speculate=speculate,
+        draft=(draft or _make_draft(params, cfg, args)) if speculate
+        else None,
+        prefix_cache=prefix_cache,
         prefill_chunk=(args.prefill_chunk if prefill_chunk == -1
                        else prefill_chunk))
 
@@ -93,10 +155,10 @@ def f32_copy(params, cfg):
                                            compute_dtype="float32")
 
 
-def _replay_prompts(cfg, args) -> list[list[int]]:
+def _replay_prompts(cfg, args, prompt_len=None) -> list[list[int]]:
     rng = np.random.default_rng(args.seed)
-    return [rng.integers(0, cfg.vocab, args.prompt_len).tolist()
-            for _ in range(min(3, args.max_slots))]
+    return [rng.integers(0, cfg.vocab, prompt_len or args.prompt_len)
+            .tolist() for _ in range(min(3, args.max_slots))]
 
 
 def compare_replays(a, b, outs_a, outs_b) -> dict:
@@ -131,7 +193,7 @@ def _verify_serving(params, cfg, args) -> bool:
     outs, engines = [], []
     for kv in (None, args.kv_quant):
         eng = _make_engine(params, cfg, args, kv_quant=kv,
-                           record_logits=True,
+                           record_logits=True, speculate=0,
                            freeze_async=False)  # deterministic install step
         outs.append(eng.generate(prompts, max_new_tokens=args.gen))
         engines.append(eng)
@@ -166,14 +228,13 @@ def chunked_replay(params, cfg, args, kv_quant) -> dict:
     are equal and the chunked run's chunk count."""
     params, cfg = f32_copy(params, cfg)
     prompts = _replay_prompts(cfg, args)
-    budget = len(prompts) * -(-(args.prompt_len + args.gen)
-                              // args.block_size)
+    budget = _replay_budget(args, len(prompts))
     outs, engines = [], []
     for chunk in (None, args.prefill_chunk):
         eng = _make_engine(params, cfg, args, kv_quant=kv_quant,
                            record_logits=True, freeze_async=False,
                            attn_impl="gather", prefill_chunk=chunk,
-                           freeze_page_budget=budget)
+                           freeze_page_budget=budget, speculate=0)
         outs.append(eng.generate(prompts, max_new_tokens=args.gen))
         engines.append(eng)
     single, chunked = engines
@@ -200,6 +261,140 @@ def _verify_chunked(params, cfg, args) -> bool:
               f"max|dlogit|={r['dmax']:.4g} rel={r['rel']:.3g} (tolerance "
               f"rel<={tol:g}) -> {'OK' if good else 'MISMATCH'}")
         ok = ok and good
+    return ok
+
+
+def _replay_budget(args, n_prompts: int) -> int:
+    """A freeze budget covering every page of a replay batch: each
+    prompt's pages freeze at its attach, whatever else the step does."""
+    return n_prompts * -(-(args.prompt_len + args.gen + args.speculate)
+                         // args.block_size)
+
+
+def speculative_replay(params, cfg, args, draft_fn=None) -> dict:
+    """Replay a deterministic batch through the non-speculative engine and
+    the speculative one (``--speculate``; the draft ``draft_fn(params,
+    cfg)`` of the f32 copies, by default ``--draft-config``'s), both on
+    the ``--kv-quant`` pool with synchronous freezing, in f32 on f32
+    copies of the weights.
+
+    The prompts are ``--prompt-len`` rounded down to whole pages and each
+    generates fewer tokens than a page holds, with a freeze budget
+    covering the batch: both engines freeze every prompt page at its
+    attach and no page fills during decode. So every query of both reads
+    the same pages in the same state, whatever the windows' alignment
+    and the draft's acceptance (a page filling inside a verify window
+    would serve its exact rows to the window's later queries, where the
+    one-token engine reads it frozen: a freeze-timing difference, not a
+    speculative one).
+
+    Returns ``compare_replays``'s deviation, whether the greedy tokens are
+    equal, and the speculative run's acceptance, rollbacks and
+    tokens/step."""
+    params, cfg = f32_copy(params, cfg)
+    bs = args.block_size
+    prompts = _replay_prompts(cfg, args, max(args.prompt_len // bs, 1) * bs)
+    gen = min(args.gen, bs - 1)
+    draft = (draft_fn or (lambda p, c: _make_draft(p, c, args)))(params, cfg)
+    outs, engines = [], []
+    for k in (0, args.speculate):
+        eng = _make_engine(params, cfg, args, kv_quant=args.kv_quant,
+                           record_logits=True, freeze_async=False,
+                           speculate=k, draft=draft,
+                           freeze_page_budget=_replay_budget(args,
+                                                             len(prompts)))
+        outs.append(eng.generate(prompts, max_new_tokens=gen))
+        engines.append(eng)
+    base, spec = engines
+    r = compare_replays(base, spec, *outs)
+    r["tokens_equal"] = outs[0] == outs[1]
+    s = spec.metrics.summary()
+    r.update(acceptance=s.get("spec_acceptance_rate", 0.0),
+             proposed=s.get("spec_proposed", 0),
+             rollbacks=s.get("spec_rollbacks", 0),
+             tokens_per_step=((s.get("gen_tokens", 0) - s.get("completed", 0))
+                              / max(spec.counters["seq_decode_steps"], 1)))
+    return r
+
+
+def _verify_speculative(params, cfg, args) -> bool:
+    """Greedy token identity of the speculative engine with the
+    non-speculative one (the reference's bar) and logits within
+    SPEC_REL_TOL of the range."""
+    r = speculative_replay(params, cfg, args)
+    ok = r["tokens_equal"] and r["rel"] <= SPEC_REL_TOL
+    print(f"[serve] speculative check (speculate={args.speculate}, "
+          f"draft={args.draft_config}, kv={args.kv_quant or 'fp'}, f32): "
+          f"greedy tokens {'identical' if r['tokens_equal'] else 'DIFFER'} "
+          f"({r['agree']}/{r['total']}), max|dlogit|={r['dmax']:.4g} "
+          f"rel={r['rel']:.3g} (tolerance rel<={SPEC_REL_TOL:g}); "
+          f"acceptance "
+          f"{r['acceptance']:.1%} over {r['proposed']} drafts, "
+          f"{r['rollbacks']} rollbacks, tokens/step "
+          f"{r['tokens_per_step']:.2f} -> {'OK' if ok else 'MISMATCH'}")
+    return ok
+
+
+def _prefix_requests(cfg, args) -> list:
+    """Three requests whose prompts share their first tokens (the trace's
+    --shared-prefix-len, else every full page but the last). In two
+    slots the first two start together (their chunked prefills overlap,
+    so neither can share the other's pages); the second generates least,
+    so the third is admitted while the first, published, is still live."""
+    from repro_torch.serving import Request
+
+    bs, P = args.block_size, args.prompt_len
+    shared = args.shared_prefix_len or max(P - 1, 0) // bs * bs
+    rng = np.random.default_rng(args.seed)
+    common = tuple(int(x) for x in rng.integers(0, cfg.vocab, shared))
+    gens = (args.gen, max(args.gen // 4, 1), max(args.gen // 2, 1))
+    return [Request(id=i, prompt=common + tuple(
+                int(x) for x in rng.integers(0, cfg.vocab, P - shared)),
+                    max_new_tokens=g) for i, g in enumerate(gens)]
+
+
+def prefix_replay(params, cfg, args) -> dict:
+    """Requests sharing a prompt prefix (``_prefix_requests``) through an
+    fp-pool engine without and with the prefix cache (two slots, so the
+    third request is admitted while a sharer is live), in f32, read path
+    and chunking as ``args`` asks: ``compare_replays``'s deviation,
+    whether the greedy tokens are equal, the shared run's prefix counters
+    and whether both pools drained."""
+    params, cfg = f32_copy(params, cfg)
+    reqs = _prefix_requests(cfg, args)
+    engines = []
+    for pc in (False, True):
+        eng = _make_engine(params, cfg, args, kv_quant=None,
+                           record_logits=True, freeze_async=False,
+                           speculate=0, prefix_cache=pc, max_slots=2)
+        eng.run(list(reqs))
+        engines.append(eng)
+    base, shared = engines
+    r = compare_replays(base, shared, base.outputs, shared.outputs)
+    r["tokens_equal"] = base.outputs == shared.outputs
+    r.update({k: shared.counters[k] for k in
+              ("prefix_hits", "prefix_shared_pages", "cow_copies")})
+    r["drained"] = all(e.worker.alloc.num_free == e.worker.num_blocks - 1
+                       for e in engines)
+    return r
+
+
+def _verify_prefix(params, cfg, args) -> bool:
+    """Shared vs unshared prompt pages on an fp pool: prefills splice
+    shared pages, the greedy tokens are identical and the logits agree
+    within CHUNKED_REL_TOL["fp"] of the range."""
+    r = prefix_replay(params, cfg, args)
+    tol = CHUNKED_REL_TOL["fp"]
+    ok = (r["prefix_hits"] >= 1 and r["tokens_equal"] and r["drained"]
+          and r["rel"] <= tol)
+    print(f"[serve] prefix-sharing check (fp pool, f32): "
+          f"{r['prefix_hits']} hits, {r['prefix_shared_pages']} pages "
+          f"spliced shared, {r['cow_copies']} copy-on-write, greedy tokens "
+          f"{'identical' if r['tokens_equal'] else 'DIFFER'} "
+          f"({r['agree']}/{r['total']}), max|dlogit|={r['dmax']:.4g} "
+          f"rel={r['rel']:.3g} (tolerance rel<={tol:g}), pools "
+          f"{'drained' if r['drained'] else 'LEAKED'} "
+          f"-> {'OK' if ok else 'MISMATCH'}")
     return ok
 
 
@@ -248,16 +443,23 @@ def serve(args, params=None):
             cfg, torch.Generator(device=dev).manual_seed(0), dev)
         if args.quantize:
             params, ptq = quantize_params(params, args, dev)
-    eng = _make_engine(params, cfg, args, kv_quant=args.kv_quant)
+    eng = _make_engine(params, cfg, args, kv_quant=args.kv_quant,
+                       prefix_cache=args.prefix_cache)
     trace = poisson_trace(args.num_requests, args.request_rate,
                           vocab=cfg.vocab, prompt_len=args.prompt_len,
-                          max_new_tokens=args.gen, seed=args.seed)
+                          max_new_tokens=args.gen, seed=args.seed,
+                          shared_prefix_len=args.shared_prefix_len)
     print(f"[serve] continuous batching on {dev} ({cfg.name}, "
           f"{cfg.n_layers} layers, {cfg.compute_dtype}): "
           f"{args.num_requests} requests, Poisson rate {args.request_rate}/s, "
           f"prompt {args.prompt_len}, gen {args.gen}, {args.max_slots} slots "
           f"x {args.max_seq_len} tokens, block {args.block_size}, "
-          f"kv={eng.kv_spec or 'fp'}, attn_impl={eng.attn_impl}")
+          f"kv={eng.kv_spec or 'fp'}, attn_impl={eng.attn_impl}"
+          + (f", speculate={args.speculate} (draft "
+             f"{eng.worker.draft.cfg.name}, {eng.worker.draft.cfg.n_layers} "
+             f"layers)" if args.speculate else "")
+          + (f", prefix cache (shared prefix {args.shared_prefix_len} "
+             f"tokens)" if args.prefix_cache else ""))
     s = eng.run(trace)
     if ptq is not None:
         s["ptq"] = ptq
@@ -289,6 +491,17 @@ def serve(args, params=None):
     if args.prefill_chunk:
         print(f"[serve] chunked prefill: {s['prefill_chunks']} chunks of <= "
               f"{args.prefill_chunk} tokens interleaved with decode steps")
+    if args.prefix_cache:
+        print(f"[serve] prefix cache: {s['prefix_hits']} hits, "
+              f"{s['prefix_shared_pages']} pages spliced shared, "
+              f"{s['cow_copies']} copy-on-write tail materializations")
+    if args.speculate:
+        print(f"[serve] speculative: acceptance "
+              f"{s.get('spec_acceptance_rate', 0.0):.1%} "
+              f"({s.get('spec_accepted', 0)}/{s.get('spec_proposed', 0)} "
+              f"drafts), {s.get('spec_rollbacks', 0)} rollbacks, "
+              f"tokens/step {s.get('tokens_per_step', 1.0):.2f}, draft "
+              f"{s['draft_prefills']} prefills + {s['draft_steps']} windows")
     if args.quantize:
         fb = s["qmatmul_dequant_fallback"]
         print(f"[serve] quantized weights: {s['quant_matmul_launches']} "
@@ -311,6 +524,10 @@ def verify(params, cfg, args) -> None:
     if args.kv_quant and not _verify_serving(params, cfg, args):
         raise SystemExit(1)
     if args.prefill_chunk and not _verify_chunked(params, cfg, args):
+        raise SystemExit(1)
+    if args.speculate and not _verify_speculative(params, cfg, args):
+        raise SystemExit(1)
+    if args.prefix_cache and not _verify_prefix(params, cfg, args):
         raise SystemExit(1)
 
 
@@ -352,12 +569,32 @@ def parse_args(argv=None):
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="admit prompts in N-token chunks, one per engine "
                          "iteration, interleaved with decode steps")
+    ap.add_argument("--speculate", type=int, default=0,
+                    help="draft k tokens a step and verify all k+1 "
+                         "positions in one batched target pass (0 = off; "
+                         "greedy only)")
+    ap.add_argument("--draft-config", default="auto",
+                    help="draft model for --speculate: 'auto' (the "
+                         "target's first half of layers, shared weights), "
+                         "'self' (the target), or an arch name with the "
+                         "target's vocab")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share full prompt pages across sequences with a "
+                         "common page-aligned prefix (refcounted, "
+                         "copy-on-write at the prompt's last page)")
+    ap.add_argument("--shared-prefix-len", type=int, default=0,
+                    help="the first N prompt tokens of every request in "
+                         "the generated trace are the same")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.request_rate <= 0:
         ap.error("--request-rate must be > 0 (requests per second)")
     if args.prefill_chunk is not None and args.prefill_chunk < 1:
         ap.error("--prefill-chunk must be >= 1 token")
+    if args.speculate < 0:
+        ap.error("--speculate must be >= 0")
+    if not 0 <= args.shared_prefix_len <= args.prompt_len:
+        ap.error("--shared-prefix-len must lie in [0, --prompt-len]")
     return args
 
 

@@ -38,5 +38,12 @@ def decode_step(params, cfg, tokens, cache, cache_index):
     return _tf.lm_decode_step(params, cfg, tokens, cache, cache_index)
 
 
+def decode_window(params, cfg, tokens, cache, cache_index):
+    """Multi-token decode window (B, W) at per-sequence offsets: the
+    speculative verify pass."""
+    _check_lm(cfg)
+    return _tf.lm_decode_window(params, cfg, tokens, cache, cache_index)
+
+
 __all__ = ["init_params", "forward", "init_cache", "prefill", "decode_step",
-           "params_from_reference"]
+           "decode_window", "params_from_reference"]

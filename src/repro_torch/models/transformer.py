@@ -135,7 +135,19 @@ def lm_decode_step(params, cfg, tokens, cache, cache_index):
     """One decode step: tokens (B, 1) -> (logits (B, 1, V), new_cache).
 
     cache_index is an int (every row at one length) or a (B,) tensor of
-    per-sequence lengths (continuous batching over a paged cache)."""
+    per-sequence lengths (continuous batching over a paged cache). The
+    W = 1 case of ``lm_decode_window``."""
+    return lm_decode_window(params, cfg, tokens, cache, cache_index)
+
+
+def lm_decode_window(params, cfg, tokens, cache, cache_index):
+    """Multi-token decode window: tokens (B, W) continue every sequence at
+    its own offset -> (logits (B, W, V), new_cache).
+
+    The speculative verify pass: position w of row b is scored at
+    ``cache_index[b] + w``, causal inside the window, so one batched pass
+    gives the model's next-token logits after each of the W prefixes, the
+    same math as W sequential decode steps."""
     x = _embed_in(params, cfg, {"tokens": tokens})
     B, W = tokens.shape
     if isinstance(cache_index, torch.Tensor):

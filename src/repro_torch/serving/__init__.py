@@ -1,24 +1,28 @@
-"""Serving subsystem (port of ``repro/serving``, slice 1): continuous
-batching over a paged KV pool whose full pages freeze to kmeans_ls
-codebooks, read through the fused paged-attention kernel."""
+"""Serving subsystem (port of ``repro/serving``): continuous batching over
+a paged KV pool whose full pages freeze to codebooks, read through the
+fused paged-attention kernel, with speculative decoding and prefix
+sharing."""
 from .engine import ContinuousBatchingEngine
 from .kv_cache import (BlockAllocator, DoubleFree, PagedKVCache, PagedKVPool,
-                       PoolExhausted, dispatch_freeze, freeze_blocks,
-                       init_paged_cache, init_paged_layer, install_freeze,
+                       PoolExhausted, PrefixIndex, dispatch_freeze,
+                       freeze_blocks, init_paged_cache, init_paged_layer,
+                       install_freeze,
                        page_bytes, paged_layer_from_reference,
                        resolve_kv_spec, thaw_blocks, with_tables)
 from .metrics import MetricsCollector, percentile
 from .scheduler import (ContinuousBatchingScheduler, Request, SeqState,
                         make_requests, poisson_trace)
+from .speculative import DraftWorker, derive_draft, window_step
 from .workers import DecodeWorker, FinishedPrefill, PrefillWorker, sample_token
 
 __all__ = [
     "ContinuousBatchingEngine", "BlockAllocator", "DoubleFree",
-    "PagedKVCache", "PagedKVPool", "PoolExhausted", "dispatch_freeze",
-    "freeze_blocks", "init_paged_cache", "init_paged_layer",
+    "PagedKVCache", "PagedKVPool", "PoolExhausted", "PrefixIndex",
+    "dispatch_freeze", "freeze_blocks", "init_paged_cache", "init_paged_layer",
     "install_freeze", "page_bytes", "paged_layer_from_reference",
     "resolve_kv_spec", "thaw_blocks", "with_tables", "MetricsCollector",
     "percentile", "ContinuousBatchingScheduler", "Request", "SeqState",
     "make_requests", "poisson_trace", "DecodeWorker", "FinishedPrefill",
-    "PrefillWorker", "sample_token",
+    "PrefillWorker", "sample_token", "DraftWorker", "derive_draft",
+    "window_step",
 ]

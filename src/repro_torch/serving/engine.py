@@ -5,7 +5,24 @@ borrowing its pool, behind a wall-clock run loop.
 ``attn_impl`` picks the read path of decode steps and prefill chunks:
 "fused" goes through the hand-written paged-attention kernel (frozen pages
 dequantized on chip), "gather" expands pages to dense K/V first, and
-"auto" is fused on CUDA and gather on the CPU.
+"auto" is fused on CUDA and gather on the CPU. A fused CUDA engine
+raises when it is built if the kernel refuses the pool's head_dim, block
+size or codebook width (``kernels.paged_attention.shape_refusal``),
+naming the shape.
+
+``speculate=k`` with ``draft=(params, cfg)`` (see
+``serving.speculative.derive_draft``) turns every decode iteration into a
+draft-propose / batched-verify / accept-rollback step: k draft tokens per
+sequence, one (B, k+1) verify window on the target, accepted prefixes
+advance ``seq_lens`` in place, rejected suffixes roll back (never freezing
+a page past the accepted watermark). Greedy only: the emitted trace is
+the non-speculative engine's greedy trace.
+
+``prefix_cache=True`` shares full prompt pages across sequences whose
+prompts share a page-aligned prefix: published pages (installed-frozen on
+a quantized pool, full prompt pages on an fp pool) are spliced into a new
+sequence's table at a refcount, its prefill starts past them, and
+admission charges worst-case pages minus the shareable ones.
 
 ``kv_quant`` is a QuantSpec (object or string like "kmeans_ls@16"),
 validated at construction. ``prefill_chunk=C`` splits every admitted
@@ -30,6 +47,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import paged_decode_attention, quant_matmul
+from repro_torch.kernels.paged_attention import shape_refusal
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.quant.serve import fallback_count
 
@@ -39,11 +57,25 @@ from .scheduler import Request, make_requests
 from .workers import DecodeWorker, PrefillWorker
 
 
-def _resolve_attn_impl(attn_impl: str, device: torch.device) -> str:
+def _resolve_attn_impl(attn_impl: str, device: torch.device, *,
+                       head_dim: int, block_size: int,
+                       num_values: int | None) -> str:
+    """The read path for a pool of this geometry on ``device``
+    (``num_values=None``: an fp pool). A fused path on CUDA raises when
+    the kernel refuses the pool; the CPU runs the kernel's plain
+    version, which takes any pool."""
     if attn_impl not in ("auto", "fused", "gather"):
         raise ValueError(f"attn_impl {attn_impl!r}: auto, fused or gather")
     if attn_impl == "auto":
-        return "fused" if device.type == "cuda" else "gather"
+        attn_impl = "fused" if device.type == "cuda" else "gather"
+    if attn_impl == "fused" and device.type == "cuda":
+        refusal = shape_refusal(head_dim, block_size, num_values,
+                                packed=num_values is None
+                                or num_values <= 16)
+        if refusal:
+            raise ValueError(f"attn_impl='fused' on CUDA: the "
+                             f"paged-attention kernel refuses this pool: "
+                             f"{refusal}")
     return attn_impl
 
 
@@ -56,17 +88,24 @@ class ContinuousBatchingEngine:
                  kv_num_values: int | None = None, max_queue: int = 256,
                  eos_id: int | None = None, record_logits: bool = False,
                  attn_impl: str = "auto", freeze_async: bool = True,
-                 freeze_page_budget: int = 4,
-                 prefill_chunk: int | None = None, tracer=None):
+                 freeze_page_budget: int = 4, speculate: int = 0,
+                 draft: tuple | None = None,
+                 prefill_chunk: int | None = None,
+                 prefix_cache: bool = False, tracer=None):
         if cfg.family != "lm":
             raise ValueError("paged serving drives decoder-only LMs")
         self.device = resolve_device(device)
         self.tracer = tracer if tracer is not None else NULL_TRACER
-        self.attn_impl = _resolve_attn_impl(attn_impl, self.device)
         # fail fast: an unfreezable spec raises here, naming the methods
         # that can freeze pages
         self.kv_spec = (None if kv_quant is None else
                         resolve_kv_spec(kv_quant, num_values=kv_num_values))
+        self.attn_impl = _resolve_attn_impl(
+            attn_impl, self.device, head_dim=cfg.head_dim,
+            block_size=block_size,
+            num_values=None if self.kv_spec is None
+            else self.kv_spec.num_values)
+        self.speculate = speculate
         self.params, self.cfg = params, cfg
         self.record_logits = record_logits
         self.metrics = MetricsCollector()
@@ -78,7 +117,8 @@ class ContinuousBatchingEngine:
             num_blocks=num_blocks, kv_spec=self.kv_spec,
             attn_impl=self.attn_impl, freeze_async=freeze_async,
             freeze_page_budget=freeze_page_budget, max_queue=max_queue,
-            eos_id=eos_id, record_logits=record_logits, metrics=self.metrics,
+            eos_id=eos_id, record_logits=record_logits, speculate=speculate,
+            draft=draft, prefix_cache=prefix_cache, metrics=self.metrics,
             outputs=self.outputs, request_logits=self.request_logits,
             tracer=self.tracer)
         self.prefill = PrefillWorker(
@@ -99,6 +139,11 @@ class ContinuousBatchingEngine:
         return self.worker.counters
 
     def submit(self, req: Request, now: float) -> bool:
+        if self.speculate and req.temperature > 0.0:
+            raise ValueError(
+                "speculative decoding serves the greedy (temperature=0) "
+                "verification path; submit sampled requests to a "
+                "non-speculative engine")
         return self.worker.submit(req, now)
 
     @torch.inference_mode()
@@ -123,7 +168,11 @@ class ContinuousBatchingEngine:
                 nxt = pending[0].arrival_time
                 time.sleep(min(max(nxt - now, 0.0), poll_s) or poll_s)
                 continue
-            for st in w.sched.schedule(w.alloc.num_free):
+            # with the prefix cache on, admission charges each request its
+            # worst case minus the prompt pages already shareable (its
+            # prefill splices those instead of allocating them)
+            disc = w.prefix_probe if w.prefix is not None else None
+            for st in w.sched.schedule(w.alloc.num_free, discount=disc):
                 if self.prefill_chunk:
                     self._chunking.append(
                         (st, self.prefill.start_chunked(st.req, now_fn)))
@@ -147,6 +196,8 @@ class ContinuousBatchingEngine:
         out["rejected"] = len(w.sched.rejected)
         out["attn_impl"] = self.attn_impl
         out.update(w.counters)
+        if w.draft is not None:
+            out.update(w.draft.counters, draft_layers=w.draft.cfg.n_layers)
         out["prefill_chunks"] = self.prefill.counters["prefill_chunks"]
         out["paged_attention_launches"] = (paged_decode_attention.launches
                                            - launches0)
@@ -158,6 +209,7 @@ class ContinuousBatchingEngine:
             out["tokens_per_step"] = ((out.get("gen_tokens", 0)
                                        - out.get("completed", 0))
                                       / out["seq_decode_steps"])
+        out["speculate"] = self.speculate
         return out
 
     def generate(self, prompts: list[list[int]], max_new_tokens: int,

@@ -1,6 +1,7 @@
 """Paged KV cache: fixed-size blocks, a refcounted free-list allocator,
-per-sequence block tables, codebook-frozen pages and the fused read path
-(port of ``repro/serving/kv_cache.py``).
+a prefix index over shareable pages, per-sequence block tables,
+codebook-frozen pages and the fused read path (port of
+``repro/serving/kv_cache.py``).
 
 Layout. ``PagedKVPool`` holds every attention layer's pools stacked on a
 leading layer axis (the reference's stacked group axis):
@@ -129,6 +130,82 @@ class BlockAllocator:
                 self._free.append(b)
                 released.append(b)
         return released
+
+
+# ------------------------------------------------------------- prefix index
+
+
+class PrefixIndex:
+    """Rolling token-hash index over shareable full pages (port of the
+    reference's ``PrefixIndex``, same chain hash).
+
+    Each published page is keyed by ``(chain_hash, page_tokens)`` where
+    ``chain_hash`` rolls over every preceding page of the same prompt
+    (``h_0 = 0``, ``h_{i+1} = hash((h_i, page_i_tokens))``), so a lookup
+    walks the longest run of full pages whose whole prefix matches a
+    published chain: a radix trie keyed one page per edge. Only immutable
+    pages publish: installed-frozen pages on quantized pools, full prompt
+    pages on unquantized pools (prompt rows never rewrite once written).
+    Entries die with their page: the worker calls ``invalidate`` with the
+    ids ``BlockAllocator.free`` actually released."""
+
+    def __init__(self, block_size: int):
+        self.block_size = block_size
+        self._map: dict[tuple, int] = {}          # (chain_hash, page) -> bid
+        self._keys: dict[int, list] = {}          # bid -> keys published
+
+    def __len__(self) -> int:
+        return len(self._map)
+
+    @staticmethod
+    def _link(parent: int, page: tuple) -> int:
+        # int/tuple hashing is unsalted in CPython: chains are stable
+        # across processes
+        return hash((parent, page))
+
+    def _pages(self, tokens, n: int):
+        bs = self.block_size
+        for i in range(min(len(tokens) // bs, n)):
+            yield i, tuple(int(t) for t in tokens[i * bs:(i + 1) * bs])
+
+    def publish(self, tokens, blocks, frozen) -> int:
+        """Register the full pages of ``tokens`` served by ``blocks``
+        whose ids are in ``frozen``, stopping at the first page that is
+        not (a chain is contiguous from the root). ``frozen=None`` marks
+        every full page eligible (the unquantized pool). Idempotent; the
+        first publisher of a key wins. Returns the entries added."""
+        h, added = 0, 0
+        for i, page in self._pages(tokens, len(blocks)):
+            bid = int(blocks[i])
+            if frozen is not None and bid not in frozen:
+                break
+            key = (h, page)
+            if key not in self._map:
+                self._map[key] = bid
+                self._keys.setdefault(bid, []).append(key)
+                added += 1
+            h = self._link(h, page)
+        return added
+
+    def lookup(self, tokens, max_pages: int) -> list[int]:
+        """Block ids of the longest run of published pages matching
+        ``tokens`` from position 0, at most ``max_pages``."""
+        h, out = 0, []
+        for _, page in self._pages(tokens, max_pages):
+            bid = self._map.get((h, page))
+            if bid is None:
+                break
+            out.append(bid)
+            h = self._link(h, page)
+        return out
+
+    def invalidate(self, released_ids) -> None:
+        """Forget every entry served by a page whose last reference was
+        just released (the id may be reallocated with other content)."""
+        for bid in released_ids:
+            for key in self._keys.pop(int(bid), ()):
+                if self._map.get(key) == int(bid):
+                    del self._map[key]
 
 
 # ------------------------------------------------------------- paged cache

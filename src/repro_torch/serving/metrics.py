@@ -1,7 +1,6 @@
 """Serving metrics: per-request latency (TTFT / TPOT), aggregate
-throughput, and KV-cache occupancy counters (port of
-``repro/serving/metrics.py``; the speculative-decoding counters come with
-that slice).
+throughput, KV-cache occupancy counters and the speculative-decoding
+counters (port of ``repro/serving/metrics.py``).
 
 TTFT = first token time - arrival, split into its two components so
 disaggregation wins attribute correctly:
@@ -79,6 +78,13 @@ class MetricsCollector:
         self.traces: dict[int, RequestTrace] = {}
         self.stats = Registry()
         self.steps = 0
+        # speculative decoding: drafted-token fate, counted per sequence
+        # slice of a batched verify pass (spec_step is called once per
+        # active slot, so spec_proposed == k * spec_steps)
+        self.spec_steps = 0          # per-sequence verify slices
+        self.spec_proposed = 0       # draft tokens offered for verification
+        self.spec_accepted = 0       # draft tokens the target emitted
+        self.spec_rollbacks = 0      # slices that rolled a suffix back
         # last cache sample where the pool held anything (fp-equiv > 0):
         # after the final eviction both sides are zero, so "final" keeps
         # meaning "steady state before teardown"
@@ -135,6 +141,18 @@ class MetricsCollector:
             # admission, or eos on first verify) — no latency to report
             self._completed_zero_token += 1
 
+    def spec_step(self, proposed: int, accepted: int,
+                  rolled_back: bool) -> None:
+        """Account one sequence's slice of a speculative verify pass:
+        ``proposed`` draft tokens went in, ``accepted`` of them were
+        emitted; ``rolled_back`` marks a rejected suffix (seq_lens rolled
+        back to the accepted watermark)."""
+        self.spec_steps += 1
+        self.spec_proposed += proposed
+        self.spec_accepted += accepted
+        if rolled_back:
+            self.spec_rollbacks += 1
+
     # ----------------------------------------------------- cache sampling
 
     def sample_cache(self, occupancy: float, actual_bytes: float,
@@ -157,11 +175,21 @@ class MetricsCollector:
                "gen_tokens": self._gen_tokens_done,
                "steps": self.steps,
                "in_flight": len(self.traces) - self._completed}
+        out.update(self._spec_counts())
         for k, v in self._admission.items():
             if v:
                 out[k] = v
         out.update(self.stats.snapshot())
         return out
+
+    def _spec_counts(self) -> dict:
+        """The speculative counters, only on runs that speculated."""
+        if not self.spec_steps:
+            return {}
+        return {"spec_steps": self.spec_steps,
+                "spec_proposed": self.spec_proposed,
+                "spec_accepted": self.spec_accepted,
+                "spec_rollbacks": self.spec_rollbacks}
 
     def summary(self) -> dict:
         done = [t for t in self.traces.values() if t.finish_t is not None]
@@ -217,6 +245,10 @@ class MetricsCollector:
             out["itl_p50_s"] = percentile(gaps, 50)
             out["itl_p99_s"] = percentile(gaps, 99)
             out["itl_max_s"] = float(np.max(gaps))
+        spec = self._spec_counts()
+        if spec:
+            out.update(spec, spec_acceptance_rate=(
+                self.spec_accepted / max(self.spec_proposed, 1)))
         if "cache_occupancy" in self.stats:
             occ = self.stats.gauge("cache_occupancy")
             out["cache_occupancy_mean"] = occ.mean

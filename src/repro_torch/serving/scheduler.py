@@ -4,8 +4,10 @@ and the preemption queue come in later slices).
 
 Pure decision logic over a free-page count: no model, no tensors.
 Admission is conservative: a request is scheduled only when its worst-case
-page need, ceil((prompt + max_new) / block_size), fits, so a scheduled
-request can never deadlock the pool mid-decode.
+page need, ceil((prompt + max_new + lookahead) / block_size), fits, so a
+scheduled request can never deadlock the pool mid-decode. ``lookahead``
+is the speculative verify window's optimistic rows; a prefix-cache probe
+may discount the pages a prompt will share instead of allocating.
 """
 from __future__ import annotations
 
@@ -54,17 +56,21 @@ class SeqState:
 
 class ContinuousBatchingScheduler:
     def __init__(self, *, max_slots: int, block_size: int,
-                 max_queue: int = 256):
+                 max_queue: int = 256, lookahead: int = 0):
         self.max_slots = max_slots
         self.block_size = block_size
         self.max_queue = max_queue
+        # speculative decoding writes its verify window optimistically: up
+        # to `lookahead` rows past the final accepted length need pages
+        # (rolled-back rows are rewritten, never served)
+        self.lookahead = lookahead
         self.waiting: deque[Request] = deque()
         self.active: dict[int, SeqState] = {}       # slot -> state
         self._free_slots = list(range(max_slots - 1, -1, -1))
         self.rejected: list[int] = []
 
     def blocks_for(self, req: Request) -> int:
-        total = req.prompt_len + req.max_new_tokens
+        total = req.prompt_len + req.max_new_tokens + self.lookahead
         return -(-total // self.block_size)
 
     def submit(self, req: Request) -> bool:
@@ -75,12 +81,19 @@ class ContinuousBatchingScheduler:
         self.waiting.append(req)
         return True
 
-    def schedule(self, free_blocks: int) -> list[SeqState]:
+    def schedule(self, free_blocks: int, discount=None) -> list[SeqState]:
         """Admit FCFS from the queue into free slots while pages last
-        (head-of-line blocking keeps the schedule deterministic)."""
+        (head-of-line blocking keeps the schedule deterministic).
+
+        ``discount(req)`` (optional) gives the pages of the request's
+        prompt already resident and shareable (the prefix-cache probe):
+        admission charges worst case minus those, since its prefill splices
+        them instead of allocating."""
         admitted = []
         while self.waiting and self._free_slots:
             need = self.blocks_for(self.waiting[0])
+            if discount is not None:
+                need = max(need - discount(self.waiting[0]), 0)
             if need > free_blocks:
                 break
             req = self.waiting.popleft()
@@ -131,15 +144,24 @@ def make_requests(prompts, max_new_tokens: int, *, temperature: float = 0.0,
 
 def poisson_trace(n: int, rate: float, *, vocab: int, prompt_len: int,
                   max_new_tokens: int, seed: int = 0,
-                  temperature: float = 0.0, top_k: int = 0) -> list[Request]:
+                  temperature: float = 0.0, top_k: int = 0,
+                  shared_prefix_len: int = 0) -> list[Request]:
     """n requests with exp(1/rate) inter-arrival gaps (rate in req/s);
-    the same requests as the reference's trace for one seed."""
+    the same requests as the reference's trace for one seed.
+    ``shared_prefix_len`` starts every prompt with one seed-derived common
+    token run (a shared system prompt): the traffic the prefix cache
+    deduplicates."""
+    if not 0 <= shared_prefix_len <= prompt_len:
+        raise ValueError(f"shared_prefix_len {shared_prefix_len} outside "
+                         f"[0, prompt_len {prompt_len}]")
     rng = np.random.default_rng(seed)
     t = np.cumsum(rng.exponential(1.0 / rate, n))
     rng.random(n)   # the reference draws each request's SLO tier here
+    common = tuple(int(x) for x in rng.integers(0, vocab, shared_prefix_len))
+    uniq = prompt_len - shared_prefix_len
     return [Request(id=i,
-                    prompt=tuple(int(x) for x in
-                                 rng.integers(0, vocab, prompt_len)),
+                    prompt=common + tuple(int(x) for x in
+                                          rng.integers(0, vocab, uniq)),
                     max_new_tokens=max_new_tokens,
                     arrival_time=float(t[i]),
                     temperature=temperature, top_k=top_k,

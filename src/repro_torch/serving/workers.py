@@ -4,12 +4,18 @@ pool (port of ``repro/serving/workers.py``, colocated composition).
 ``DecodeWorker`` owns the paged pool and the decode hot loop: iteration
 batching over its slots, async page freezing (batched kmeans_ls solves,
 rate-limited per decode step) and slot recycling, behind ``step()`` /
-``attach()``. ``PrefillWorker`` borrows the decode worker's pool and
-allocator and turns admitted prompts into finished prefills, whole
-(``run_inline``) or chunk by chunk (``start_chunked``/``advance_chunk``).
+``attach()``. With ``speculate=k`` every decode iteration is a draft
+propose (``speculative.DraftWorker``), one batched (B, k+1) verify window
+on the target, and a per-slot accept/rollback. With ``prefix_cache`` the
+worker publishes shareable full prompt pages into a ``PrefixIndex``, and
+later prompts splice them at a refcount instead of prefilling them.
+``PrefillWorker`` borrows the decode worker's pool and allocator and turns
+admitted prompts into finished prefills, whole (``run_inline``) or chunk
+by chunk (``start_chunked``/``advance_chunk``), starting past any spliced
+shared pages.
 
-Speculative decoding, preemption/restore, prefix sharing, the owned-pool
-(disaggregated) prefill mode and its page payloads come in later slices.
+Preemption/restore, the owned-pool (disaggregated) prefill mode and its
+page payloads come in later slices.
 """
 from __future__ import annotations
 
@@ -21,11 +27,13 @@ import torch
 from repro_torch import models
 from repro_torch.obs.trace import NULL_TRACER
 
-from .kv_cache import (BlockAllocator, dispatch_freeze, freeze_blocks,
-                       init_paged_cache, install_freeze, page_bytes,
-                       thaw_blocks, with_prefill_fused, with_tables)
+from .kv_cache import (BlockAllocator, PrefixIndex, dispatch_freeze,
+                       freeze_blocks, init_paged_cache, install_freeze,
+                       page_bytes, thaw_blocks, with_prefill_fused,
+                       with_tables)
 from .metrics import MetricsCollector
 from .scheduler import ContinuousBatchingScheduler, Request, SeqState
+from .speculative import DraftWorker, window_step
 
 
 def sample_token(row: np.ndarray, *, temperature: float = 0.0,
@@ -47,13 +55,15 @@ def sample_token(row: np.ndarray, *, temperature: float = 0.0,
 class FinishedPrefill:
     """What a prefill hands the decode worker: the sampled first token
     (and its logits when recorded), the sampler state, and the sequence's
-    pages, already resident in the shared pool."""
+    pages, already resident in the shared pool, the first
+    ``shared_pages`` of them spliced from the prefix index."""
 
     req: Request
     first_token: int
     blocks: list
     rng: np.random.Generator
     last_logits: np.ndarray | None = None
+    shared_pages: int = 0
 
 
 class _Slot:
@@ -81,12 +91,30 @@ class DecodeWorker:
                  attn_impl: str = "gather", freeze_async: bool = True,
                  freeze_page_budget: int = 4, max_queue: int = 256,
                  eos_id: int | None = None, record_logits: bool = False,
-                 metrics=None, outputs=None, request_logits=None,
-                 tracer=None):
+                 speculate: int = 0, draft: tuple | None = None,
+                 prefix_cache: bool = False, metrics=None, outputs=None,
+                 request_logits=None, tracer=None):
         if freeze_page_budget < 1:
             raise ValueError("freeze budget must cover >= 1 page")
+        if speculate < 0:
+            raise ValueError(f"speculate={speculate}: want >= 0")
+        if speculate:
+            if draft is None:
+                raise ValueError("speculate=k needs draft=(params, cfg): "
+                                 "see serving.speculative.derive_draft")
+            if draft[1].vocab != cfg.vocab:
+                raise ValueError(
+                    f"draft vocab {draft[1].vocab} != target {cfg.vocab}; "
+                    f"speculative verify compares token ids directly")
+            if attn_impl == "fused" and speculate + 1 > block_size:
+                raise ValueError(
+                    f"speculate={speculate} verify window exceeds block "
+                    f"size {block_size}; the fused-window gate would also "
+                    f"catch prefill steps")
+        self.speculate = speculate
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self._trk_decode, self._trk_freeze = "decode/w0", "freeze/w0"
+        self._trk_spec = "spec/w0"
         self.params, self.cfg = params, cfg
         self.device = torch.device(device)
         self.kv_spec = kv_spec
@@ -104,10 +132,18 @@ class DecodeWorker:
             cfg, num_blocks=self.num_blocks, block_size=block_size,
             quantized=kv_spec is not None,
             num_values=16 if kv_spec is None else kv_spec.num_values,
-            fused=attn_impl == "fused", device=self.device)
+            fused=attn_impl == "fused", fused_window=speculate + 1,
+            device=self.device)
         self.alloc = BlockAllocator(self.num_blocks)
+        # `lookahead` reserves the verify window's optimistic rows past
+        # max_new_tokens in the worst-case page count
         self.sched = ContinuousBatchingScheduler(
-            max_slots=max_slots, block_size=block_size, max_queue=max_queue)
+            max_slots=max_slots, block_size=block_size, max_queue=max_queue,
+            lookahead=speculate)
+        self.draft = None if not speculate else DraftWorker(
+            draft[0], draft[1], device=self.device, max_slots=max_slots,
+            block_size=block_size, max_blocks=self.max_blocks,
+            tracer=self.tracer)
         self.metrics = metrics if metrics is not None else MetricsCollector()
         self.table = np.zeros((max_slots, self.max_blocks), np.int32)
         self.lens = np.zeros((max_slots,), np.int32)
@@ -124,7 +160,16 @@ class DecodeWorker:
                          "decode_steps": 0, "seq_decode_steps": 0,
                          "freeze_inflight_steps": 0, "freeze_overlap_steps": 0,
                          "freeze_pending_max": 0, "freeze_deferred_pages": 0,
-                         "max_gather_blocks": 0}
+                         "max_gather_blocks": 0,
+                         # prefix sharing: prefills that matched a published
+                         # run, the pages they spliced instead of
+                         # prefilling, and write-hot tail pages prefilled
+                         # privately instead of shared (copy-on-write)
+                         "prefix_hits": 0, "prefix_shared_pages": 0,
+                         "cow_copies": 0}
+        # hash-chain index over installed-frozen (or, unquantized, full
+        # prompt) pages; prefills splice published pages at rc + 1
+        self.prefix = PrefixIndex(block_size) if prefix_cache else None
         self._pending_freezes: list[tuple[int, object]] = []
         self._freeze_bids: list[int] = []   # queued for the next flush
         self._deferred_seen = 0    # queue suffix already counted deferred
@@ -133,8 +178,10 @@ class DecodeWorker:
     # ------------------------------------------------------------ intake
 
     def fits(self, req: Request) -> bool:
-        """Whether this worker could ever hold the request."""
-        return not (req.prompt_len + req.max_new_tokens > self.max_seq_len
+        """Whether this worker could ever hold the request (the verify
+        window's lookahead rows included)."""
+        return not (req.prompt_len + req.max_new_tokens + self.speculate
+                    > self.max_seq_len
                     or self.sched.blocks_for(req) > self.num_blocks - 1)
 
     def submit(self, req: Request, now: float) -> bool:
@@ -169,10 +216,56 @@ class DecodeWorker:
         self.table[st.slot, :len(s.blocks)] = s.blocks
         self.lens[st.slot] = P
         st.length, st.generated = P, 1
-        s.frozen_upto = 0
+        # spliced shared pages are installed-frozen: they start the frozen
+        # watermark, so they are never queued for a second solve (an fp
+        # pool shares exact pages and never freezes)
+        s.frozen_upto = fin.shared_pages if self.kv_spec is not None else 0
         self._queue_freeze(st.slot)
+        if self.draft is not None:
+            # the draft prefills the same prompt on its own pool and
+            # mirrors this slot
+            self.draft.attach(st.slot, req.prompt, len(s.blocks))
+        self._publish_prefixes()
         if st.done or fin.first_token == self.eos_id:
             self._finish(st, now)
+
+    # ------------------------------------------------------ prefix sharing
+
+    def _publish_prefixes(self) -> None:
+        """(Re)publish every active slot's eligible full prompt pages:
+        installed-frozen pages on a quantized pool, every full prompt page
+        on an fp pool (prompt rows never rewrite once the sequence is past
+        them). Idempotent (the index dedupes on chain key), so calling it
+        after every attach, install and finish keeps the index current."""
+        if self.prefix is None:
+            return
+        frozen = self._frozen_pages if self.kv_spec is not None else None
+        for i in self.sched.active_slots():
+            st = self.sched.active[i]
+            self.prefix.publish(st.req.prompt, self.slots[i].blocks, frozen)
+
+    def shared_prefix_pages(self, slot: int) -> int:
+        """Length of the slot's leading page run other tables also hold
+        (rc > 1). Sharing only splices prefix runs of published chains, so
+        refcounts never rise along the table: the first rc == 1 page ends
+        the run."""
+        if self.prefix is None:
+            return 0
+        n = 0
+        for b in self.slots[slot].blocks:
+            if self.alloc.refcount(int(b)) <= 1:
+                break
+            n += 1
+        return n
+
+    def prefix_probe(self, req: Request) -> int:
+        """Admission discount: pages of ``req``'s prompt already published
+        (lookup only, no retain), which its prefill will splice instead of
+        allocating."""
+        if self.prefix is None:
+            return 0
+        return len(self.prefix.lookup(req.prompt,
+                                      (req.prompt_len - 1) // self.block_size))
 
     # ------------------------------------------------------------ steps
 
@@ -182,7 +275,10 @@ class DecodeWorker:
         decode step is skipped but pending freezes are still polled."""
         self._flush_freezes()
         if self.sched.active_slots():
-            self._decode_step(now_fn)
+            if self.speculate:
+                self._spec_decode_step(now_fn)
+            else:
+                self._decode_step(now_fn)
         else:
             self._poll_freezes()
         self._sample_cache()
@@ -241,18 +337,150 @@ class DecodeWorker:
         tr.complete(self._trk_decode, "decode_step", t_step,
                     step=self.counters["decode_steps"], active=len(active))
 
+    # ------------------------------------------------------- speculative
+
+    def _spec_decode_step(self, now_fn) -> None:
+        """One speculative iteration: k draft proposals per active slot,
+        ONE batched verify window on the target over all k+1 positions,
+        then per-slot accept/rollback.
+
+        The verify pass writes all k+1 KV rows, and this method advances
+        ``lens`` (and queues freeze bids) optimistically before acceptance
+        is known; ``_rollback_slot`` then shrinks every slot back to its
+        accepted watermark, un-queueing bids for rolled-back pages. Bids
+        flush at the start of the next ``step()``, so a bid queued here
+        never dispatches before its rollback: no page is frozen past the
+        accepted ``seq_lens`` at any step boundary. Every emitted token is
+        the target's greedy argmax for its exact accepted context."""
+        active = self.sched.active_slots()
+        if any(self.slots[i].temperature > 0.0 for i in active):
+            raise ValueError("speculative decoding serves the greedy "
+                             "verification path; sampled requests need the "
+                             "non-speculative engine")
+        tr = self.tracer
+        t_step = tr.now()
+        k = self.speculate
+        W = k + 1
+        self.counters["decode_steps"] += 1
+        self.counters["seq_decode_steps"] += len(active)
+        self._poll_freezes()
+        t0 = tr.now()
+        proposals = self.draft.propose(active, self.slots, k)
+        tr.complete(self._trk_spec, "propose", t0, k=k, active=len(active))
+        toks = np.zeros((len(self.slots), W), np.int32)
+        for i in active:
+            toks[i, 0] = self.slots[i].last_token
+            toks[i, 1:] = proposals[i]
+        # read only the blocks the longest live sequence's window needs
+        need = int(self.lens.max()) + W
+        mb_used = max(1, -(-need // self.block_size))
+        self.counters["max_gather_blocks"] = max(
+            self.counters["max_gather_blocks"], mb_used)
+        t0 = tr.now()
+        logits = window_step(self.params, self.cfg, toks, self.pool,
+                             self.table[:, :mb_used], self.lens)
+        # lint: sync(step-end verify sync: acceptance runs on the host)
+        preds = logits.argmax(-1).cpu().numpy()               # (B, W)
+        # lint: sync(the same sync: recorded logits, off in production)
+        rows = logits.cpu().numpy() if self.record_logits else None
+        tr.complete(self._trk_spec, "verify", t0, window=W,
+                    active=len(active), blocks=mb_used)
+        now = now_fn()
+        finished = []
+        for i in active:
+            st = self.sched.active[i]
+            s = self.slots[i]
+            L = int(self.lens[i])
+            # optimistic: all W rows written; advance and queue freezes as
+            # if every draft were accepted, then roll back to the watermark
+            self.lens[i] = L + W
+            self._queue_freeze(i)
+            n_acc = 0
+            while n_acc < k and proposals[i][n_acc] == int(preds[i, n_acc]):
+                n_acc += 1
+            # row j of the verify logits is the target's next-token
+            # distribution after [ctx, last, d1..dj]: accepted drafts are
+            # emitted as they are, and row n_acc gives the correction (or
+            # the bonus token when every draft survived)
+            emitted = [int(t) for t in proposals[i][:n_acc]]
+            emitted.append(int(preds[i, n_acc]))
+            emitted = emitted[:st.req.max_new_tokens - st.generated]
+            if self.eos_id is not None and self.eos_id in emitted:
+                emitted = emitted[:emitted.index(self.eos_id) + 1]
+            a = len(emitted)
+            self.metrics.spec_step(k, min(n_acc, a), a < W)
+            self._rollback_slot(i, L + a)
+            st.length = L + a
+            st.generated += a
+            for j, t in enumerate(emitted):
+                s.out.append(t)
+                if self.record_logits:
+                    s.logits.append(rows[i, j])
+                self.metrics.token(st.req.id, now)
+            s.last_token = emitted[-1]
+            self.draft.sync(i, L + a)
+            if st.done or s.last_token == self.eos_id:
+                finished.append(st)
+        for st in finished:
+            self._finish(st, now)
+        tr.complete(self._trk_decode, "decode_step", t_step,
+                    step=self.counters["decode_steps"], active=len(active),
+                    window=W)
+
+    def frozen_past_watermark(self) -> list[tuple[int, int, int, int]]:
+        """(page, slot, table index, lens) of every page frozen, queued
+        for a freeze or kept by an in-flight solve past its slot's
+        accepted ``seq_lens``: the rollback invariant says none exists at
+        a step boundary (a just-freed page awaiting its drop is skipped)."""
+        page_slot = {}
+        for slot, s in enumerate(self.slots):
+            for j, b in enumerate(s.blocks):
+                page_slot[int(b)] = (slot, j)
+        suspect = set(self._frozen_pages) | set(self._freeze_bids)
+        for _, pending in self._pending_freezes:
+            suspect |= {int(b) for b in pending.bids[pending.keep]}
+        out = []
+        for b in sorted(suspect & set(page_slot)):
+            slot, j = page_slot[b]
+            if (j + 1) * self.block_size > int(self.lens[slot]):
+                out.append((b, slot, j, int(self.lens[slot])))
+        return out
+
+    def _rollback_slot(self, slot: int, new_len: int) -> None:
+        """Shrink a slot to its accepted watermark ``new_len``: un-queue
+        freeze bids for pages past it and drop them from any in-flight
+        solve, so a rejected suffix never leaves a frozen page beyond the
+        accepted ``seq_lens``. Rolled-back rows hold rejected drafts' KV:
+        masked out past ``lens``, and rewritten in place by the next
+        verify window before ``lens`` covers them."""
+        s = self.slots[slot]
+        full = int(new_len) // self.block_size
+        if s.frozen_upto > full:
+            stale = {int(self.table[slot, j])
+                     for j in range(full, s.frozen_upto)}
+            self._freeze_bids = [b for b in self._freeze_bids
+                                 if b not in stale]
+            self._deferred_seen = min(self._deferred_seen,
+                                      len(self._freeze_bids))
+            for _, pending in self._pending_freezes:
+                pending.drop(stale)
+            s.frozen_upto = full
+        self.lens[slot] = new_len
+
     # ------------------------------------------------------------ freezing
 
     def _poll_freezes(self, drain: bool = False) -> None:
         """Install completed freezes; count the ones still overlapping this
         decode step. drain=True waits for the remainder (end of run)."""
         still = []
+        installed = False
         for step0, pending in self._pending_freezes:
             if drain:
                 pending.wait()
             if pending.is_ready():
                 install_freeze(self.pool, pending)
                 self._frozen_pages.update(pending.kept_pages())
+                installed = True
                 self.counters["freeze_installs"] += 1
                 self.counters["freeze_overlap_steps"] += (
                     self.counters["decode_steps"] - step0)
@@ -260,6 +488,8 @@ class DecodeWorker:
                 self.counters["freeze_inflight_steps"] += 1
                 still.append((step0, pending))
         self._pending_freezes = still
+        if installed:
+            self._publish_prefixes()    # freshly installed pages can share
 
     def _queue_freeze(self, slot: int) -> None:
         """Queue this sequence's just-filled pages for quantization; the
@@ -270,6 +500,8 @@ class DecodeWorker:
         full = int(self.lens[slot]) // self.block_size
         for j in range(s.frozen_upto, full):
             b = int(self.table[slot, j])
+            # a shared page is already installed, or bid by the sequence
+            # that owns its solve: bids dedupe on block id
             if b not in self._frozen_pages and b not in self._freeze_bids:
                 self._freeze_bids.append(b)
         s.frozen_upto = max(s.frozen_upto, full)
@@ -307,6 +539,7 @@ class DecodeWorker:
             freeze_blocks(self.pool, bids, self.kv_spec)
             self._frozen_pages.update(bids)
             self.counters["freeze_installs"] += 1
+            self._publish_prefixes()    # synchronous install: shareable now
         self.counters["freeze_dispatches"] += 1
         tr.complete(self._trk_freeze, "flush", t0, pages=take,
                     mode="async" if self.freeze_async else "sync")
@@ -319,7 +552,12 @@ class DecodeWorker:
         if self.record_logits and s.logits:
             self.request_logits[st.req.id] = np.stack(s.logits)
         self.metrics.finish(st.req.id, now)
+        # drop one reference per page; the teardown (bids, frozen set,
+        # pending solves, thaw, index) covers only the pages actually
+        # released: a shared page another live table holds keeps serving
         released = set(self.alloc.free(s.blocks))
+        if self.prefix is not None:
+            self.prefix.invalidate(released)
         self._freeze_bids = [b for b in self._freeze_bids
                              if b not in released]
         self._deferred_seen = min(self._deferred_seen, len(self._freeze_bids))
@@ -327,11 +565,17 @@ class DecodeWorker:
         for _, pending in self._pending_freezes:
             pending.drop(released)
         thaw_blocks(self.pool, released)
+        if self.draft is not None:
+            self.draft.release(slot)
         self.table[slot] = 0
         self.lens[slot] = 0
         s.rid, s.blocks, s.frozen_upto, s.out = None, [], 0, []
         s.rng, s.temperature, s.top_k = None, 0.0, 0
         self.sched.release(st)
+        # the finisher may have been a chain's first publisher: invalidate
+        # dropped its keys though a survivor may hold an identical live
+        # copy; republish so the next lookup still matches
+        self._publish_prefixes()
 
     def drain(self) -> None:
         """Flush every queued freeze and land in-flight solves (end of
@@ -359,7 +603,9 @@ class _ChunkedPrefill:
     blocks: list
     toks: np.ndarray          # (1, ppad) zero-padded prompt
     nblk: int
-    off: int = 0              # tokens already in cache
+    off: int = 0              # tokens already in cache (a shared prefix
+    #                           starts it past the spliced pages)
+    shared: int = 0           # leading pages spliced from the prefix index
     last_row: object = None   # logits row at prompt position P-1
 
     @property
@@ -387,15 +633,71 @@ class PrefillWorker:
         self.metrics = metrics if metrics is not None else MetricsCollector()
         self.counters = {"prefills": 0, "prefill_chunks": 0}
 
+    def _match_prefix(self, req: Request) -> list[int]:
+        """Longest published-prefix match: retain the matched pages (rc + 1
+        each) and return them for splicing into the new sequence's table;
+        prefill then starts at the page-aligned offset past them.
+
+        The match is capped one page short of the page holding the
+        prompt's last token, so the page feeding the first-token logits
+        row is always prefilled privately. A raw match past that cap is
+        the copy-on-write event: the tail page exists in the index but is
+        prefilled privately instead of shared (``cow_copies``)."""
+        pool = self.pool
+        if pool.prefix is None:
+            return []
+        t0 = self.tracer.now()
+        cap = (req.prompt_len - 1) // self.block_size
+        raw = pool.prefix.lookup(req.prompt, cap + 1)
+        shared = [int(b) for b in raw[:cap]]
+        if not shared:
+            return []
+        pool.alloc.retain(shared)
+        pool.counters["prefix_hits"] += 1
+        pool.counters["prefix_shared_pages"] += len(shared)
+        cow = len(raw) > len(shared)
+        if cow:
+            pool.counters["cow_copies"] += 1
+        self.tracer.complete(self._trk, "prefix_match", t0, rid=req.id,
+                             pages=len(shared), cow=cow)
+        return shared
+
     def _alloc(self, req: Request, now_fn):
+        """Splice any published shared prefix, then allocate the rest of
+        the request's worst-case pages. Returns (blocks, zero-padded
+        prompt (1, ppad), prompt pages, shared pages)."""
         self.metrics.prefill_start(req.id, now_fn())
         ppad = -(-req.prompt_len // self.block_size) * self.block_size
-        blocks = self.pool.alloc.alloc(self.pool.sched.blocks_for(req))
+        shared = self._match_prefix(req)
+        blocks = shared + self.pool.alloc.alloc(
+            self.pool.sched.blocks_for(req) - len(shared))
         toks = np.zeros((1, ppad), np.int32)
         toks[0, :req.prompt_len] = req.prompt
-        return blocks, toks, ppad // self.block_size
+        return blocks, toks, ppad // self.block_size, len(shared)
 
-    def _finish(self, req: Request, blocks, last, now_fn) -> FinishedPrefill:
+    def _chunk(self, toks: np.ndarray, blocks, off: int):
+        """Prefill the prompt slice ``toks`` (1, C) at token offset
+        ``off`` over ``blocks``: explicit positions, so it computes what
+        the matching rows of a whole-prompt prefill compute; with the
+        fused impl it reads earlier pages (frozen ones as packed codes)
+        through the kernel. Returns logits (1, C, V)."""
+        dev = self.pool.device
+        C = toks.shape[1]
+        pos = torch.arange(off, off + C, dtype=torch.int32,
+                           device=dev)[None]
+        views = with_tables(self.pool.pool, np.asarray([blocks], np.int32),
+                            np.full((1,), off, np.int32))
+        if self.pool.attn_impl == "fused":
+            views = with_prefill_fused(views)
+        logits, _ = models.prefill(
+            self.params, self.cfg,
+            # lint: sync(pageable copy of the chunk's ids; ROADMAP A2)
+            {"tokens": torch.as_tensor(toks).to(dev), "positions": pos},
+            views)
+        return logits
+
+    def _finish(self, req: Request, blocks, last, now_fn,
+                shared: int = 0) -> FinishedPrefill:
         last = last.cpu().numpy()  # lint: sync(first-token sampling)
         now = now_fn()                        # TTFT includes prefill time
         rng = req.make_rng()
@@ -405,24 +707,31 @@ class PrefillWorker:
         self.counters["prefills"] += 1
         return FinishedPrefill(
             req=req, first_token=tok, blocks=[int(b) for b in blocks],
-            rng=rng, last_logits=last if self.record_logits else None)
+            rng=rng, last_logits=last if self.record_logits else None,
+            shared_pages=shared)
 
     def run_inline(self, req: Request, now_fn) -> FinishedPrefill:
-        """Synchronous whole-prompt prefill (the gather read path)."""
+        """Synchronous whole-prompt prefill (the gather read path). Past a
+        spliced shared prefix it is one chunk from the page-aligned offset
+        (explicit positions; through the kernel when fused)."""
         tr = self.tracer
         t0 = tr.now()
-        blocks, toks, nblk = self._alloc(req, now_fn)
-        views = with_tables(self.pool.pool,
-                            np.asarray([blocks[:nblk]], np.int32),
-                            np.zeros((1,), np.int32))
-        logits, _ = models.prefill(
-            self.params, self.cfg,
-            # lint: sync(pageable copy of the prompt's ids; ROADMAP A2)
-            {"tokens": torch.as_tensor(toks).to(self.pool.device)}, views)
+        blocks, toks, nblk, shared = self._alloc(req, now_fn)
+        off = shared * self.block_size
+        if off:
+            logits = self._chunk(toks[:, off:], blocks[:nblk], off)
+        else:
+            views = with_tables(self.pool.pool,
+                                np.asarray([blocks[:nblk]], np.int32),
+                                np.zeros((1,), np.int32))
+            logits, _ = models.prefill(
+                self.params, self.cfg,
+                # lint: sync(pageable copy of the prompt's ids; ROADMAP A2)
+                {"tokens": torch.as_tensor(toks).to(self.pool.device)}, views)
         tr.complete(self._trk, "prefill", t0, rid=req.id,
-                    prompt_len=req.prompt_len)
-        return self._finish(req, blocks, logits[0, req.prompt_len - 1],
-                            now_fn)
+                    prompt_len=req.prompt_len, shared=shared)
+        return self._finish(req, blocks, logits[0, req.prompt_len - 1 - off],
+                            now_fn, shared)
 
     def start_chunked(self, req: Request, now_fn) -> _ChunkedPrefill:
         """Open a chunked prefill: allocate the request's worst-case pages
@@ -430,8 +739,11 @@ class PrefillWorker:
         ``advance_chunk`` once per iteration, between decode steps."""
         if not self.prefill_chunk:
             raise ValueError("start_chunked needs prefill_chunk")
-        blocks, toks, nblk = self._alloc(req, now_fn)
-        return _ChunkedPrefill(req=req, blocks=blocks, toks=toks, nblk=nblk)
+        blocks, toks, nblk, shared = self._alloc(req, now_fn)
+        # a matched prefix starts the chunk cursor past the spliced pages:
+        # those tokens are already in cache
+        return _ChunkedPrefill(req=req, blocks=blocks, toks=toks, nblk=nblk,
+                               off=shared * self.block_size, shared=shared)
 
     def advance_chunk(self, state: _ChunkedPrefill,
                       now_fn) -> FinishedPrefill | None:
@@ -446,18 +758,8 @@ class PrefillWorker:
         ppad = state.toks.shape[1]
         off = state.off
         C = min(self.prefill_chunk, ppad - off)
-        dev = self.pool.device
-        # lint: sync(pageable copy of the chunk's ids; ROADMAP A2)
-        toks = torch.as_tensor(state.toks[:, off:off + C]).to(dev)
-        pos = torch.arange(off, off + C, dtype=torch.int32,
-                           device=dev)[None]
-        views = with_tables(self.pool.pool,
-                            np.asarray([state.blocks[:state.nblk]], np.int32),
-                            np.full((1,), off, np.int32))
-        if self.pool.attn_impl == "fused":
-            views = with_prefill_fused(views)
-        logits, _ = models.prefill(self.params, self.cfg,
-                                   {"tokens": toks, "positions": pos}, views)
+        logits = self._chunk(state.toks[:, off:off + C],
+                             state.blocks[:state.nblk], off)
         if off <= P - 1 < off + C:
             state.last_row = logits[0, P - 1 - off]
         state.off = off + C
@@ -466,4 +768,5 @@ class PrefillWorker:
                     chunk=C)
         if not state.done:
             return None
-        return self._finish(req, state.blocks, state.last_row, now_fn)
+        return self._finish(req, state.blocks, state.last_row, now_fn,
+                            state.shared)

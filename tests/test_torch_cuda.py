@@ -764,3 +764,156 @@ def test_fista_freeze_wrapper_rejects_what_the_kernel_does_not_take(gen):
         fista_freeze(w, d, n, x0.cpu(), num_values=16)
     with pytest.raises(ValueError, match="num_values"):
         fista_freeze(w, d, n, x0, num_values=0)
+
+
+# ------------------------------------------------ serving paths on the card
+# The reduced qwen3 config (4 layers, Dh 32, f32) served on the card, block
+# 8: the kernel serves the verify window (W = k + 1) and prefills that start
+# past spliced frozen pages.
+
+
+def _reduced_model(gen, ptq: bool = False):
+    from repro_torch import models
+    from repro_torch.configs import get_reduced_config
+
+    cfg = get_reduced_config("qwen3_0_6b")
+    params = models.init_params(cfg, gen, "cuda")
+    if ptq:
+        from repro_torch.launch.serve import PTQ_SKIP
+        from repro_torch.quant import quantize_tree
+        params, _ = quantize_tree(params, "kmeans_ls@16",
+                                  skip_patterns=PTQ_SKIP)
+    return cfg, params
+
+
+def _draft(params, cfg, which, gen):
+    """The half-depth draft, or one with its own random weights and an
+    untied random head (it disagrees at almost every position, so verify
+    windows roll back)."""
+    import dataclasses
+
+    from repro_torch import models
+    from repro_torch.serving import derive_draft
+
+    if which == "auto":
+        return derive_draft(params, cfg)
+    dcfg = dataclasses.replace(cfg, tie_embeddings=False)
+    return models.init_params(dcfg, gen.manual_seed(99), "cuda"), dcfg
+
+
+@pytest.mark.parametrize("which", ["auto", "random"])
+def test_fused_spec_engine_tokens_equal_non_speculative(gen, which):
+    """The fused speculative engine (verify windows of 4 through the
+    kernel, the draft on the gather path) gives the non-speculative fused
+    engine's greedy tokens on an fp pool, request logits within 1e-3 (the
+    reference's engine bar); the half-depth draft is accepted, the random
+    one rolled back; every target call launches the kernel once per
+    layer."""
+    from repro_torch.serving import ContinuousBatchingEngine
+
+    cfg, params = _reduced_model(gen)
+    rng = torch.Generator().manual_seed(4)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=rng).tolist()
+               for n in (12, 19, 8)]
+    runs = []
+    for k in (0, 3):
+        eng = ContinuousBatchingEngine(
+            params, cfg, device="cuda", max_slots=2, block_size=8,
+            max_seq_len=48, attn_impl="fused", record_logits=True,
+            speculate=k, draft=_draft(params, cfg, which, gen) if k else None)
+        n0 = paged_decode_attention.launches
+        out = eng.generate(prompts, max_new_tokens=10)
+        launches = paged_decode_attention.launches - n0
+        assert launches == cfg.n_layers * eng.counters["decode_steps"]
+        runs.append((eng, out))
+    (base, out_b), (spec, out_s) = runs
+    assert out_s == out_b
+    for i in range(len(prompts)):
+        torch.testing.assert_close(
+            torch.from_numpy(spec.request_logits[i]),
+            torch.from_numpy(base.request_logits[i]), atol=1e-3, rtol=0)
+    s = spec.metrics.summary()
+    if which == "auto":
+        tps = (s["gen_tokens"] - s["completed"]) / spec.counters[
+            "seq_decode_steps"]
+        assert s["spec_accepted"] > 0 and tps > 1
+        assert spec.counters["decode_steps"] < base.counters["decode_steps"]
+    else:
+        assert s["spec_rollbacks"] > s["completed"]
+
+
+def test_rollback_never_freezes_past_watermark_on_the_card(gen):
+    """A random draft forcing rollbacks through the fused verify window,
+    on a kmeans_ls@16 pool whose freezes run on the side stream (1 page a
+    step, block 4, so windows cross pages): after every step no page is
+    frozen, queued or kept by an in-flight solve past its slot's accepted
+    seq_lens, and the pool drains."""
+    from repro_torch.serving import ContinuousBatchingEngine
+
+    cfg, params = _reduced_model(gen)
+    eng = ContinuousBatchingEngine(
+        params, cfg, device="cuda", max_slots=2, block_size=4,
+        max_seq_len=64, kv_quant="kmeans_ls@16", freeze_page_budget=1,
+        attn_impl="fused", speculate=3,
+        draft=_draft(params, cfg, "random", gen))
+    w = eng.worker
+    step, bad = w.step, []
+
+    def checked_step(now_fn):
+        step(now_fn)
+        bad.extend(w.frozen_past_watermark())
+
+    w.step = checked_step
+    rng = torch.Generator().manual_seed(6)
+    prompts = [torch.randint(0, cfg.vocab, (9,), generator=rng).tolist()
+               for _ in range(3)]
+    out = eng.generate(prompts, max_new_tokens=10)
+    assert not bad, bad
+    s = eng.metrics.summary()
+    assert s["spec_rollbacks"] > s["completed"]
+    assert w.counters["freeze_installs"] > 0
+    assert all(len(v) == 10 for v in out.values())
+    assert w.alloc.num_free == w.num_blocks - 1
+
+
+def test_fused_prefill_past_spliced_frozen_pages_is_the_whole_prefill(gen):
+    """A prompt's last 16 tokens prefilled through the kernel past 3
+    spliced frozen pages (PTQ'd weights, so every projection's rows are
+    the kernel's, independent of the row count) write the same K/V rows,
+    bitwise, as a whole-prompt prefill over a table that starts with the
+    same frozen pages; their logits rows agree within 1e-5 (the lm_head
+    is a torch.matmul, whose bits may depend on its row count)."""
+    from repro_torch import models
+    from repro_torch.serving.kv_cache import (freeze_blocks,
+                                              init_paged_cache,
+                                              with_prefill_fused,
+                                              with_tables)
+
+    cfg, params = _reduced_model(gen, ptq=True)
+    bs, P, shared = 8, 40, 3
+    pool = init_paged_cache(cfg, num_blocks=10, block_size=bs,
+                            quantized=True, fused=True, device="cuda")
+    rng = torch.Generator().manual_seed(5)
+    toks = torch.randint(0, cfg.vocab, (1, P), generator=rng)
+    pos = torch.arange(P, dtype=torch.int32)[None]
+
+    def prefill(table, off):
+        views = with_prefill_fused(with_tables(
+            pool, torch.tensor([table], dtype=torch.int32).numpy(),
+            torch.tensor([off], dtype=torch.int32).numpy()))
+        logits, _ = models.prefill(
+            params, cfg, {"tokens": toks[:, off:].cuda(),
+                          "positions": pos[:, off:].cuda()}, views)
+        return logits
+
+    prefill([1, 2, 3, 4, 5], 0)             # the sharer's prompt
+    freeze_blocks(pool, [1, 2, 3], "kmeans_ls@16")
+    n0 = paged_decode_attention.launches
+    part = prefill([1, 2, 3, 4, 5], shared * bs)     # spliced, then past
+    assert paged_decode_attention.launches - n0 == cfg.n_layers
+    whole = prefill([1, 2, 3, 6, 7], 0)     # pages 1-3 frozen: codes serve
+    for name in ("k_fp", "v_fp"):
+        t = getattr(pool, name)
+        assert torch.equal(t[:, 4:6], t[:, 6:8]), name
+    torch.testing.assert_close(part[0], whole[0, shared * bs:], atol=1e-5,
+                               rtol=1e-5)

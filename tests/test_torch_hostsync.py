@@ -1,6 +1,6 @@
 """The port's host-sync check (``repro_torch.analysis.hostsync``): the hot
-modules make no host sync but those with a pragma (four read-backs and
-waits, nine pageable host-to-device copies), and the check finds each
+modules make no host sync but those with a pragma (seven read-backs and
+waits, eleven pageable host-to-device copies), and the check finds each
 construct it names, honours a pragma on the call's line or the line
 before, and reports stale pragmas."""
 import subprocess
@@ -20,12 +20,18 @@ def test_hot_modules_sync_only_where_a_pragma_says_why():
     sites = sorted({(f.path, f.what) for f in findings})
     assert sites == [("serving/kv_cache.py", ".synchronize()"),
                      ("serving/kv_cache.py", ".to() host-to-device"),
+                     ("serving/speculative.py", ".cpu()"),
+                     ("serving/speculative.py", ".numpy()"),
+                     ("serving/speculative.py", ".to() host-to-device"),
                      ("serving/workers.py", ".cpu()"),
                      ("serving/workers.py", ".numpy()"),
                      ("serving/workers.py", ".to() host-to-device")]
     lines = {(f.path, f.line) for f in findings}
-    assert len(lines) == 13
-    assert len([f for f in findings if "host-to-device" in f.what]) == 9
+    # the speculative path adds the verify read-backs (token ids, recorded
+    # logits), the draft's per-step token read-back, and the pageable
+    # copies of the window's and the draft prompt's token ids
+    assert len(lines) == 18
+    assert len([f for f in findings if "host-to-device" in f.what]) == 11
     assert all(f.reason for f in findings)
 
 
@@ -33,6 +39,7 @@ def test_every_hot_module_is_read():
     for rel in hostsync.HOT_MODULES:
         assert (hostsync.PACKAGE / rel).is_file(), rel
     assert {"serving/workers.py", "serving/kv_cache.py",
+            "serving/speculative.py",
             "kernels/fista_quant.py"} <= set(hostsync.HOT_MODULES)
 
 

@@ -126,6 +126,45 @@ def test_entry_points_default_to_the_card(reduced):
     assert eng.attn_impl == "gather"          # auto: gather on the CPU
 
 
+@pytest.mark.parametrize("head_dim,num_values,refused", [
+    (8, 16, "head_dim 8"), (16, 16, "head_dim 16"), (24, 16, "head_dim 24"),
+    (128, 16, None), (128, None, None), (32, 16, None),
+    (128, 300, "codebook width 300")])
+def test_fused_cuda_engine_raises_on_pools_the_kernel_refuses(
+        head_dim, num_values, refused):
+    """On CUDA ``auto`` is the fused kernel on every pool, and both
+    ``auto`` and ``fused`` raise, naming the shape, on a pool the kernel
+    refuses (Dh 8, 16 and 24, as the reference's reduced yi/glm4,
+    gemma2/granite and deepseek configs have; a codebook wider than 256)
+    instead of reading it another way; qwen3's Dh 128 and reduced Dh 32
+    take the kernel. ``gather`` is asked for, never chosen. No card is
+    needed: the resolution reads shapes only."""
+    from repro_torch.serving.engine import _resolve_attn_impl
+
+    cuda = torch.device("cuda")
+    kw = dict(head_dim=head_dim, block_size=16, num_values=num_values)
+    for impl in ("auto", "fused"):
+        if refused:
+            with pytest.raises(ValueError, match=f"refuses this pool: "
+                                                 f"{refused}"):
+                _resolve_attn_impl(impl, cuda, **kw)
+        else:
+            assert _resolve_attn_impl(impl, cuda, **kw) == "fused"
+    assert _resolve_attn_impl("gather", cuda, **kw) == "gather"
+    # the CPU runs the kernel's plain version, which takes any pool
+    assert _resolve_attn_impl("fused", torch.device("cpu"), **kw) == "fused"
+    assert _resolve_attn_impl("auto", torch.device("cpu"), **kw) == "gather"
+
+
+def test_fused_cuda_engine_raises_on_an_odd_block_size():
+    from repro_torch.serving.engine import _resolve_attn_impl
+
+    for impl, bs, nv in (("auto", 24, 16), ("fused", 48, None)):
+        with pytest.raises(ValueError, match=f"block size {bs}"):
+            _resolve_attn_impl(impl, torch.device("cuda"), head_dim=128,
+                               block_size=bs, num_values=nv)
+
+
 def test_paged_layer_converter_feeds_both_packages_one_pool(reduced):
     """A reference paged layer with pages frozen by the reference's own
     solver, converted into the port: the port's fused decode (write +

@@ -2,10 +2,14 @@
 launcher: the fused-vs-gather and the chunked-vs-single replays at full
 width and depth on the card, from kmeans_ls@16-PTQ'd weights as in
 ``chip_smoke.py``'s serve phases, for several prompt seeds, printed
-without a bound. Run from a copy of the repository with one line of
-``src/`` changed to read a planted fault.
+without a bound. With ``--speculate``, the serve-spec phase's replays
+instead: speculative vs non-speculative (with the auto draft and with
+``chip_smoke.untied_draft``, which rolls back), shared vs unshared prefix
+(fp pool) and fused vs gather of speculative engines. Run from a copy of the
+repository with one line of ``src/`` changed to read a planted fault.
 
     python3 tools/replay_readings.py --kv-quant iter_l1@16 --seeds 0 1 2
+    python3 tools/replay_readings.py --kv-quant kmeans_ls@16 --speculate
 """
 from __future__ import annotations
 
@@ -26,6 +30,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
     ap.add_argument("--no-chunked", action="store_true",
                     help="fused vs gather only")
+    ap.add_argument("--speculate", action="store_true",
+                    help="the serve-spec phase's replays (chip_smoke."
+                         "SPEC_ARGS) instead")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("replay_readings: no CUDA device visible", file=sys.stderr)
@@ -35,7 +42,8 @@ def main(argv=None) -> int:
     from repro_torch.launch import serve
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    args = serve.parse_args(chip_smoke.QUANT_ARGS
+    args = serve.parse_args((chip_smoke.SPEC_ARGS if opts.speculate
+                             else chip_smoke.QUANT_ARGS)
                             + ["--kv-quant", opts.kv_quant])
     cfg = get_config(args.arch)
     params = models.init_params(
@@ -45,11 +53,28 @@ def main(argv=None) -> int:
     print(chip_smoke.card_line())
     for seed in opts.seeds:
         args.seed = seed
+        if opts.speculate:
+            for name, fn in (
+                    ("speculative vs non-speculative (auto draft)",
+                     serve.speculative_replay),
+                    ("speculative vs non-speculative (untied draft)",
+                     lambda *a: serve.speculative_replay(
+                         *a, chip_smoke.untied_draft)),
+                    ("shared vs unshared (fp pool)", serve.prefix_replay)):
+                r = fn(params, cfg, args)
+                extra = {k: r[k] for k in ("acceptance", "rollbacks",
+                                           "prefix_hits",
+                                           "prefix_shared_pages") if k in r}
+                print(f"seed {seed} {name} kv={opts.kv_quant}: rel "
+                      f"{r['rel']:.4%} max|dlogit| {r['dmax']:.4g} tokens "
+                      f"{r['agree']}/{r['total']} "
+                      f"{'equal' if r['tokens_equal'] else 'DIFFER'} "
+                      f"{extra}", flush=True)
         r = chip_smoke.fused_vs_gather(p32, c32, args, opts.kv_quant)
         print(f"seed {seed} fused vs gather kv={opts.kv_quant}: rel "
               f"{r['rel']:.4%} max|dlogit| {r['dmax']:.4g} tokens "
               f"{r['agree']}/{r['total']}", flush=True)
-        if not opts.no_chunked:
+        if not (opts.no_chunked or opts.speculate):
             r = serve.chunked_replay(params, cfg, args, opts.kv_quant)
             print(f"seed {seed} chunked vs single kv={opts.kv_quant}: rel "
                   f"{r['rel']:.4%} max|dlogit| {r['dmax']:.4g} tokens "
