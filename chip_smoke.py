@@ -15,6 +15,10 @@ the half-depth draft: verify windows of 4 through the attention kernel)
 and prefix sharing over a trace whose prompts share 192 tokens (prefills
 start past spliced frozen pages), with its replays; last, a batched l1_ls
 PTQ of the whole model in one FISTA launch, served for a few requests.
+Before serving, the phase ``solvers`` runs the paper's twelve methods on
+its data on the card against the CPU, the seven solvers this port added
+last on a full-width projection served through the dequant kernel, and
+kernel 4's page-solver and batch-solve options.
 Before serving it runs the card tests (``pytest -m cuda
 tests/test_torch_cuda.py``) in a child process.
 
@@ -1522,6 +1526,360 @@ def check_ptq_batched(cfg, gen) -> dict:
                 ptq_bound_by=r["bound_by"], ptq_objective_gap=gap)
 
 
+# ------------------------------------------------------------ solvers
+
+# the paper's data (benchmarks/common.py:45-58 and :79-87, copied: this
+# script imports nothing of the JAX package's benchmarks)
+
+
+def synthetic_distributions(n: int = 500, seed: int = 0) -> dict:
+    """MoG / uniform / single Gaussian, 500 samples in [0, 100] (the
+    paper's fig. 7)."""
+    rng = np.random.default_rng(seed)
+    mog = np.concatenate([
+        rng.normal(20, 5, n // 3), rng.normal(50, 8, n // 3),
+        rng.normal(80, 4, n - 2 * (n // 3))])
+    uni = rng.uniform(0, 100, n)
+    gauss = rng.normal(50, 15, n)
+    return {"mog": np.clip(mog, 0, 100), "uniform": uni,
+            "gaussian": np.clip(gauss, 0, 100)}
+
+
+def synthetic_image(seed: int = 0) -> np.ndarray:
+    """A 28 x 28 digit-like grayscale image in [0, 1] (fig. 5/6)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:28, 0:28] / 27.0
+    img = (np.exp(-((xx - 0.5) ** 2 + (yy - 0.35) ** 2) / 0.02)
+           + 0.8 * np.exp(-((xx - 0.5) ** 2 + (yy - 0.7) ** 2) / 0.03))
+    img = img / img.max() + rng.normal(0, 0.02, (28, 28))
+    return np.clip(img, 0, 1).astype(np.float32)
+
+
+# methods whose k-means++ seeding draws from a torch.Generator: the
+# card's Philox draws other seeds than the CPU's, so these are held by
+# loss, the others (host solves on the same problem) by their values
+SEEDED_METHODS = ("kmeans_ls", "kmeans", "mog", "dtc")
+# host solvers card vs CPU, loss relative: the same problem (unique
+# values, counts and the f32 problem are exact on both) and the same host
+# code; only the refit's float64 prefix sums add in another order on the
+# card. Read 3.9e-16 at most (this phase on the H100, NVIDIA H100 80GB
+# HBM3 at 700 W, PERF.md PR 20), with equal n_values everywhere
+SOLVER_HOST_RTOL = 1e-12
+# seeded methods card vs CPU, loss ratio either way: another generator's
+# k-means++ seeds find other local optima. Read (same run) kmeans and
+# kmeans_ls x1.0249, dtc x1.0894, mog x1.2124
+SOLVER_SEEDED_RATIO = 1.5
+# (b): lambdas for the full-width projection's unweighted problem (3,885
+# unique bf16 values of std 1/32) that give 16-256 values (uint8 codes):
+# tv 115 and l1l2 140 (this phase on the H100, PERF.md PR 20)
+WIDE_SPECS = ("l1l2:lam=0.001", "tv:lam=0.001", "l0@16", "tv_iter@16",
+              "mog@16", "dtc@16", "dp@16")
+
+
+def paper_data() -> dict:
+    return dict(synthetic_distributions(), image=synthetic_image())
+
+
+def paper_specs(name: str) -> list[str]:
+    """(a)'s specs of every method on one input: count methods at 4 and
+    16 values, lam methods at 2.0 and 32.0 (the image, in [0, 1]: 0.02)."""
+    from repro_torch.core import registry
+
+    lams = (0.02,) if name == "image" else (2.0, 32.0)
+    out = []
+    for m in registry.methods():
+        if registry.get(m).param_kind == "count":
+            out += [f"{m}@{l}" for l in (4, 16)]
+        else:
+            out += [f"{m}:lam={lam!r}" for lam in lams]
+    return out
+
+
+def paper_runs(dev) -> dict:
+    """Every method on the paper's data through ``core.quantize`` on
+    ``dev`` tensors: {(data, spec): (n_values, l2_loss_unique)}."""
+    from repro_torch.core import quantize
+
+    out = {}
+    for name, x in paper_data().items():
+        w = torch.from_numpy(x).to(dev)
+        for spec in paper_specs(name):
+            _, info = quantize(w, spec)
+            out[(name, spec)] = (info["n_values"], info["l2_loss_unique"])
+    return out
+
+
+def check_paper_checks(runs: dict) -> str:
+    """The paper's orderings on one device's runs: every count method's
+    loss at least dp's at the same budget; l1l2 no denser than l1 at
+    equal lam1 (the reference's tests/test_core_quant.py:61)."""
+    from repro_torch.core import registry
+
+    worst = {}
+    for (name, spec), (nv, loss) in runs.items():
+        method, _, rest = spec.partition("@")
+        if rest:
+            dp = runs[(name, f"dp@{rest}")][1]
+            if loss < dp * (1 - 1e-12):
+                raise AssertionError(f"{name} {spec}: loss {loss} below "
+                                     f"dp's {dp}")
+            worst[method] = min(worst.get(method, math.inf),
+                                loss / max(dp, 1e-300))
+        elif spec.startswith("l1l2:"):
+            l1 = runs[(name, "l1:" + spec.split(":", 1)[1])][0]
+            if nv > l1:
+                raise AssertionError(f"{name} {spec}: {nv} values, l1 {l1}")
+    return ", ".join(f"{m} {worst[m]:.4g}" for m in registry.count_methods())
+
+
+def check_tv_vs_cd(dev) -> float:
+    """The reference's tests/test_core_quant.py:69 on the paper's three
+    distributions: tv's eq.-6 objective (no penalty on the first
+    coordinate) at most CD's with penalize_first=False, both evaluated in
+    float64. Returns the least (CD - tv) / CD. Not on the image: its
+    smallest value is 0, so d_1 = 0, V's first column is zero and eq. 6
+    pins the first value to 0, which tv leaves free (tv's objective is
+    above CD's there in both packages: tests/test_torch_solvers.py)."""
+    from repro_torch.core import (cd_solve, make_problem, objective,
+                                  tv_solve_problem, unique_with_counts)
+
+    least = math.inf
+    for name, x in synthetic_distributions().items():
+        vals, counts, _ = unique_with_counts(torch.from_numpy(x).to(dev))
+        prob = make_problem(vals, counts)
+        d = prob.d.double()
+        for lam in (2.0, 32.0):
+            a_cd, _ = cd_solve(prob, lam, penalize_first=False,
+                               max_sweeps=300, tol=1e-9)
+            u = tv_solve_problem(prob, lam)
+            a_tv = torch.diff(u, prepend=u.new_zeros(1)) / torch.where(
+                d == 0, torch.ones_like(d), d)
+            f = lambda a: float(objective(prob, a.double(), lam,
+                                          penalize_first=False))
+            f_cd, f_tv = f(a_cd), f(a_tv)
+            if f_tv > f_cd + 1e-4 * abs(f_cd):
+                raise AssertionError(f"{name} lam {lam}: tv objective "
+                                     f"{f_tv} above CD's {f_cd}")
+            least = min(least, (f_cd - f_tv) / abs(f_cd))
+    return least
+
+
+def check_solvers_paper() -> None:
+    """(a): all 12 methods on the paper's data on the card against the
+    same calls on the CPU, and the paper's orderings."""
+    t0 = time.perf_counter()
+    card = paper_runs("cuda")
+    t_card = time.perf_counter() - t0
+    cpu = paper_runs("cpu")
+    host_gap, ratio, bad = {}, {}, []
+    for key, (nv, loss) in card.items():
+        nv_c, loss_c = cpu[key]
+        method = key[1].split(":")[0].split("@")[0]
+        if method in SEEDED_METHODS:
+            r = max(loss, 1e-300) / max(loss_c, 1e-300)
+            ratio[method] = max(ratio.get(method, 1.0), r, 1 / r)
+            if max(r, 1 / r) > SOLVER_SEEDED_RATIO:
+                bad.append(f"{key}: loss card {loss}, CPU {loss_c}")
+        else:
+            gap = abs(loss - loss_c) / max(abs(loss_c), 1e-300)
+            host_gap[method] = max(host_gap.get(method, 0.0), gap)
+            if nv != nv_c or gap > SOLVER_HOST_RTOL:
+                bad.append(f"{key}: card {nv} values, loss {loss}; CPU "
+                           f"{nv_c}, {loss_c}")
+    if bad:
+        raise AssertionError("(a) card vs CPU:\n" + "\n".join(bad))
+    worst = check_paper_checks(card)
+    check_paper_checks(cpu)
+    tv_gain = check_tv_vs_cd("cuda")
+    phase("solvers", f"(a) 12 methods x mog/uniform/gaussian (500 points) "
+          f"and the 28x28 image, {len(card)} specs, {t_card:.1f} s on the "
+          f"card: host solvers == CPU (equal n_values; loss, relative: "
+          + ", ".join(f"{m} {g:.3g}" for m, g in host_gap.items())
+          + f"; limit {SOLVER_HOST_RTOL:g}); seeded methods' loss, card/CPU"
+          f" either way: " + ", ".join(f"{m} x{r:.4f}" for m, r in
+                                       ratio.items())
+          + f" (limit {SOLVER_SEEDED_RATIO:g}); least loss/dp per count "
+          f"method: "
+          f"{worst}; l1l2 no denser than l1; tv's objective <= CD's "
+          f"(penalize_first=False), by {tv_gain:.3g} relative at least")
+
+
+def check_solvers_wide(cfg, gen) -> dict:
+    """(b): layer 0's wq of the serve's seeded qwen3-0.6B, (1024, 2048)
+    bf16, quantized by each new method on the card, then served through
+    kernel 2 at M = 4 against the plain path. Returns its launches."""
+    from repro_torch import models
+    from repro_torch.core import quantize
+    from repro_torch.kernels import ref_quant_matmul
+    from repro_torch.quant import qmatmul
+
+    dense = models.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    wq = dense["layers"][0]["mixer"]["wq"].clone()
+    del dense
+    qts, dp = {}, None
+    for spec in WIDE_SPECS[::-1]:            # dp first: loss/dp below
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qt, info = quantize(wq, spec)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        loss = info["l2_loss_unique"]
+        dp = dp or loss
+        if not 1 <= qt.num_values <= 256 or qt.indices.dtype != torch.uint8 \
+                or not bool(torch.isfinite(qt.codebook).all()):
+            raise AssertionError(f"{spec}: {qt.num_values} values, "
+                                 f"{qt.indices.dtype}")
+        if spec.endswith("@16") and (qt.num_values > 16
+                                     or loss < dp * (1 - 1e-12)):
+            raise AssertionError(f"{spec}: {qt.num_values} values, loss "
+                                 f"{loss} vs dp {dp}")
+        qts[spec] = qt
+        extra = {k: info[k] for k in ("nnz", "iters", "lam2", "sweeps")
+                 if k in info}
+        phase("solvers", f"(b) wq {tuple(wq.shape)} {str(wq.dtype)[6:]} "
+              f"({info['m_unique']} unique) {spec}: {dt:.2f} s on the card "
+              f"(host solve included), {info['n_values']} values, loss "
+              f"{loss:.6g} (unweighted SSE on the unique values), loss/dp "
+              f"{loss / dp:.4f}, full loss {info['l2_loss']:.6g} {extra}")
+    x = torch.randn(4, wq.shape[0], generator=gen, device="cuda").to(
+        torch.bfloat16)
+    outs, launches = counting_launches(
+        lambda: [qmatmul(x, qt) for qt in qts.values()])
+    err = 0.0
+    for (spec, qt), out in zip(qts.items(), outs):
+        ref = ref_quant_matmul(x, qt.indices.reshape(qt.shape), qt.codebook,
+                               out_dtype=x.dtype)
+        torch.testing.assert_close(out, ref, **QMM_TOL[torch.bfloat16],
+                                   msg=f"qmatmul of {spec}'s codes")
+        err = max(err, (out.float() - ref.float()).abs().max().item())
+    if launches["quant_matmul"] != len(qts) or launches["fallbacks"] or any(
+            v for k, v in launches.items()
+            if k not in ("quant_matmul", "fallbacks")):
+        raise AssertionError(f"(b) qmatmul launches {launches}")
+    phase("solvers", f"(b) the {len(qts)} codes served through qmatmul at "
+          f"M=4: {launches['quant_matmul']} quant_matmul launches, 0 dense "
+          f"fallbacks, max|err| {err:.3g} vs the plain path (atol "
+          f"{BF16_TOL['atol']}, rtol {BF16_TOL['rtol']:.4g})")
+    return launches
+
+
+def check_solvers_fista(gen) -> dict:
+    """(c): kernel 4's new options. quantize_pages_fista(n_iters=50,
+    bisect_steps=10, lloyd_rounds=2) on the 224-row page shape: one
+    fista_freeze launch, no host sync, its refit from the card's support
+    == the CPU's (codes equal, codebooks within 1e-5) and every row within
+    one level of the CPU's solve; solve_fista_batch with
+    penalize_first=False and with precondition=False at the PTQ shape
+    against use_kernel=False on the card, at the PTQ rows' objective
+    bounds. Returns the launches."""
+    from repro_torch.kernels import (fista_freeze, quantize_pages_fista,
+                                     ref_fista, solve_fista_batch)
+    from repro_torch.kernels.fista_quant import (freeze_plain, nnz_of,
+                                                 start_vector)
+    from repro_torch.kernels.ops import fista_batch_problem
+    from repro_torch.kernels.page_quant import (fista_page_refit,
+                                                fista_page_sketch)
+
+    kw = dict(n_iters=50, bisect_steps=10)
+    rows = page_rows(gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        (codes, cb), launches = counting_launches(
+            lambda: quantize_pages_fista(rows, num_values=16, lloyd_rounds=2,
+                                         **kw))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if launches["fista_freeze"] != 1 or sum(launches.values()) != 1:
+        raise AssertionError(f"(c) quantize_pages_fista launches {launches}")
+    sk = fista_page_sketch(rows)
+    best = fista_freeze(sk["w"], sk["d"], sk["n"],
+                        start_vector(128, rows.device), num_values=16,
+                        **kw)[0]
+    card = fista_page_refit(rows, sk, best, 16, lloyd_rounds=2)
+    sk_c = {k: v.cpu() for k, v in sk.items()}
+    cpu = fista_page_refit(rows.cpu(), sk_c, best.cpu(), 16, lloyd_rounds=2)
+    if not (torch.equal(card[0], codes) and torch.equal(card[1], cb)
+            and torch.equal(card[0].cpu(), cpu[0])):
+        raise AssertionError("(c) the freeze's refit: card vs CPU codes")
+    cb_err = (card[1].cpu() - cpu[1]).abs().max().item()
+    torch.testing.assert_close(card[1].cpu(), cpu[1], atol=1e-5, rtol=0)
+    plain = freeze_plain(*(sk_c[k] for k in "wdn"),
+                         start_vector(128, "cpu"), num_values=16, **kw)[0]
+    lv, lv_cpu = nnz_of(best)[0].cpu(), nnz_of(plain)[0]
+    gap = int((lv - lv_cpu).abs().max())
+    same = int((best.cpu() == plain).all(dim=1).sum())     # f32 orders
+    if gap > 1 or int(lv.max()) > 16:
+        raise AssertionError(f"(c) levels {lv.tolist()} vs CPU "
+                             f"{lv_cpu.tolist()}")
+    mse = lambda c, b: (torch.gather(b, 1, c.long()) - rows).pow(2).mean(1)
+    base = quantize_pages_fista(rows, num_values=16, **kw)
+    gain = (mse(codes, cb) / mse(*base)).max().item()
+    if gain > 1 + 1e-6:
+        raise AssertionError(f"(c) Lloyd rounds raised a row's MSE x{gain}")
+    phase("solvers", f"(c) quantize_pages_fista (224 rows, n_iters=50, "
+          f"bisect_steps=10, lloyd_rounds=2): 1 fista_freeze launch, no "
+          f"host sync; its refit from the card's support == the CPU's "
+          f"(codes equal, codebooks max|err| {cb_err:.3g}, limit 1e-5); "
+          f"levels within {gap} of the CPU solve's (limit 1; its alphas "
+          f"bitwise in {same} of 224 rows); the rounds' MSE at most "
+          f"x{gain:.6f} the "
+          f"unpolished")
+    # the reference kernel test's rows at batched PTQ's width
+    w = torch.sort(torch.randn(7, 4096, generator=gen, device="cuda"),
+                   dim=1).values
+    d = torch.diff(w, dim=1, prepend=torch.zeros(7, 1, device="cuda"))
+    n = torch.ones_like(w)
+    for opts in (dict(penalize_first=False), dict(precondition=False)):
+        run = lambda k: solve_fista_batch(w, d, n, 0.05, n_iters=1000,
+                                          use_kernel=k, **opts)
+        got, ln = counting_launches(lambda: run(True))
+        ref, ln0 = counting_launches(lambda: run(False))
+        if ln["fista_quant"] != 1 or ln0["fista_quant"] != 0:
+            raise AssertionError(f"(c) solve_fista_batch {opts}: {ln}, {ln0}")
+        launches["fista_quant"] += 1
+        p = fista_batch_problem(w, d, n, 0.05, **opts)
+        exact = ref_fista(*(p[k].reshape(7, -1)[:, :4096].double()
+                            for k in ("w", "d", "n", "lam")),
+                          p["eta"].double(), n_iters=1000) \
+            / p["scale"].double()
+        lam = torch.full_like(exact, 0.05)
+        if not opts.get("penalize_first", True):
+            lam[:, 0] = 0.0
+
+        def f(a):
+            r = w.double() - torch.cumsum(a.double() * d.double(), dim=1)
+            return 0.5 * (r * r).sum(1) + (lam * a.double().abs()).sum(1)
+        fk, fr = f(got), f(ref)
+        obj = ((fk - fr).abs() / fr.abs()).max().item()
+        err_k = (got - exact).abs().max().item()
+        err_p = (ref - exact).abs().max().item()
+        if obj > FISTA_OBJ_RTOL or err_k > FISTA_F64_RATIO * err_p:
+            raise AssertionError(f"(c) solve_fista_batch {opts}: objective "
+                                 f"gap {obj:.3g}, f64 errors {err_k:.4g} "
+                                 f"vs {err_p:.4g}")
+        phase("solvers", f"(c) solve_fista_batch {opts} (7, 4096) x 1000 "
+              f"steps: 1 fista_quant launch vs use_kernel=False (0 "
+              f"launches): objective within {obj:.3g} (limit "
+              f"{FISTA_OBJ_RTOL:g}); from a float64 run kernel "
+              f"{err_k:.4g}, plain {err_p:.4g} (limit {FISTA_F64_RATIO:g}x)")
+    return launches
+
+
+def check_solvers(cfg, gen) -> dict:
+    """The phase ``solvers``: (a) the paper's data, (b) full width, (c)
+    kernel 4's new options. Returns the launches of (b) and (c)."""
+    t0 = time.perf_counter()
+    check_solvers_paper()
+    wide = check_solvers_wide(cfg, gen)
+    fista = check_solvers_fista(gen)
+    phase("solvers", f"{time.perf_counter() - t0:.1f} s")
+    return dict(quant_matmul=wide["quant_matmul"],
+                fista_freeze=fista["fista_freeze"],
+                fista_quant=fista["fista_quant"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -1549,6 +1907,8 @@ def main() -> int:
     q = check_qmm(gen)
     f = check_fista(gen)
     check_freeze(gen)
+    from repro_torch.configs import get_config
+    so = check_solvers(get_config("qwen3_0_6b"), gen)
     check_card_tests()
     check_serve_fp()
     sv = check_serve()
@@ -1568,19 +1928,22 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul.py:50",
          "launches": sv["launches"]["quant_matmul"],
-         "serve_spec_launches": sp["launches"]["quant_matmul"], **q},
+         "serve_spec_launches": sp["launches"]["quant_matmul"],
+         "solvers_launches": so["quant_matmul"], **q},
         {"name": "quant_matmul_stacked", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul.py:105", **st},
         {"name": "fista_quant", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fista_quant.cu",
          "replaces": "src/repro/kernels/fista_quant.py:79",
-         "launches": pb.pop("ptq_launches"), **f["quant"], **pb},
+         "launches": pb.pop("ptq_launches"),
+         "solvers_launches": so["fista_quant"], **f["quant"], **pb},
         {"name": "fista_freeze", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fista_quant.cu",
          "replaces": "src/repro/kernels/fista_quant.py:79",
          "launches": it["launches"],
          "freeze_dispatches": it["freeze_dispatches"],
+         "solvers_launches": so["fista_freeze"],
          "serve_iter_l1_tpot_p50_ms": it["tpot_p50_ms"], **f["freeze"]},
     ]}
     phase("done", f"{time.perf_counter() - t_start:.1f} s")

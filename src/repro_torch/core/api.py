@@ -7,6 +7,15 @@ thin driver over the solver registry::
     qt, info = quantize(w, "l1_ls:lam=0.02")   # a lam method
     w_approx = qt.to_dense()
 
+Methods (``core.registry`` holds them and their capabilities):
+
+  paper         l1 (eq. 6), l1_ls (alg. 1), l1l2 (eq. 13), l0 (eq. 16),
+                iter_l1 (alg. 2), kmeans_ls (alg. 3)
+  baselines     kmeans, mog, dtc (paper §4)
+  beyond paper  tv (the exact O(m) optimum of eq. 6), tv_iter (exact
+                count by lambda bisection on tv), dp (the optimal 1-D
+                quantizer, the loss lower bound)
+
 It builds the sorted-unique problem on ``w``'s device, runs the method's
 host solver, applies the spec's clip (eq. 21) and returns the
 QuantizedTensor with the reference's ``info`` keys (``alpha`` too, for
@@ -24,6 +33,11 @@ import torch
 from . import registry, types
 from .problem import make_problem, unique_with_counts
 from .spec import QuantSpec
+
+# the capability tuples, derived from the registry
+LAM_METHODS = registry.lam_methods()
+COUNT_METHODS = registry.count_methods()
+ALL_METHODS = registry.methods()
 
 
 def quantize(w: torch.Tensor, spec: QuantSpec | str,

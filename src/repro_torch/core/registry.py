@@ -1,5 +1,5 @@
 """Solver registry (port of ``repro/core/registry.py``): one entry per
-quantization method the port can run.
+quantization method, the reference's twelve, method for method.
 
   param_kind    "count" (budget-parameterised, ``method@L``) or "lam"
                 (penalty-parameterised, ``method:lam=X``). ``QuantSpec``
@@ -12,10 +12,13 @@ quantization method the port can run.
   tree_batched  ``quant.ptq.quantize_tree(..., batched=True)`` can solve a
                 whole parameter tree with it in one FISTA kernel launch.
 
-The port has l1 and l1_ls (host CD; l1_ls also tree-batched), iter_l1
-(host Algorithm 2; pages by batched FISTA), kmeans_ls and kmeans (host
-solves; pages by the exact k-means DP, refit or not). Any other method
-raises at spec construction, naming these.
+Host solves: CD for l1, l1_ls and l1l2 and Algorithm 2 (iter_l1), the
+exact TV solver (tv, tv_iter), l0's hard-threshold CD and the DP (dp) run
+over float64 host values and return tensors on the problem's device;
+k-means (kmeans, kmeans_ls, and the seeds of mog and dtc) and mog's EM
+run in torch on that device. Pages freeze by the batched device solvers
+of iter_l1, kmeans_ls and kmeans; the reference's per-page host freeze
+for the other count methods is not ported.
 """
 from __future__ import annotations
 
@@ -25,12 +28,17 @@ from typing import TYPE_CHECKING, Any, Callable
 import numpy as np
 import torch
 
-from .cd import cd_solve
-from .iterative import iterative_l1
+from .cd import cd_solve, max_stable_lam2
+from .dp_optimal import optimal_kmeans_1d
+from .dtc import dtc_quantize_unique
+from .iterative import iterative_l1, tv_iterative
 from .kmeans import kmeans_quantize_unique
 from .kmeans_ls import kmeans_ls_quantize
+from .l0 import l0_quantize
+from .mog import mog_quantize_unique
 from .problem import LSQProblem, reconstruct
 from .refit import refit_support, support_of
+from .tv_exact import tv_solve_problem, tv_support
 
 if TYPE_CHECKING:
     from .spec import QuantSpec
@@ -62,20 +70,50 @@ class Solver:
     tree_batched: bool = False
 
 
-def _cd(ctx: HostSolveContext, spec: "QuantSpec", **kw: Any):
-    # the reference passes lambda as an f32 scalar
-    alpha, sweeps = cd_solve(ctx.problem, float(np.float32(spec.lam)), **kw)
+def _f32(x: float) -> float:
+    """A scalar rounded to f32, as the reference passes lambdas."""
+    return float(np.float32(x))
+
+
+def _cd(ctx: HostSolveContext, spec: "QuantSpec", lam2: float = 0.0,
+        **kw: Any):
+    alpha, sweeps = cd_solve(ctx.problem, _f32(spec.lam), _f32(lam2), **kw)
     ctx.info["sweeps"] = int(sweeps)
     return alpha
 
 
 def _solve_l1(ctx: HostSolveContext, spec: "QuantSpec", **kw: Any):
     alpha = _cd(ctx, spec, **kw)
-    return reconstruct(alpha, ctx.problem.d), alpha
+    # the host's sequential cumsum: a run of zero alpha adds exact zeros,
+    # so it keeps one value; the card's parallel scan may round equal
+    # prefixes apart and split a shared value
+    d = ctx.problem.d
+    return reconstruct(alpha.cpu(), d.cpu()).to(d.device), alpha
 
 
 def _solve_l1_ls(ctx: HostSolveContext, spec: "QuantSpec", **kw: Any):
     return refit_support(ctx.problem, support_of(_cd(ctx, spec, **kw)))
+
+
+def _solve_l1l2(ctx: HostSolveContext, spec: "QuantSpec", **kw: Any):
+    stable = max_stable_lam2(ctx.problem)
+    # the default, and a clamp that keeps eq. 13 convex
+    lam2 = 0.25 * stable if spec.lam2 is None else min(spec.lam2,
+                                                       0.49 * stable)
+    alpha = _cd(ctx, spec, lam2, **kw)
+    ctx.info["lam2"] = float(lam2)
+    return refit_support(ctx.problem, support_of(alpha))
+
+
+def _solve_tv(ctx: HostSolveContext, spec: "QuantSpec", **kw: Any):
+    u = tv_solve_problem(ctx.problem, float(spec.lam), **kw)
+    return refit_support(ctx.problem, tv_support(u))
+
+
+def _solve_l0(ctx: HostSolveContext, spec: "QuantSpec", **kw: Any):
+    alpha, nnz = l0_quantize(ctx.problem, ctx.num_values, **kw)
+    ctx.info["nnz"] = nnz
+    return refit_support(ctx.problem, support_of(alpha))
 
 
 def _solve_iter_l1(ctx: HostSolveContext, spec: "QuantSpec", **kw: Any):
@@ -100,6 +138,33 @@ def _solve_kmeans(ctx: HostSolveContext, spec: "QuantSpec", **kw: Any):
     return recon, None
 
 
+def _solve_tv_iter(ctx: HostSolveContext, spec: "QuantSpec", **kw: Any):
+    recon, alpha, nnz, iters = tv_iterative(ctx.problem, ctx.num_values,
+                                            **kw)
+    ctx.info.update(nnz=nnz, iters=iters)
+    return recon, alpha
+
+
+def _solve_mog(ctx: HostSolveContext, spec: "QuantSpec", **kw: Any):
+    recon, _, _ = mog_quantize_unique(ctx.problem.w_hat, ctx.problem.counts,
+                                      ctx.num_values, seed=spec.seed, **kw)
+    return recon, None
+
+
+def _solve_dtc(ctx: HostSolveContext, spec: "QuantSpec", **kw: Any):
+    recon, _, _ = dtc_quantize_unique(ctx.problem.w_hat, ctx.problem.counts,
+                                      ctx.num_values, seed=spec.seed, **kw)
+    return recon, None
+
+
+def _solve_dp(ctx: HostSolveContext, spec: "QuantSpec", **kw: Any):
+    counts = ctx.counts if spec.weighted else torch.ones_like(ctx.counts)
+    recon, _, _, sse = optimal_kmeans_1d(ctx.vals, counts, ctx.num_values,
+                                         **kw)
+    ctx.info["sse_unique"] = sse
+    return recon, None
+
+
 def _pages(name: str) -> Callable:
     """A page solver of ``kernels.page_quant``, imported at first call so
     that importing ``core`` never imports kernel code."""
@@ -117,10 +182,18 @@ _REGISTRY: dict[str, Solver] = {s.name: s for s in (
     Solver("l1_ls", "lam", _solve_l1_ls, tree_batched=True,
            description="alg. 1 - l1 CD + LS refit on the support "
                        "(tree-batched via the FISTA kernel)"),
+    Solver("l1l2", "lam", _solve_l1l2, accepts_lam2=True,
+           description="eq. 13 - l1 + negative-l2 CD (+ refit)"),
+    Solver("tv", "lam", _solve_tv,
+           description="beyond-paper exact O(m) global optimum of eq. 6"),
+    Solver("l0", "count", _solve_l0,
+           description="eq. 16 - l0-constrained CD w/ gamma bisection"),
     Solver("iter_l1", "count", _solve_iter_l1,
            _pages("quantize_pages_fista_spec"),
            "alg. 2 - lambda ramp to <= num_values (device backend: batched "
            "FISTA + per-row lambda bisection)"),
+    Solver("tv_iter", "count", _solve_tv_iter,
+           description="exact-count via lambda bisection on tv"),
     Solver("kmeans_ls", "count", _solve_kmeans_ls,
            _pages("quantize_pages_kmeans_spec"),
            "alg. 3 - k-means support + LS values (device backend: exact "
@@ -129,6 +202,12 @@ _REGISTRY: dict[str, Solver] = {s.name: s for s in (
            _pages("quantize_pages_kmeans_raw_spec"),
            "baseline §4 - plain 1-D k-means (device backend: the same DP, "
            "no refit)"),
+    Solver("mog", "count", _solve_mog,
+           description="baseline §4 - mixture-of-Gaussians EM"),
+    Solver("dtc", "count", _solve_dtc,
+           description="baseline §4 - decision-tree clustering"),
+    Solver("dp", "count", _solve_dp,
+           description="optimal 1-D quantizer (loss lower bound)"),
 )}
 
 

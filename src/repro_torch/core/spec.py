@@ -11,8 +11,9 @@ The compact string form round-trips as in the reference::
 spec validates against ``core.registry`` as the reference's does: a count
 method needs ``num_values`` and rejects ``lam``; a lam method needs
 ``lam`` and rejects ``num_values``; ``lam2`` only where the method accepts
-it. The port's registry holds only the methods it can run, so any other
-method raises at construction, naming the methods the port has.
+it. The registry is the reference's, method for method, so a spec
+string is valid in the port iff it is in the reference; an unknown
+method raises at construction, naming the registered ones.
 """
 from __future__ import annotations
 

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from .fista_quant import fista_quant
+from .ref import ref_fista
 
 BLOCK_T = 128           # the kernel's column block (the reference's lanes)
 
@@ -37,23 +38,32 @@ def power_iter_lipschitz(d: torch.Tensor, n: torch.Tensor,
 
 
 def fista_batch_problem(w_rows: torch.Tensor, d_rows: torch.Tensor,
-                        n_rows: torch.Tensor, lam) -> dict:
+                        n_rows: torch.Tensor, lam, *,
+                        penalize_first: bool = True,
+                        precondition: bool = True) -> dict:
     """The kernel's inputs for ``solve_fista_batch``: w, d, n, lam padded
-    to (B, nb, 128) blocks with the columns preconditioned to unit norm
-    (alpha_bar = sqrt(z) alpha, thresholds lam / sqrt(z): the same
-    problem, a ~14x lower Lipschitz constant, the reference's
-    measurement), the step size ``eta`` (B, 1, 1) and the column
-    ``scale`` (B, M) that undoes the preconditioning."""
+    to (B, nb, 128) blocks, the step size ``eta`` (B, 1, 1) and the column
+    ``scale`` (B, M) that undoes the preconditioning. Padding (n = 0) is
+    not penalized, nor is column 0 with ``penalize_first=False``. With
+    ``precondition`` the columns are scaled to unit norm (alpha_bar =
+    sqrt(z) alpha, thresholds lam / sqrt(z): the same problem, a ~14x
+    lower Lipschitz constant, the reference's measurement); without it
+    the scale is 1."""
     B, M = w_rows.shape
     dev = w_rows.device
     n_rows = n_rows.float()
     lam_rows = torch.as_tensor(lam, dtype=torch.float32, device=dev).reshape(
         -1, 1).expand(B, M).clone()
     lam_rows[n_rows == 0] = 0.0              # padding: no penalty
-    nsuf = torch.flip(torch.cumsum(torch.flip(n_rows, (1,)), 1), (1,))
+    if not penalize_first:
+        lam_rows[:, 0] = 0.0
     d_rows = d_rows.float()
-    z = d_rows * d_rows * nsuf
-    scale = torch.sqrt(torch.where(z <= 0, torch.ones_like(z), z))
+    if precondition:
+        nsuf = torch.flip(torch.cumsum(torch.flip(n_rows, (1,)), 1), (1,))
+        z = d_rows * d_rows * nsuf
+        scale = torch.sqrt(torch.where(z <= 0, torch.ones_like(z), z))
+    else:
+        scale = torch.ones_like(d_rows)
     d_rows = d_rows / scale
     L = power_iter_lipschitz(d_rows, n_rows)
     pad = (-M) % BLOCK_T
@@ -65,17 +75,26 @@ def fista_batch_problem(w_rows: torch.Tensor, d_rows: torch.Tensor,
 
 
 def solve_fista_batch(w_rows: torch.Tensor, d_rows: torch.Tensor,
-                      n_rows: torch.Tensor, lam, *,
-                      n_iters: int = 300) -> torch.Tensor:
+                      n_rows: torch.Tensor, lam, *, n_iters: int = 300,
+                      penalize_first: bool = True, precondition: bool = True,
+                      use_kernel: bool = True) -> torch.Tensor:
     """Batched eq.-6 solve: alpha (B, M) f32 on the rows' device.
 
     w_rows (B, M) sorted unique values, zero-padded; d_rows column scales
     and n_rows weights, both 0 on padding; lam a scalar or (B,) penalty.
-    One kernel launch for all rows (``fista_batch_problem`` sets it up);
-    padding columns come back 0."""
-    M = w_rows.shape[1]
-    p = fista_batch_problem(w_rows, d_rows, n_rows, lam)
-    alpha = fista_quant(p["w"], p["d"], p["n"], p["lam"], p["eta"],
-                        n_iters=n_iters)
-    alpha = alpha.reshape(alpha.shape[0], -1)[:, :M] / p["scale"]
+    ``penalize_first`` and ``precondition`` as ``fista_batch_problem``.
+    One kernel launch for all rows; ``use_kernel=False`` runs the plain
+    version (``ref.ref_fista``) on the rows' device instead, the caller's
+    choice. Padding columns come back 0."""
+    B, M = w_rows.shape
+    p = fista_batch_problem(w_rows, d_rows, n_rows, lam,
+                            penalize_first=penalize_first,
+                            precondition=precondition)
+    args = (p["w"], p["d"], p["n"], p["lam"])
+    if use_kernel:
+        alpha = fista_quant(*args, p["eta"], n_iters=n_iters)
+    else:
+        alpha = ref_fista(*(a.reshape(B, -1)[:, :M] for a in args),
+                          p["eta"], n_iters=n_iters)
+    alpha = alpha.reshape(B, -1)[:, :M] / p["scale"]
     return torch.where(n_rows == 0, torch.zeros_like(alpha), alpha)

@@ -40,8 +40,8 @@ from __future__ import annotations
 
 import torch
 
-from .fista_quant import (CHUNK, fista_freeze, freeze_problem, nnz_of,
-                          start_vector)
+from .fista_quant import (BISECT_STEPS, CHUNK, FISTA_ITERS, fista_freeze,
+                          freeze_problem, nnz_of, start_vector)
 from .ref import fsum, scan
 
 _BIG = 1e30
@@ -204,13 +204,15 @@ def fista_page_problem(rows: torch.Tensor) -> dict:
 
 
 def fista_page_refit(rows: torch.Tensor, sk: dict, best: torch.Tensor,
-                     L: int):
+                     L: int, *, lloyd_rounds: int = 0):
     """Codes and codebook from the solved support ``best`` (R, 128) of the
     sketch ``sk``: the support's levels on the sketch (the pre-support
     zero run is its own level) give count-weighted means, sorted (empty
     levels inherit their left neighbour, so codebooks are exactly L
-    wide); the codes are the full row's interval assignment to them, and
-    the codebook its per-cluster means (eq. 20)."""
+    wide). ``lloyd_rounds`` rounds of Lloyd's alternation on the full row
+    (assignment, then per-cluster means) polish them; then the codes are
+    the full row's interval assignment to them, and the codebook its
+    per-cluster means (eq. 20)."""
     n = sk["n"]
     _, sup = nnz_of(best)
     sid = torch.cumsum(sup.long(), dim=1)
@@ -226,29 +228,37 @@ def fista_page_refit(rows: torch.Tensor, sk: dict, best: torch.Tensor,
     first = torch.where(den[:, :1] > 0, mean[:, :1], sk["s"][:, :1])
     centers = torch.cummax(torch.cat([first, mean[:, 1:]], dim=1),
                            dim=1).values
+    for _ in range(lloyd_rounds):
+        # Algorithm 3's alternation, seeded by the l1 support
+        centers = _seg_mean(sk["svals"], centers, L)
     idx = _assign(rows, centers)
     centers = _seg_mean(sk["svals"], centers, L)
     return idx.to(torch.uint8), centers
 
 
-def quantize_pages_fista(rows: torch.Tensor, *, num_values: int):
+def quantize_pages_fista(rows: torch.Tensor, *, num_values: int,
+                         n_iters: int = FISTA_ITERS,
+                         bisect_steps: int = BISECT_STEPS,
+                         lloyd_rounds: int = 0):
     """Batched lam-method page solver: sketch -> per-row lambda bisection
     by FISTA (``fista_freeze``) -> full-row assignment + LS refit.
 
     rows (R, E) -> (codes (R, E) uint8, cb (R, L) f32), the contract of
-    ``quantize_pages_device``. The bisection (``fista_quant.BISECT_STEPS``
-    steps of ``FISTA_ITERS`` FISTA steps) keeps, per row, the smallest
-    lambda whose l1 support fits ``num_values`` levels;
-    ``fista_page_refit`` turns that support into codes and codebook. The
-    reference's optional Lloyd rounds (``lloyd_rounds``, off by default
-    there) and its ``n_iters``/``bisect_steps`` arguments (only their
-    defaults are used) are not ported."""
+    ``quantize_pages_device``. The bisection (``bisect_steps`` steps of
+    ``n_iters`` FISTA steps, one launch on the card) keeps, per row, the
+    smallest lambda whose l1 support fits ``num_values`` levels;
+    ``fista_page_refit`` turns that support into codes and codebook,
+    after ``lloyd_rounds`` rounds of Lloyd polish on the full row (the
+    reference measured that they lower a row's MSE but not the serve's
+    worst logit, so the default is 0)."""
     rows = rows.float()
     sk = fista_page_sketch(rows)
     best = fista_freeze(sk["w"], sk["d"], sk["n"],
                         start_vector(_T, rows.device),
-                        num_values=num_values)[0]
-    return fista_page_refit(rows, sk, best, num_values)
+                        num_values=num_values, n_iters=n_iters,
+                        bisect_steps=bisect_steps)[0]
+    return fista_page_refit(rows, sk, best, num_values,
+                            lloyd_rounds=lloyd_rounds)
 
 
 def _apply_clip(codes, cb, spec):

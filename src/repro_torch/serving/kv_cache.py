@@ -50,7 +50,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core import QuantSpec, device_methods
+from repro_torch.core import QuantSpec, device_methods, registry
 from repro_torch.kernels import (pack4, paged_decode_attention,
                                  paged_prefill_attention, unpack4)
 
@@ -437,7 +437,12 @@ def resolve_kv_spec(spec=None, *, method=None, num_values=None) -> QuantSpec:
     a QuantSpec, a compact string ("kmeans_ls@16"), or the legacy
     (method, num_values) pair. Page freezing needs a method with a batched
     device solver; anything else raises, naming those methods."""
-    capable = f"methods that can freeze pages: {', '.join(device_methods())}"
+    hostonly = [m for m in registry.count_methods()
+                if m not in device_methods()]
+    capable = (f"methods that can freeze pages: "
+               f"{', '.join(device_methods())} (the count methods "
+               f"{', '.join(sorted(hostonly))} have no batched device solver"
+               f" in the port)")
     try:
         if isinstance(spec, QuantSpec) or (
                 isinstance(spec, str) and ("@" in spec or ":" in spec)):

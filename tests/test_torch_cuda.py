@@ -643,6 +643,102 @@ def test_quantize_pages_fista_never_waits_for_the_card(gen):
     assert codes.shape == rows.shape and cb.shape == (56, 16)
 
 
+def test_quantize_pages_fista_options_on_the_card(gen):
+    """quantize_pages_fista(n_iters=50, bisect_steps=10, lloyd_rounds=2):
+    one launch of the freeze entry and no host sync; from the card's
+    solved support, the refit and its two Lloyd rounds on the card equal
+    the CPU's (codes equal, codebooks within 1e-5: the kmeans freeze's
+    bar), and the whole freeze's rows stay within one level of the CPU
+    run's."""
+    from repro_torch.kernels.fista_quant import nnz_of
+
+    rows = _freeze_rows(gen, R=32)
+    kw = dict(num_values=16, n_iters=50, bisect_steps=10, lloyd_rounds=2)
+    torch.cuda.synchronize()
+    n0, f0 = fista_quant.launches, fista_freeze.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        codes, cb = quantize_pages_fista(rows, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert (fista_quant.launches, fista_freeze.launches) == (n0, f0 + 1)
+    assert int(codes.max()) < 16 and bool((cb.diff(dim=1) >= 0).all())
+    sk = fista_page_sketch(rows)
+    best = fista_freeze(sk["w"], sk["d"], sk["n"], start_vector(128, "cuda"),
+                        num_values=16, n_iters=50, bisect_steps=10)[0]
+    c_card, cb_card = fista_page_refit(rows, sk, best, 16, lloyd_rounds=2)
+    assert torch.equal(c_card, codes) and torch.equal(cb_card, cb)
+    sk_cpu = {k: v.cpu() for k, v in sk.items()}
+    c_cpu, cb_cpu = fista_page_refit(rows.cpu(), sk_cpu, best.cpu(), 16,
+                                     lloyd_rounds=2)
+    assert torch.equal(c_card.cpu(), c_cpu)
+    torch.testing.assert_close(cb_card.cpu(), cb_cpu, atol=1e-5, rtol=0)
+    _, cb0 = fista_page_refit(rows, sk, best, 16)
+    assert not torch.equal(cb0, cb)          # the rounds moved codebooks
+    cpu = quantize_pages_fista(rows.cpu(), **kw)
+    assert cpu[0].shape == codes.shape
+    lv_cpu = freeze_plain(*(sk_cpu[k] for k in "wdn"), start_vector(128, "cpu"),
+                          num_values=16, n_iters=50, bisect_steps=10)[0]
+    gap = (nnz_of(best)[0].cpu() - nnz_of(lv_cpu)[0]).abs().max()
+    assert int(gap) <= 1
+
+
+@pytest.mark.parametrize("spec", ["l1:lam=2.0", "l1_ls:lam=2.0",
+                                  "l1l2:lam=2.0", "tv:lam=2.0",
+                                  "tv_iter@16", "dp@16"])
+def test_host_solvers_on_card_tensors_equal_the_cpu(gen, spec):
+    """A host solve of card tensors gives the CPU's values: the problem is
+    built on the card, solved on the host, refit on the card. l1's
+    reconstruction is a cumsum: on the card's parallel scan, positions
+    with one prefix could round apart and split a shared value."""
+    from repro_torch.core import quantize
+
+    w = torch.rand(500, generator=gen, device="cuda") * 100
+    qt, info = quantize(w, spec)
+    qt_c, info_c = quantize(w.cpu(), spec)
+    assert qt.codebook.is_cuda and info["n_values"] == info_c["n_values"]
+    torch.testing.assert_close(qt.to_dense().cpu(), qt_c.to_dense(),
+                               atol=1e-5, rtol=1e-6)
+
+
+def _fista_rows(gen, B=3, M=1000):
+    w = torch.sort(torch.randn(B, M, generator=gen, device="cuda"),
+                   dim=1).values
+    d = torch.diff(w, dim=1, prepend=torch.zeros(B, 1, device="cuda"))
+    return w, d, torch.ones_like(w)
+
+
+@pytest.mark.parametrize("opts", [dict(penalize_first=False),
+                                  dict(precondition=False)])
+def test_solve_fista_batch_options_against_the_plain_version(gen, opts):
+    """Each option of solve_fista_batch: one kernel launch, against
+    use_kernel=False (the plain version, no launch) on the card: the
+    objective within 1e-3 and the distance from a float64 run at most 3x
+    the plain version's (the bounds of the PTQ rows above)."""
+    w, d, n = _fista_rows(gen)
+    n0 = fista_quant.launches
+    got = solve_fista_batch(w, d, n, 0.05, n_iters=500, **opts)
+    assert fista_quant.launches == n0 + 1
+    ref = solve_fista_batch(w, d, n, 0.05, n_iters=500, use_kernel=False,
+                            **opts)
+    assert fista_quant.launches == n0 + 1
+    p = fista_batch_problem(w, d, n, 0.05, **opts)
+    B, M = w.shape
+    exact = ref_fista(*(p[k].reshape(B, -1)[:, :M].double()
+                        for k in ("w", "d", "n", "lam")), p["eta"].double(),
+                      n_iters=500) / p["scale"].double()
+    lam = torch.full_like(w, 0.05, dtype=torch.float64)
+    if not opts.get("penalize_first", True):
+        lam[:, 0] = 0.0
+
+    def f(a):
+        a = a.double()
+        r = w.double() - torch.cumsum(a * d.double(), dim=1)
+        return 0.5 * (r * r).sum(1) + (lam * a.abs()).sum(1)
+    assert bool(((f(got) - f(ref)).abs() <= 1e-3 * f(ref).abs()).all())
+    assert (got - exact).abs().max() <= 3.0 * (ref - exact).abs().max()
+
+
 def test_quantize_pages_device_never_waits_for_the_card(gen):
     """The kmeans_ls freeze (the main path's) is one asynchronous dispatch
     too: its DP fills unreachable cells with a scalar, not a tensor copied

@@ -282,17 +282,24 @@ def test_spec_rejections_match_reference(text, match):
 
 
 def test_registry_kinds_match_reference():
+    """The port's registry is the reference's, name for name, with the
+    same capabilities."""
     from repro.core import registry as jax_registry
 
+    assert registry.methods() == jax_registry.methods()
     for name in registry.methods():
         ours, ref = registry.get(name), jax_registry.get(name)
         assert (ours.param_kind, ours.tree_batched, ours.accepts_lam2,
                 ours.device_batch is not None) == (
             ref.param_kind, ref.tree_batched, ref.accepts_lam2,
             ref.device_batch is not None), name
-    assert set(registry.lam_methods()) == {"l1", "l1_ls"}
-    assert set(registry.device_methods()) == {"iter_l1", "kmeans",
-                                              "kmeans_ls"}
+        if ours.device_batch is None and not ours.tree_batched:
+            # host-only methods; the others name the port's kernels
+            assert ours.description == ref.description, name
+    assert registry.lam_methods() == jax_registry.lam_methods()
+    assert registry.count_methods() == jax_registry.count_methods()
+    assert set(registry.device_methods()) == set(
+        jax_registry.device_methods()) == {"iter_l1", "kmeans", "kmeans_ls"}
 
 
 @pytest.mark.parametrize("spec", ["l1:lam=0.5", "l1_ls:lam=0.5,weighted=true",

@@ -221,8 +221,8 @@ def test_cuda_routed_freeze_dispatches_few_ops(monkeypatch):
     recorder): one launch of the freeze entry, at most FREEZE_OPS_BOUND
     aten ops (the start vector is made once per device beforehand)."""
     calls = _record(monkeypatch)
-    monkeypatch.setattr(pq, "fista_freeze", lambda *a, **k: fq._launch_freeze(
-        *a, n_iters=fq.FISTA_ITERS, bisect_steps=fq.BISECT_STEPS, **k))
+    # quantize_pages_fista passes its n_iters and bisect_steps on
+    monkeypatch.setattr(pq, "fista_freeze", fq._launch_freeze)
     rows = _freeze_rows()
     fq.start_vector(128, rows.device)
     with _CountOps() as count:

@@ -16,6 +16,7 @@ from repro.kernels import quantize_pages_device as jax_quantize_pages
 from repro_torch.core import QuantSpec
 from repro_torch.kernels import quantize_pages_device
 from repro_torch.kernels.page_quant import _cumsum
+from repro_torch.serving.kv_cache import resolve_kv_spec
 
 # tiny tensors: one intra-op thread (more make these shapes far slower)
 torch.set_num_threads(1)
@@ -55,9 +56,10 @@ def test_prefix_sum_order_is_the_reference_cpu_order(N):
 
 
 def test_spec_strings_match_reference():
-    """kmeans_ls and kmeans specs parse and print as in the reference; a
-    method the port lacks, or a count spec without its budget, raises,
-    naming the methods the port has."""
+    """kmeans_ls and kmeans specs parse and print as in the reference; an
+    unknown method, or a count spec without its budget, raises, naming
+    the registered methods; a known method without a page solver (a lam
+    method, or a count method solved on the host) cannot freeze pages."""
     from repro.core import QuantSpec as JaxSpec
     from repro_torch.core import as_spec
 
@@ -67,9 +69,13 @@ def test_spec_strings_match_reference():
         assert str(ours) == str(JaxSpec.parse(text)) and str(ours) == text
         assert QuantSpec.parse(str(ours)) == ours == as_spec(ours)
     assert as_spec("kmeans_ls@16", num_values=8).num_values == 8
-    for bad in ("tv:lam=0.02", "l0@16", "kmeans_ls"):
+    for bad in ("tvx:lam=0.02", "l00@16", "kmeans_ls"):
         with pytest.raises(ValueError, match="kmeans_ls"):
             QuantSpec.parse(bad)
+    for host_only in ("tv:lam=0.02", "l0@16"):
+        QuantSpec.parse(host_only)
+        with pytest.raises(ValueError, match="cannot freeze pages.*l0"):
+            resolve_kv_spec(host_only)
 
 
 def test_spec_clip_and_sorted_codebooks():
