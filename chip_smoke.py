@@ -13,8 +13,16 @@ FISTA kernel's freeze entry), with the replay checks; then the same
 weights with kmeans_ls@16 pages, speculative decoding (``--speculate 3``,
 the half-depth draft: verify windows of 4 through the attention kernel)
 and prefix sharing over a trace whose prompts share 192 tokens (prefills
-start past spliced frozen pages), with its replays; last, a batched l1_ls
+start past spliced frozen pages), with its replays; then a batched l1_ls
 PTQ of the whole model in one FISTA launch, served for a few requests.
+Then the other configs: glm4-9b at full width and depth from kmeans_ls@16
+codes (its f32 replays on its first 8 layers), yi-34b and gemma2-27b at
+full width with their depth cut to 4 layers; last, each count method
+without a device solver (dp, tv_iter, mog, dtc, l0) as ``--kv-quant``
+through the per-page host freeze, on full-width qwen3-0.6B pages.
+The kernel phase also holds the attention kernel against its plain
+version over head dims 8-256 and blocks of 1-128 keys, and times it at
+glm4-9b's decode shape.
 Before serving, the phase ``solvers`` runs the paper's twelve methods on
 its data on the card against the CPU, the seven solvers this port added
 last on a full-width projection served through the dequant kernel, and
@@ -196,13 +204,16 @@ def phase(name: str, msg: str) -> None:
 # ------------------------------------------------------------ kernel inputs
 
 
-def make_pool(gen, *, valid, dtype, frozen_frac=0.5, mb=None):
+def make_pool(gen, *, valid, dtype, frozen_frac=0.5, mb=None, shapes=SHAPES,
+              pool="packed"):
     """Pools, codes, codebooks and a block table for sequences of the given
     valid lengths (valid 0 = an idle slot parked on the null page with
-    valid 1). About ``frozen_frac`` of the live pages are frozen."""
+    valid 1), at the head shape ``shapes``. About ``frozen_frac`` of the
+    live pages are frozen; ``pool`` is "packed" (two codes a byte),
+    "unpacked" or "fp" (no page served from codes)."""
     from repro_torch.kernels import pack4
 
-    Hkv, Dh, bs, L = SHAPES["Hkv"], SHAPES["Dh"], SHAPES["bs"], SHAPES["L"]
+    Hkv, Dh, bs, L = (shapes[k] for k in ("Hkv", "Dh", "bs", "L"))
     pages = [-(-max(v, 1) // bs) for v in valid]
     mb = mb or max(pages)
     nb = 1 + sum(p for p, v in zip(pages, valid) if v)
@@ -212,7 +223,10 @@ def make_pool(gen, *, valid, dtype, frozen_frac=0.5, mb=None):
     v_fp = rnd(nb, bs, Hkv, Dh).to(dtype)
     codes = torch.randint(0, L, (2, nb, bs, Hkv, Dh), generator=gen,
                           device=dev, dtype=torch.uint8)
-    k_codes, v_codes = pack4(codes[0]), pack4(codes[1])
+    if pool == "packed":
+        k_codes, v_codes = pack4(codes[0]), pack4(codes[1])
+    else:
+        k_codes, v_codes = codes[0].clone(), codes[1].clone()
     k_cb = torch.sort(rnd(nb, L), dim=1).values
     v_cb = torch.sort(rnd(nb, L), dim=1).values
     blk_q = torch.rand(nb, generator=gen, device=dev) < frozen_frac
@@ -226,7 +240,8 @@ def make_pool(gen, *, valid, dtype, frozen_frac=0.5, mb=None):
     lens = torch.tensor([max(v, 1) for v in valid], dtype=torch.int32)
     return dict(k_fp=k_fp, v_fp=v_fp, k_codes=k_codes, v_codes=v_codes,
                 k_cb=k_cb, v_cb=v_cb, blk_q=blk_q,
-                block_table=table.to(dev), kv_valid_len=lens.to(dev))
+                block_table=table.to(dev), kv_valid_len=lens.to(dev),
+                quantized=pool != "fp", packed=pool == "packed")
 
 
 def pool_args(p):
@@ -239,7 +254,7 @@ def kernel(q, p, valid=None, softcap=None):
 
     return paged_decode_attention(
         q, *pool_args(p), p["kv_valid_len"] if valid is None else valid,
-        softcap=softcap, quantized=True, packed=True)
+        softcap=softcap, quantized=p["quantized"], packed=p["packed"])
 
 
 def plain(q, p, valid=None, softcap=None):
@@ -247,7 +262,7 @@ def plain(q, p, valid=None, softcap=None):
 
     return ref_paged_decode(
         q, *pool_args(p), p["kv_valid_len"] if valid is None else valid,
-        softcap=softcap, quantized=True, packed=True)
+        softcap=softcap, quantized=p["quantized"], packed=p["packed"])
 
 
 def gather_sdpa(q, p):
@@ -307,7 +322,8 @@ def bound(p, q, out_bytes, keys) -> tuple[float, str]:
     (row, key) pairs)."""
     bs, Hkv, Dh = p["k_fp"].shape[1:]
     fp_page = 2 * bs * Hkv * Dh * p["k_fp"].element_size()
-    code_page = 2 * (bs * Hkv * Dh // 2 + p["k_cb"].shape[1] * 4)
+    code_page = 2 * (bs * Hkv * p["k_codes"].shape[-1]
+                     + p["k_cb"].shape[1] * 4)
     table = p["block_table"].cpu().numpy()
     frozen = p["blk_q"].cpu().numpy()
     total = q.numel() * q.element_size() + out_bytes
@@ -315,9 +331,10 @@ def bound(p, q, out_bytes, keys) -> tuple[float, str]:
     for b, v in enumerate(p["kv_valid_len"].cpu().numpy()):
         for j in range(-(-int(v) // bs)):
             page = table[b, j]
-            total += 1 + (code_page if frozen[page] else fp_page)
+            total += 1 + (code_page if p["quantized"] and frozen[page]
+                          else fp_page)
     t_bytes = total / HBM_BYTES_PER_S * 1e3
-    flops = 2.0 * SHAPES["Hq"] * Dh * keys            # each of QK^T, P@V
+    flops = 2.0 * q.shape[-2] * Dh * keys            # each of QK^T, P@V
     bf16 = q.dtype == p["k_fp"].dtype == torch.bfloat16
     t_ops = 2 * flops / (BF16_FLOPS if bf16 else F32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -344,13 +361,14 @@ def live_keys(valid, W: int) -> int:
     return sum(max(int(v) - (W - 1 - w), 0) for v in valid for w in range(W))
 
 
-def pa_plan(p, W: int, dtype) -> dict:
+def pa_plan(p, W: int, dtype, shapes=SHAPES) -> dict:
     """The attention kernel's launch plan for a call of W queries over the
-    pool ``p``: pages a split, splits of the longest sequence, the blocks
-    that compute a split and the blocks launched, shared memory a block."""
+    pool ``p``: keys a split, splits of the longest sequence, the blocks
+    that compute a split and the blocks launched, shared memory a block
+    (``shapes``: the head shape, qwen3-0.6B's by default)."""
     from repro_torch.kernels.paged_attention import kernel_smem, plan
 
-    Hq, Hkv, Dh, bs, L = (SHAPES[k] for k in ("Hq", "Hkv", "Dh", "bs", "L"))
+    Hq, Hkv, Dh, bs, L = (shapes[k] for k in ("Hq", "Hkv", "Dh", "bs", "L"))
     pl = plan(bs, Dh, dtype)
     rows = W * Hq // Hkv
     tiles = -(-rows // pl.tile_rows)
@@ -359,19 +377,18 @@ def pa_plan(p, W: int, dtype) -> dict:
         for t in range(tiles):      # the tile's longest row sees these keys
             last_w = (min((t + 1) * pl.tile_rows, rows) - 1) // (Hq // Hkv)
             n = max(0, v - (W - 1 - last_w))
-            working += max(1, len(pl.split_ranges(-(-n // bs))))
+            working += max(1, len(pl.split_ranges(n)))
     B = p["kv_valid_len"].numel()
-    return dict(split_pages=pl.split_pages, tile_rows=pl.tile_rows,
+    return dict(split_keys=pl.split_keys, tile_rows=pl.tile_rows,
                 cluster=pl.cluster,
-                splits=len(pl.split_ranges(-(-max(p["kv_valid_len"].tolist())
-                                             // bs))),
+                splits=len(pl.split_ranges(max(p["kv_valid_len"].tolist()))),
                 working_blocks=working * Hkv,
                 blocks=pl.blocks(B, rows, Hkv),
                 smem=kernel_smem(pl, bs, Dh, L, dtype))
 
 
 def pa_plan_text(r: dict) -> str:
-    return (f"P={r['split_pages']} pages a split, {r['splits']} splits, "
+    return (f"{r['split_keys']} keys a split, {r['splits']} splits, "
             f"tiles of {r['tile_rows']} rows, cluster {r['cluster']}, "
             f"{r['working_blocks']} working of {r['blocks']} blocks, "
             f"{r['smem']} B smem")
@@ -506,10 +523,13 @@ def check_kernel(gen) -> dict:
     host = host_us(lambda: kernel(q, p))[1]
     ptxas = {}
     for k, v in ptxas_by_kernel("paged_attention").items():
-        m = re.search(r"paged_attention_kernelI(13__nv_bfloat16|f)Li(\d+)E", k)
+        # <dtype>/Dh=<padded width>/<exact or general> per instantiation
+        m = re.search(r"paged_attention_kernelI(13__nv_bfloat16|f)Li(\d+)"
+                      r"ELb([01])E", k)
         if m:
             dt = "f32" if m.group(1) == "f" else "bf16"
-            ptxas[f"{dt}/Dh={m.group(2)}"] = v
+            kind = "general" if m.group(3) == "1" else "exact"
+            ptxas[f"{dt}/Dh={m.group(2)}/{kind}"] = v
     card = card_line()
     for name, r in plans.items():
         phase("kernel", f"plan {name}: {pa_plan_text(r)}")
@@ -540,6 +560,83 @@ def check_kernel(gen) -> dict:
                 decode_512=d512, verify=ver, host_us_per_call=host,
                 plan=plans,
                 ptxas=ptxas)
+
+
+# kernel 1 at the reference's shapes: every head_dim 1-256 (even when
+# packed) and block 1-128 it takes, sampled so each of these appears
+SWEEP_DH = (8, 16, 24, 40, 64, 80, 128, 192, 256)
+SWEEP_BS = (1, 5, 8, 12, 16, 32, 64, 128)
+# glm4-9b's attention at full width: 32 query heads over 2 kv heads
+GLM4_SHAPES = dict(Hq=32, Hkv=2, Dh=128, bs=16, L=16)
+
+
+def check_kernel_shapes(gen) -> dict:
+    """Kernel 1 against its plain version over SWEEP_DH x SWEEP_BS
+    (paired cyclically: every head_dim and every block size at least
+    once), on fp, packed and unpacked (200-entry codebooks) pools: a
+    decode step over ragged lengths and an idle slot, a W = 4 window, a
+    64-token prefill chunk at offset 192; then decode timed at glm4-9b's
+    full shape (B 4 x 272 tokens, Hq 32 over Hkv 2, Dh 128, bf16)."""
+    from repro_torch.kernels import paged_prefill_attention
+
+    worst, calls = 0.0, 0
+    for i, Dh in enumerate(SWEEP_DH):
+        bs = SWEEP_BS[i % len(SWEEP_BS)]
+        for pool in ("fp", "packed", "unpacked"):
+            shapes = dict(Hq=8, Hkv=2, Dh=Dh, bs=bs,
+                          L=200 if pool == "unpacked" else 16)
+            for dtype, tol in ((torch.float32, F32_TOL),
+                               (torch.bfloat16, BF16_TOL)):
+                p = make_pool(gen, valid=[1, 65, 300, 0], dtype=dtype,
+                              shapes=shapes, pool=pool)
+                pp = make_pool(gen, valid=[256], dtype=dtype, shapes=shapes,
+                               pool=pool)
+                off = torch.tensor([192], dtype=torch.int32, device="cuda")
+                rnd = lambda *sh: torch.randn(*sh, generator=gen,
+                                              device="cuda").to(dtype)
+                q1, qw, qp = rnd(4, 8, Dh), rnd(4, 4, 8, Dh), rnd(1, 64, 8,
+                                                                   Dh)
+                pairs = [(kernel(q1, p, softcap=30.0),
+                          plain(q1, p, softcap=30.0)),
+                         (kernel(qw, p), plain(qw, p)),
+                         (paged_prefill_attention(
+                             qp, *pool_args(pp), off,
+                             quantized=pp["quantized"],
+                             packed=pp["packed"]),
+                          plain(qp, pp, valid=off + 64))]
+                torch.cuda.synchronize()
+                for got, ref in pairs:
+                    torch.testing.assert_close(got.float(), ref.float(),
+                                               **tol)
+                    if dtype == torch.float32:
+                        worst = max(worst, (got.float() - ref.float())
+                                    .abs().max().item())
+                calls += len(pairs)
+    phase("kernel", f"shape sweep: head_dim {SWEEP_DH} x block {SWEEP_BS} "
+          f"(paired), fp/packed/unpacked pools, f32 and bf16, decode + W=4 "
+          f"window + prefill chunk: {calls} calls == plain, worst f32 "
+          f"max|err| {worst:.3g} (atol {F32_TOL['atol']})")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    p = make_pool(gen, valid=[272] * 4, dtype=torch.bfloat16,
+                  shapes=GLM4_SHAPES)
+    q = torch.randn(4, GLM4_SHAPES["Hq"], GLM4_SHAPES["Dh"], generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    torch.testing.assert_close(kernel(q, p).float(), plain(q, p).float(),
+                               **BF16_TOL)
+    g = dict(ms=time_ms(lambda: kernel(q, p), flush=flush),
+             plain_ms=time_ms(lambda: plain(q, p), flush=flush),
+             library_ms=time_ms(lambda: gather_sdpa(q[:, None], p),
+                                flush=flush))
+    g["bound_ms"], g["bound_by"] = bound(p, q, q.numel() * 2,
+                                         live_keys([272] * 4, 1))
+    g["plan"] = pa_plan(p, 1, torch.bfloat16, shapes=GLM4_SHAPES)
+    phase("kernel", f"plan glm4 decode: {pa_plan_text(g['plan'])}")
+    phase("kernel", f"glm4-9b decode B=4 x 272 tokens (Hq 32 / Hkv 2, Dh "
+          f"128) bf16: kernel {g['ms']:.4f} ms, plain {g['plain_ms']:.4f} "
+          f"ms, gather+sdpa {g['library_ms']:.4f} ms, bound "
+          f"{g['bound_ms']:.5f} ms ({g['bound_by']}) on {card_line()}")
+    return dict(shape_sweep_max_abs_err=worst, shape_sweep_calls=calls,
+                glm4_decode=g)
 
 
 def qmm_inputs(gen, M, K, N, dtype, *, L=16, G=None,
@@ -764,17 +861,24 @@ def serve_once(argv, params=None) -> tuple:
 
 
 def check_launches(s, cfg, launches, quantized: bool, *, fista: bool = False,
-                   requests: int = 8, spec: int = 0) -> str:
-    """Paged attention: layers x (decode steps + prefill chunks); the dequant
-    matmul: 7 projections x that from codes, 0 from dense weights; FISTA:
+                   requests: int = 8, spec: int = 0,
+                   host: bool = False) -> str:
+    """Paged attention: full-context layers x (decode steps + prefill
+    chunks) (a local-window layer reads by gather); the dequant matmul: 7
+    projections x layers x that from codes, 0 from dense weights; FISTA:
     one launch of its freeze entry per freeze dispatch on an iter_l1 pool,
     else 0, and none of its fista_quant entry; no stacked launch and no
     dense fallback on the serving path. With ``spec`` = k, a decode step
     is one verify window of the target (the same launches), and the draft
     (gather path: no attention launch) makes one call per request's
     attach and k per decode step, each 7 dequant launches a draft layer
-    from the target's codes."""
+    from the target's codes. The per-page host freeze solves rows only on
+    a ``host`` method's pool (``host_page_solves`` > 0 there, 0 on every
+    device method's)."""
+    from repro_torch.launch.serve import full_context_layers
+
     steps = s["decode_steps"] + s["prefill_chunks"]
+    fc = full_context_layers(cfg)
     draft_calls = 0
     if spec:
         draft_calls = s["draft_prefills"] + s["draft_steps"]
@@ -786,7 +890,7 @@ def check_launches(s, cfg, launches, quantized: bool, *, fista: bool = False,
                 f"{s['draft_prefills']} draft prefills for {requests} "
                 f"requests")
     draft_mm = 7 * s.get("draft_layers", 0) * draft_calls
-    expect = {"paged_decode_attention": cfg.n_layers * steps,
+    expect = {"paged_decode_attention": fc * steps,
               "quant_matmul": (7 * cfg.n_layers * steps + draft_mm
                                if quantized else 0),
               "quant_matmul_stacked": 0,
@@ -794,10 +898,12 @@ def check_launches(s, cfg, launches, quantized: bool, *, fista: bool = False,
               "fista_freeze": s["freeze_dispatches"] if fista else 0,
               "fallbacks": 0}
     if s["completed"] != requests or s["freeze_installs"] <= 0 \
-            or s["freeze_dispatches"] <= 0:
+            or s["freeze_dispatches"] <= 0 \
+            or (s["host_page_solves"] > 0) != host:
         raise AssertionError(f"serve: completed {s['completed']}/{requests}"
                              f", {s['freeze_dispatches']} freeze dispatches"
-                             f", {s['freeze_installs']} installs")
+                             f", {s['freeze_installs']} installs, "
+                             f"{s['host_page_solves']} host page solves")
     if s["attn_impl"] != "fused" or launches != expect \
             or s["paged_attention_launches"] != expect[
                 "paged_decode_attention"] \
@@ -809,7 +915,7 @@ def check_launches(s, cfg, launches, quantized: bool, *, fista: bool = False,
                              f"{s['qmatmul_dequant_fallback']} fallbacks), "
                              f"expected {expect}")
     return (f"{expect['paged_decode_attention']} paged-attention launches = "
-            f"{cfg.n_layers} layers x ({s['decode_steps']} "
+            f"{fc} full-context layers x ({s['decode_steps']} "
             + ("verify steps" if spec else "decode steps")
             + f" + {s['prefill_chunks']} prefill chunks); "
             f"{expect['quant_matmul']} quant_matmul launches"
@@ -821,7 +927,7 @@ def check_launches(s, cfg, launches, quantized: bool, *, fista: bool = False,
             + (f" = 1 x {s['freeze_dispatches']} freeze dispatches"
                if fista else "") + "; 0 fista_quant launches"
             + f"; qmatmul_dequant_fallback=0; {s['freeze_installs']} freeze "
-            f"installs")
+            f"installs; {s['host_page_solves']} host page solves")
 
 
 def serve_line(s) -> str:
@@ -1532,6 +1638,152 @@ def check_ptq_batched(cfg, gen) -> dict:
 # script imports nothing of the JAX package's benchmarks)
 
 
+# ------------------------------------------------------------ other configs
+# glm4-9b at full width and depth (40 layers, 2 kv heads: G = 16) from
+# kmeans_ls@16 codes, the main path's trace; its f32 replays on a depth cut
+# (an f32 copy of the whole model's dense embed and head is 5 GB, and 40
+# layers of f32 replays would take most of the run)
+GLM4_ARGS = QUANT_ARGS + ["--arch", "glm4_9b"]
+GLM4_REPLAY_LAYERS = 8
+# yi-34b (56 query heads over 8: G = 7) and gemma2-27b (softcaps, window
+# 4096 on its local layers, post-block norms, GeGLU) at full width, their
+# depth cut to 4 layers (gemma2: two local + global pairs), dense bf16
+# weights with kmeans_ls@16 pages, 4 requests of the main path's trace
+WIDE_LAYERS = 4
+WIDE_ARGS = SERVE_ARGS + ["--num-requests", "4", "--layers", str(WIDE_LAYERS)]
+# the per-page host freeze: each count method without a device solver as
+# --kv-quant on packed pages, full-width qwen3-0.6B pages (16 x 8 x 128 =
+# 16,384 values a row), the depth cut to 2 layers; 2 requests of 32 + 8
+# tokens (l0, the slowest solve: 1 request of 16 + 8)
+HOST_METHODS = ("dp", "tv_iter", "mog", "dtc", "l0")
+KVHOST_ARGS = ["--engine", "continuous", "--prefill-chunk", "16",
+               "--num-requests", "2", "--prompt-len", "32", "--gen", "8",
+               "--max-slots", "2", "--block-size", "16", "--max-seq-len",
+               "64", "--request-rate", "8", "--attn-impl", "auto", "--seed",
+               "0", "--layers", "2"]
+KVHOST_L0_ARGS = KVHOST_ARGS + ["--num-requests", "1", "--max-slots", "1",
+                                "--prompt-len", "16"]
+
+
+def gib(n: int) -> float:
+    return n / 2 ** 30
+
+
+def check_serve_glm4() -> dict:
+    """glm4-9b at full width and depth: PTQ of its 280 projections to
+    kmeans_ls@16 on the card, the trace served from the codes through
+    kernels 1 and 2 (exact launch gates, no dense fallback), the serving
+    check at full depth, the f32 replays (chunked vs single, fused vs
+    gather) on its first GLM4_REPLAY_LAYERS layers."""
+    from repro_torch.launch import serve
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    s, params, cfg, args, launches = serve_once(GLM4_ARGS)
+    ptq = s["ptq"]
+    if ptq["tensors"] != 7 * cfg.n_layers:
+        raise AssertionError(f"PTQ quantized {ptq['tensors']} tensors, "
+                             f"expected 7 x {cfg.n_layers}")
+    peak = gib(torch.cuda.max_memory_allocated())
+    phase("serve-glm4", f"{cfg.name} at full width and depth ({cfg.n_layers}"
+          f" layers, d_model {cfg.d_model}, {cfg.n_heads} query heads over "
+          f"{cfg.n_kv_heads} kv heads, Dh {cfg.head_dim}, bf16); PTQ "
+          f"kmeans_ls@16: {ptq['tensors']} projections in "
+          f"{ptq['time_s']:.1f} s on the card, {ptq['compression']:.2f}x "
+          f"smaller than bf16; peak memory {peak:.1f} GiB")
+    phase("serve-glm4", check_launches(s, cfg, launches, quantized=True))
+    if not serve._verify_serving(params, cfg, args):
+        raise AssertionError("glm4-9b: the quantized-KV serving check failed")
+    cut = serve.cut_depth(cfg, GLM4_REPLAY_LAYERS)
+    cp = serve.cut_params(params, GLM4_REPLAY_LAYERS)
+    phase("serve-glm4", f"the f32 replays below run on a depth cut: the "
+          f"first {cut.n_layers} of {cfg.n_layers} layers, full width")
+    if not serve._verify_chunked(cp, cut, args):
+        raise AssertionError("glm4-9b: the chunked-prefill replay failed")
+    check_fused_vs_gather(cp, cut, args, (None, "kmeans_ls@16"),
+                          name="serve-glm4")
+    phase("serve-glm4", serve_line(s))
+    return dict(launches=launches, tpot_p50_ms=s["tpot_p50_s"] * 1e3,
+                ptq_s=ptq["time_s"], peak_gib=peak)
+
+
+def check_serve_wide(name: str, arch: str) -> dict:
+    """``arch`` at full width with its depth cut to WIDE_LAYERS, dense
+    bf16 weights, kmeans_ls@16 pages: the launch gates (kernel 1 on its
+    full-context layers), the serving check and both f32 replays."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    torch.cuda.empty_cache()
+    s, params, cfg, args, launches = serve_once(WIDE_ARGS + ["--arch", arch])
+    full = get_config(arch)
+    phase(name, f"{cfg.name} at full width (d_model {cfg.d_model}, "
+          f"{cfg.n_heads} query heads over {cfg.n_kv_heads} kv heads, Dh "
+          f"{cfg.head_dim}, softcap {cfg.attn_softcap}), depth cut to the "
+          f"first {cfg.n_layers} of {full.n_layers} layers "
+          f"({[sp.window for sp in cfg.layer_specs()]} windows)")
+    phase(name, check_launches(s, cfg, launches, quantized=False,
+                               requests=4))
+    if not serve._verify_serving(params, cfg, args):
+        raise AssertionError(f"{arch}: the quantized-KV serving check failed")
+    if not serve._verify_chunked(params, cfg, args):
+        raise AssertionError(f"{arch}: the chunked-prefill replay failed")
+    check_fused_vs_gather(params, cfg, args, (None, "kmeans_ls@16"),
+                          name=name)
+    phase(name, serve_line(s))
+    return dict(launches=launches, tpot_p50_ms=s["tpot_p50_s"] * 1e3)
+
+
+def check_kv_host() -> dict:
+    """Each count method without a device solver as --kv-quant through the
+    fused engine on packed pages: launch gates with host_page_solves > 0,
+    the serving check, and the seconds a row solve takes (the host
+    freeze's time over its row solves, from a timer around it)."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import kv_cache
+
+    torch.cuda.empty_cache()
+    solve = kv_cache._solve_pages_host
+    spent = [0.0, 0]
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        out = solve(*a, **k)
+        spent[0] += time.perf_counter() - t0
+        spent[1] += out[2]
+        return out
+
+    out, params = {}, None
+    kv_cache._solve_pages_host = timed
+    try:
+        for m in HOST_METHODS:
+            t0 = time.perf_counter()
+            spent[:] = [0.0, 0]
+            argv = (KVHOST_L0_ARGS if m == "l0" else KVHOST_ARGS) + [
+                "--kv-quant", f"{m}@16"]
+            s, params, cfg, args, launches = serve_once(argv, params)
+            phase("kv-host", f"{m}@16: " + check_launches(
+                s, cfg, launches, quantized=False, host=True,
+                requests=args.num_requests))
+            if not serve._verify_serving(params, cfg, args):
+                raise AssertionError(f"kv-host {m}@16: the serving check "
+                                     f"failed")
+            per = spent[0] / max(spent[1], 1)
+            phase("kv-host", f"{m}@16 on {cfg.name} pages ({args.block_size}"
+                  f" x {cfg.n_kv_heads} x {cfg.head_dim} values a row, "
+                  f"{cfg.n_layers} layers): {s['host_page_solves']} row "
+                  f"solves served, {spent[1]} with the serving check, "
+                  f"{per:.3f} s a row solve; phase {time.perf_counter() - t0:.1f}"
+                  f" s")
+            out[m] = dict(host_page_solves=s["host_page_solves"],
+                          s_per_row_solve=per,
+                          paged_attention_launches=launches[
+                              "paged_decode_attention"])
+    finally:
+        kv_cache._solve_pages_host = solve
+    return out
+
+
 def synthetic_distributions(n: int = 500, seed: int = 0) -> dict:
     """MoG / uniform / single Gaussian, 500 samples in [0, 100] (the
     paper's fig. 7)."""
@@ -1904,6 +2156,7 @@ def main() -> int:
               f"{' | '.join(ptxas)}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     k = check_kernel(gen)
+    k.update(check_kernel_shapes(gen))
     q = check_qmm(gen)
     f = check_fista(gen)
     check_freeze(gen)
@@ -1916,19 +2169,39 @@ def main() -> int:
     cfg = sv["cfg"]
     it = check_serve_iter_l1(sv["params"])
     sp = check_serve_spec(sv.pop("params"), sv)
+    sp_launches = sp["launches"]
     pb = check_ptq_batched(cfg, gen)
+    t0 = time.perf_counter()
+    g4 = check_serve_glm4()
+    phase("serve-glm4", f"{time.perf_counter() - t0:.1f} s")
+    wide = {}
+    for name, arch in (("serve-yi", "yi_34b"), ("serve-gemma2", "gemma2_27b")):
+        t0 = time.perf_counter()
+        wide[arch] = check_serve_wide(name, arch)
+        phase(name, f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kh = check_kv_host()
+    phase("kv-host", f"{time.perf_counter() - t0:.1f} s")
     record = {"kernels": [
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:242",
          "launches": sv["launches"]["paged_decode_attention"],
-         "serve_spec_launches": sp["launches"]["paged_decode_attention"],
+         "serve_spec_launches": sp_launches["paged_decode_attention"],
+         "serve_glm4_launches": g4["launches"]["paged_decode_attention"],
+         "serve_yi_launches": wide["yi_34b"]["launches"][
+             "paged_decode_attention"],
+         "serve_gemma2_launches": wide["gemma2_27b"]["launches"][
+             "paged_decode_attention"],
+         "kv_host_launches": sum(r["paged_attention_launches"]
+                                 for r in kh.values()),
          **k},
         {"name": "quant_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul.py:50",
          "launches": sv["launches"]["quant_matmul"],
-         "serve_spec_launches": sp["launches"]["quant_matmul"],
+         "serve_spec_launches": sp_launches["quant_matmul"],
+         "serve_glm4_launches": g4["launches"]["quant_matmul"],
          "solvers_launches": so["quant_matmul"], **q},
         {"name": "quant_matmul_stacked", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",

@@ -45,6 +45,7 @@ class ModelConfig:
     qk_norm: bool = False
     attn_softcap: float | None = None
     final_softcap: float | None = None
+    post_block_norm: bool = False  # gemma2: norms on the mixer and FFN outputs
     attn_q_chunk: int = 512
     input_kind: str = "tokens"
     tie_embeddings: bool = False
@@ -73,7 +74,7 @@ class ModelConfig:
         return self
 
 
-ARCHS = ["qwen3_0_6b"]
+ARCHS = ["qwen3_0_6b", "glm4_9b", "yi_34b", "gemma2_27b"]
 
 
 def _module(arch: str):

@@ -17,8 +17,9 @@ exact TV solver (tv, tv_iter), l0's hard-threshold CD and the DP (dp) run
 over float64 host values and return tensors on the problem's device;
 k-means (kmeans, kmeans_ls, and the seeds of mog and dtc) and mog's EM
 run in torch on that device. Pages freeze by the batched device solvers
-of iter_l1, kmeans_ls and kmeans; the reference's per-page host freeze
-for the other count methods is not ported.
+of iter_l1, kmeans_ls and kmeans; the other count methods freeze a page
+at a time through their host solves
+(``serving.kv_cache.quantize_page``), as in the reference.
 """
 from __future__ import annotations
 

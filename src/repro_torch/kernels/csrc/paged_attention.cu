@@ -11,8 +11,9 @@
 // the kv head (ordered (w, g): G = Hq/Hkv query heads share it, native
 // GQA) attend over the block-table row b, pages j < ceil(valid / bs). A
 // frozen page (blk_q[page] != 0) is read as packed 4-bit codes (byte i
-// holds code[i] in its low nibble and code[i + Dh/2] in its high nibble)
-// plus the page's two L-entry f32 codebooks and dequantized on chip as
+// holds code[i] in its low nibble and code[i + Dh/2] in its high nibble,
+// split at the true Dh) or one code a byte, plus the page's two L-entry
+// f32 codebooks and dequantized on chip as
 // cb[code], rounded to the pool's dtype exactly as the install step
 // materializes it; a hot page is read as its fp tile. Scores are f32,
 // scaled by 1/sqrt(Dh), optionally softcapped, masked per query row to
@@ -28,18 +29,22 @@
 //
 //   - Launch plan (repro_torch/kernels/paged_attention.py:plan, checked
 //     here): a kv head's keys are cut into splits of SPLIT_KEYS = 64 keys,
-//     split s covering pages [sP, sP + P), P = 64 / bs, fixed by page index
-//     alone. The query rows are cut into tiles of BM = 16 (one m16 tile).
+//     split s covering keys [64s, 64s + 64), fixed by key index alone,
+//     whatever the block size (1-128): each key maps to (page, slot) =
+//     (key / bs, key % bs), so a page may straddle two warps or two
+//     splits. The query rows are cut into tiles of BM = 16 (one m16 tile).
 //     The `cluster` (1-8) blocks of a (tile, kv head, sequence) form one
 //     thread-block cluster; rank r computes splits r, r + cluster, ... .
 //     A decode step of 4 x 272 tokens thus runs 160 working blocks, where
 //     one block per (tile, kv head, sequence) gave 32.
 //   - A block has 4 warps; warp w computes keys [16w, 16w + 16) of its
 //     split for the tile's 16 rows: its own page ids (block table, then
-//     the frozen flag), its own loads (one bulk async copy per key row,
-//     the fp row of a hot page or the code row of a frozen one, and the
-//     pages' codebooks, all completing on the warp's mbarrier: 16-byte
-//     cp.async requests spent most of a warp's chain being issued), its
+//     the frozen flag of each page its keys lie on), its own loads (one
+//     bulk async copy per key row, the fp row of a hot page or the code
+//     row of a frozen one, and the pages' codebooks, all completing on
+//     the warp's mbarrier: 16-byte cp.async requests spent most of a
+//     warp's chain being issued; a row whose bytes are not a multiple of
+//     16, as at Dh 24 packed, is copied by the warp's lanes instead), its
 //     own dequantization, in place in its slot of shared memory (codes to
 //     registers, then values over them; a warp whose pages are all hot
 //     skips it). All of a split's loads are in flight at once; for a
@@ -79,6 +84,18 @@
 // Pages past the tile's longest row are never read; keys past it inside
 // the last page are zeroed in shared memory, so stale or non-finite pool
 // rows cannot reach the products (0 * NaN).
+//
+// Head dims: the kernel is compiled for padded widths DH (multiples of 16
+// up to 128, of 32 up to 256), each serving every true Dh in (DH - 16 or
+// 32, DH]. Dh is a runtime argument: loads and stores cover Dh columns,
+// the columns [Dh, DH) of the Q and K/V tiles are zeroed in shared memory
+// (they add exactly 0 to every logit and to no output column), and the
+// scale is 1/sqrt(Dh). Rows and code rows whose bytes are not whole
+// 16-byte pieces, and codebooks that do not fit in shared memory beside
+// the tiles (256 entries over many small pages at a wide head_dim), take
+// general paths; at Dh 32, 64, 96 and 128 an exact kernel without them
+// serves the pools that need none (they cost qwen3-0.6B's decode step ~8%
+// when compiled in: PERF.md).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -95,8 +112,8 @@ constexpr int BM = 16;                   // query rows a tile (one m16 tile)
 constexpr int CHUNK = 16;                // keys a warp computes per split
 constexpr int SPLIT_KEYS = KG * CHUNK;   // keys a split
 constexpr int MAX_CLUSTER = 8;           // the portable cluster size
-constexpr int DH_MAX = 128;              // head_dim limit (Dh % 32 == 0)
-constexpr int BS_MAX = 32;               // block (page) size limit
+constexpr int DH_MAX = 256;              // head_dim limit
+constexpr int BS_MAX = 128;              // block (page) size limit
 constexpr int L_MAX = 256;               // codebook width limit (uint8)
 constexpr int SMEM_MAX = 232448;         // 227 KB, what a block may use
 constexpr int MAX_DEVICES = 64;
@@ -112,7 +129,9 @@ __host__ __device__ constexpr int align16(int x) { return (x + 15) & ~15; }
 //          dequantized over itself) and the codebooks of its pages; after
 //          the products the slot holds the warp's staged partial (16 rows
 //          of acc, then (m, l) per row);
-//   ids    the page id and frozen flag of each warp's pages;
+//   ids    the page id and frozen flag of each warp's pages, then each
+//          warp key's page (from the chunk's first) if it is a live key
+//          of a frozen page, else -1;
 //   rows   each tile row's element offset in q and out;
 //   red    the split partials pushed to this rank: slice r = rank r's, rpr
 //          rows of Dh floats; red_ml their (m, l) per row;
@@ -121,14 +140,33 @@ __host__ __device__ constexpr int align16(int x) { return (x + 15) & ~15; }
 //          rounds: ceil(BM / cluster) rows), and run_ml (M, L) per owned
 //          row (up to BM rows when fewer ranks own them).
 // Tile rows are padded by 16 bytes, so the 8 rows of an ldmatrix hit 32
-// banks; staged rows by 8 floats. The kernel is compiled per head_dim
-// (32, 64, 96, 128): its index arithmetic divides by constants only.
+// banks; staged rows by 8 floats. The kernel is compiled per padded
+// head_dim DH: its tile arithmetic divides by constants only.
 struct Layout {
   int slot;         // bytes a warp's slot
   int q, bars, ring, ids, rows, red, red_ml, coef, row_ml, run, run_ml,
       total;
   int rpr;          // rows an owner folds across rounds: ceil(BM / cluster)
+  int ppw;          // most pages a warp's 16 keys lie on
+  int cb_smem;      // the codebooks are staged in the slots
 };
+
+// the padded width a head_dim is served at
+__host__ __device__ constexpr int pad_dh(int Dh) {
+  return Dh <= 128 ? (Dh + 15) & ~15 : (Dh + 31) & ~31;
+}
+
+// The most pages 16 consecutive keys starting at a multiple of 16 lie on,
+// for pages of bs keys (the starts repeat with period bs).
+inline int pages_a_chunk(int bs) {
+  int most = 1;
+  for (int m = 0; m < bs; ++m) {
+    const int o = (CHUNK * m) % bs;
+    const int n = (o + CHUNK - 1) / bs + 1;
+    most = n > most ? n : most;
+  }
+  return most;
+}
 
 template <typename T>
 __host__ __device__ constexpr int tile_pitch(int Dh) {  // bytes a tile row
@@ -136,12 +174,13 @@ __host__ __device__ constexpr int tile_pitch(int Dh) {  // bytes a tile row
 }
 
 template <typename T>
-Layout make_layout(int Dh, int bs, int L, int cluster) {
+Layout make_layout(int Dh, int bs, int L, int cluster, bool cb_smem) {
   Layout s;
-  const int ppw = bs >= CHUNK ? 1 : CHUNK / bs;   // pages a warp's keys
+  s.ppw = pages_a_chunk(bs);
+  s.cb_smem = cb_smem;
   // K and V tiles, then the codebooks; or the staged partial
-  const int ring_need =
-      2 * CHUNK * tile_pitch<T>(Dh) + align16(2 * ppw * L * 4);
+  const int ring_need = 2 * CHUNK * tile_pitch<T>(Dh) +
+                        (s.cb_smem ? align16(2 * s.ppw * L * 4) : 0);
   const int stage_need = BM * (Dh + 8) * 4 + BM * 2 * 4;
   s.slot = align16(ring_need > stage_need ? ring_need : stage_need);
   s.rpr = (BM + cluster - 1) / cluster;
@@ -153,7 +192,7 @@ Layout make_layout(int Dh, int bs, int L, int cluster) {
   s.bars = align16(BM * tile_pitch<T>(Dh));
   s.ring = s.bars + align16(KG * 8);
   s.ids = s.ring + KG * s.slot;
-  s.rows = s.ids + KG * CHUNK * 2 * 4;
+  s.rows = s.ids + KG * CHUNK * 3 * 4;
   s.red = s.rows + BM * 8;
   s.red_ml = s.red + slices * Dh * 4;
   s.coef = align16(s.red_ml + slices * 2 * 4);
@@ -162,6 +201,14 @@ Layout make_layout(int Dh, int bs, int L, int cluster) {
   s.run_ml = s.run + s.rpr * Dh * 4;       // (M, L) of any owner's rows
   s.total = align16(s.run_ml + BM * 2 * 4);
   return s;
+}
+
+// the layout at padded width DH; without the staged codebooks if they do
+// not fit beside the tiles
+template <typename T>
+Layout make_layout(int DH, int bs, int L, int cluster) {
+  const Layout s = make_layout<T>(DH, bs, L, cluster, true);
+  return s.total <= SMEM_MAX ? s : make_layout<T>(DH, bs, L, cluster, false);
 }
 
 struct Params {
@@ -177,7 +224,6 @@ struct Params {
   const int* kv_valid_len;   // (B,)
   void* out;                 // (B, W, Hq, Dh) T
   int B, W, Hq, Hkv, Dh, nb, bs, mb, Dc, L;
-  int bs_shift;              // log2(bs)
   float scale, softcap;
   int quantized, packed, cluster;
   Layout lay;
@@ -327,18 +373,22 @@ __device__ __forceinline__ void apply(float4& A, float2 c, float4 a) {
 
 // ------------------------------------------------------------ loads
 
-// pages a warp's 16 keys lie on: 16 / bs, or 1
-__device__ __forceinline__ int pages_a_warp(const Params& p) {
-  return CHUNK >> min(p.bs_shift, 4);
+// The first page warp-chunk keys kbase .. kbase + 15 lie on, and how many.
+__device__ __forceinline__ int first_page(const Params& p, int kbase) {
+  return kbase / p.bs;
+}
+__device__ __forceinline__ int chunk_pages(const Params& p, int kbase) {
+  return (kbase + CHUNK - 1) / p.bs - kbase / p.bs + 1;
 }
 
 // The page id and frozen flag of each page warp `warp` reads in `split`
-// (lanes < pages a warp), into `ids`. Entries past the table row read as
-// page 0.
+// (lanes < the chunk's pages), into `ids`. Entries past the table row
+// read as page 0.
 __device__ __forceinline__ void load_ids(const Params& p, int* ids, int b,
                                          int split, int warp, int lane) {
-  const int j = ((split * SPLIT_KEYS + warp * CHUNK) >> p.bs_shift) + lane;
-  if (lane < pages_a_warp(p)) {
+  const int kbase = split * SPLIT_KEYS + warp * CHUNK;
+  const int j = first_page(p, kbase) + lane;
+  if (lane < chunk_pages(p, kbase)) {
     int page = 0, frozen = 0;
     if (j < p.mb) {
       page = __ldg(p.block_table + (size_t)b * p.mb + j);
@@ -351,89 +401,170 @@ __device__ __forceinline__ void load_ids(const Params& p, int* ids, int b,
   __syncwarp();
 }
 
-// The tile's query rows (zero past the kv head's W*G rows), by all
-// threads.
-template <typename T, int DH>
-__device__ __forceinline__ void issue_q(const Params& p, unsigned char* sq,
-                                       int b, int kvh, int row0,
-                                       int rows_here, int tid) {
-  constexpr int NCH = DH * (int)sizeof(T) / 16;   // 16-byte pieces a row
-  const int G = p.Hq / p.Hkv;
-  const unsigned char* q = static_cast<const unsigned char*>(p.q);
-  for (int i = tid; i < BM * NCH; i += kThreads) {
-    const int r = i / NCH, c = i - r * NCH;
-    unsigned char* dst = sq + r * tile_pitch<T>(DH) + c * 16;
-    if (r < rows_here) {
-      const int w = (row0 + r) / G, g = (row0 + r) - w * G;
-      cp_async16(dst, q + (((size_t)(b * p.W + w) * p.Hq + kvh * G + g) *
-                           DH) * sizeof(T) + c * 16);
-    } else {
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-    }
+// `bytes` bytes from global `src` to shared `dst` by plain loads, in the
+// widest unit the size allows (a row of a tensor whose rows hold `bytes`
+// bytes starts at a multiple of that unit); units i0, i0 + step, ...
+__device__ __forceinline__ void copy_units(unsigned char* dst,
+                                           const unsigned char* src,
+                                           int bytes, int i0, int step) {
+  const int unit = min(16, bytes & -bytes);
+  const int n = bytes / unit;
+  switch (unit) {
+    case 16:
+      for (int i = i0; i < n; i += step)
+        reinterpret_cast<uint4*>(dst)[i] =
+            __ldg(reinterpret_cast<const uint4*>(src) + i);
+      break;
+    case 8:
+      for (int i = i0; i < n; i += step)
+        reinterpret_cast<uint2*>(dst)[i] =
+            __ldg(reinterpret_cast<const uint2*>(src) + i);
+      break;
+    case 4:
+      for (int i = i0; i < n; i += step)
+        reinterpret_cast<unsigned int*>(dst)[i] =
+            __ldg(reinterpret_cast<const unsigned int*>(src) + i);
+      break;
+    case 2:
+      for (int i = i0; i < n; i += step)
+        reinterpret_cast<unsigned short*>(dst)[i] =
+            __ldg(reinterpret_cast<const unsigned short*>(src) + i);
+      break;
+    default:
+      for (int i = i0; i < n; i += step) dst[i] = __ldg(src + i);
   }
 }
 
-// Warp `warp`'s keys kbase .. kbase + 15 into its slot, as bulk async
-// copies completing on the warp's mbarrier `bar`: lane l copies key l % 16
-// of K (l < 16) or V, a whole fp row of a hot page or code row of a frozen
-// one (at the start of the tile row); the lanes below 2 x pages a warp copy
-// the frozen pages' codebooks. Keys at or past n_keys are zeroed (never
-// read). Codebooks of L % 4 != 0 entries go by 4-byte cp.async.
-template <typename T, int DH>
+__device__ __forceinline__ void zero1(unsigned char* row, int e, float) {
+  reinterpret_cast<float*>(row)[e] = 0.f;
+}
+__device__ __forceinline__ void zero1(unsigned char* row, int e,
+                                      __nv_bfloat16) {
+  reinterpret_cast<unsigned short*>(row)[e] = 0;
+}
+
+// The tile's query rows (zero past the kv head's W*G rows, and in the
+// columns [Dh, DH)), by all threads: 16-byte async copies when a row's
+// bytes allow them, else plain loads (GEN: the kernel serves any Dh; else
+// Dh == DH and every row is whole 16-byte pieces).
+template <typename T, int DH, bool GEN>
+__device__ __forceinline__ void issue_q(const Params& p, unsigned char* sq,
+                                       int b, int kvh, int row0,
+                                       int rows_here, int tid) {
+  constexpr int PITCH = tile_pitch<T>(DH);
+  constexpr int PER = DH * (int)sizeof(T) / 16;   // 16-byte pieces a row
+  const int G = p.Hq / p.Hkv, RB = p.Dh * (int)sizeof(T);
+  const unsigned char* q = static_cast<const unsigned char*>(p.q);
+  auto src_row = [&](int r) {
+    const int w = (row0 + r) / G, g = (row0 + r) - w * G;
+    return q + ((size_t)(b * p.W + w) * p.Hq + kvh * G + g) * RB;
+  };
+  if (!GEN || RB % 16 == 0) {
+    const int nch = GEN ? RB / 16 : PER;
+    for (int i = tid; i < rows_here * nch; i += kThreads) {
+      const int r = i / nch, c = i - r * nch;
+      cp_async16(sq + r * PITCH + c * 16, src_row(r) + c * 16);
+    }
+  } else {
+    for (int r = tid >> 5; r < rows_here; r += KG)
+      copy_units(sq + r * PITCH, src_row(r), RB, tid & 31, 32);
+  }
+  for (int i = tid; i < (BM - rows_here) * PER; i += kThreads) {
+    const int r = rows_here + i / PER, c = i % PER;
+    *reinterpret_cast<uint4*>(sq + r * PITCH + c * 16) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+  if (!GEN) return;
+  const int padw = DH - p.Dh;
+  for (int i = tid; i < rows_here * padw; i += kThreads)
+    zero1(sq + (i / padw) * PITCH, p.Dh + i % padw, T());
+}
+
+// Warp `warp`'s keys kbase .. kbase + 15 into its slot: lane l takes key
+// l % 16 of K (l < 16) or V, a whole fp row of a hot page or code row of
+// a frozen one (at the start of the tile row). Rows whose bytes are a
+// multiple of 16 go as bulk async copies completing on the warp's
+// mbarrier `bar`; the others are copied by the warp's lanes, one row at a
+// time (only GEN kernels have such rows). With staged codebooks, the lanes
+// below 2 x the chunk's pages copy the frozen pages' codebooks (by 4-byte
+// cp.async when L % 4 != 0). Keys at or past n_keys are zeroed (never
+// read).
+template <typename T, int DH, bool GEN>
 __device__ __forceinline__ void issue_chunk(const Params& p,
                                             unsigned char* slot,
-                                            uint64_t* bar, const int* ids,
+                                            uint64_t* bar, int* ids,
                                             int warp, int kvh, int kbase,
                                             int n_keys, int lane) {
   constexpr int PITCH = tile_pitch<T>(DH), TILE = CHUNK * PITCH;
-  constexpr int ROW = DH * (int)sizeof(T);        // bytes of an fp row
+  const int ROW = p.Dh * (int)sizeof(T);          // bytes of an fp row
   const int* page_of = ids + warp * CHUNK;
   const int* frozen_of = ids + (KG + warp) * CHUNK;
+  const int j0 = first_page(p, kbase), np = chunk_pages(p, kbase);
   const int kv = lane >> 4, kk = lane & 15, key = kbase + kk;
-  const int pl = kk >> p.bs_shift;                // 0 when bs >= 16
+  const int jk = key / p.bs, pl = jk - j0;
   const bool live = key < n_keys, frozen = live && frozen_of[pl];
   const int bytes = live ? (frozen ? p.Dc : ROW) : 0;
-  // the warp's pages' codebooks: lane j < 2 ppw copies page j % ppw's K
-  // (j < ppw) or V codebook
-  const int ppw = pages_a_warp(p), cpl = lane % ppw;
+  const bool bulk = bytes > 0 && (!GEN || bytes % 16 == 0);
+  if (lane < CHUNK) ids[(2 * KG + warp) * CHUNK + kk] = frozen ? pl : -1;
+  // the chunk's pages' codebooks: lane c < 2 np copies page c % np's K
+  // (c < np) or V codebook, if a key of that page in the chunk is live
+  const int cpl = lane % np;
   const bool cb_bulk = (p.L & 3) == 0;
-  const bool cb_live = lane < 2 * ppw && frozen_of[cpl] &&
-                       kbase + cpl * p.bs < n_keys;
-  int total = bytes + (cb_live && cb_bulk ? p.L * 4 : 0);
+  const bool cb_live = p.lay.cb_smem && lane < 2 * np && frozen_of[cpl] &&
+                       max(kbase, (j0 + cpl) * p.bs) < n_keys;
+  int total = (bulk ? bytes : 0) + (cb_live && cb_bulk ? p.L * 4 : 0);
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
     total += __shfl_xor_sync(0xffffffffu, total, o);
   if (lane == 0) mbar_expect(bar, (uint32_t)total);
   __syncwarp();
   unsigned char* dst = slot + kv * TILE + kk * PITCH;
+  const unsigned char* src = nullptr;
   if (bytes) {
-    const size_t row =
-        (((size_t)page_of[pl] << p.bs_shift) + (key & (p.bs - 1))) * p.Hkv +
-        kvh;
-    const void* src =
-        frozen ? static_cast<const void*>((kv ? p.v_codes : p.k_codes) +
-                                          row * p.Dc)
-               : static_cast<const void*>(
-                     static_cast<const unsigned char*>(kv ? p.v_fp
-                                                          : p.k_fp) +
-                     row * ROW);
-    bulk_copy(dst, src, (uint32_t)bytes, bar);
+    const size_t row = ((size_t)page_of[pl] * p.bs + (key - jk * p.bs)) *
+                           p.Hkv + kvh;
+    src = frozen ? (kv ? p.v_codes : p.k_codes) + row * p.Dc
+                 : static_cast<const unsigned char*>(kv ? p.v_fp : p.k_fp) +
+                       row * ROW;
+    if (bulk) bulk_copy(dst, src, (uint32_t)bytes, bar);
   } else {
 #pragma unroll
-    for (int c = 0; c < ROW / 16; ++c)
+    for (int c = 0; c < DH * (int)sizeof(T) / 16; ++c)
       *reinterpret_cast<uint4*>(dst + c * 16) = make_uint4(0u, 0u, 0u, 0u);
   }
   if (cb_live) {
-    const int ckv = lane / ppw;
+    const int ckv = lane / np;
     float* cb = reinterpret_cast<float*>(slot + 2 * TILE) +
-                (ckv * ppw + cpl) * p.L;
-    const float* src = (ckv ? p.v_cb : p.k_cb) + (size_t)page_of[cpl] * p.L;
+                (ckv * p.lay.ppw + cpl) * p.L;
+    const float* csrc = (ckv ? p.v_cb : p.k_cb) + (size_t)page_of[cpl] * p.L;
     if (cb_bulk) {
-      bulk_copy(cb, src, (uint32_t)(p.L * 4), bar);
+      bulk_copy(cb, csrc, (uint32_t)(p.L * 4), bar);
     } else {
-      for (int e = 0; e < p.L; ++e) cp_async4(cb + e, src + e);
+      for (int e = 0; e < p.L; ++e) cp_async4(cb + e, csrc + e);
     }
   }
+  if (!GEN) return;
+  // the rows no bulk copy can take, by the warp's lanes
+  unsigned slow = __ballot_sync(0xffffffffu, bytes > 0 && !bulk);
+  const unsigned long long sp = reinterpret_cast<unsigned long long>(src);
+  while (slow) {
+    const int r = __ffs(slow) - 1;
+    slow &= slow - 1;
+    const unsigned char* s = reinterpret_cast<const unsigned char*>(
+        __shfl_sync(0xffffffffu, sp, r));
+    const int n = __shfl_sync(0xffffffffu, bytes, r);
+    copy_units(slot + (r >> 4) * TILE + (r & 15) * PITCH, s, n, lane, 32);
+  }
+}
+
+// the columns [Dh, DH) of the warp's 32 tile rows, zeroed
+template <typename T, int DH>
+__device__ __forceinline__ void zero_pad(const Params& p,
+                                         unsigned char* slot, int lane) {
+  constexpr int PITCH = tile_pitch<T>(DH);
+  const int padw = DH - p.Dh;
+  for (int i = lane; i < 2 * CHUNK * padw; i += 32)
+    zero1(slot + (i / padw) * PITCH, p.Dh + i % padw, T());
 }
 
 // eight f32 values into a tile row as T
@@ -453,34 +584,41 @@ __device__ __forceinline__ void store8(unsigned char* dst, const float* v,
   }
   *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
 }
+// one f32 value into element e of a tile row as T
+__device__ __forceinline__ void store1(unsigned char* row, int e, float v,
+                                       float) {
+  reinterpret_cast<float*>(row)[e] = v;
+}
+__device__ __forceinline__ void store1(unsigned char* row, int e, float v,
+                                       __nv_bfloat16) {
+  reinterpret_cast<__nv_bfloat16*>(row)[e] = __float2bfloat16_rn(v);
+}
 
 // The frozen, live keys of the warp's slot: code groups (8 bytes) into
 // registers, then cb[code] rounded to T over them. Packed: byte i of a row
-// gives dims i (low nibble) and i + Dh/2 (high). A warp whose pages are
-// all hot has nothing to do.
-template <typename T, int DH, bool PACKED>
-__device__ __forceinline__ void dequant_chunk(const Params& p,
-                                              unsigned char* slot,
-                                              const int* ids, int warp,
-                                              int kbase, int n_keys,
-                                              int lane) {
+// gives dims i (low nibble) and i + Dh/2 (high), Dh the true head_dim.
+// The codebooks are read from the slot when staged there (CB_SMEM), else
+// through L1. A key's page comes from the chunk's key table in `ids`.
+template <typename T, int DH, bool PACKED, bool CB_SMEM, bool GEN>
+__device__ __forceinline__ void dequant_keys(const Params& p,
+                                             unsigned char* slot,
+                                             const int* ids, int warp,
+                                             int lane) {
   constexpr int PITCH = tile_pitch<T>(DH), TILE = CHUNK * PITCH;
-  constexpr int NG = (PACKED ? DH / 2 : DH) / 8;  // 8-byte groups a row
-  constexpr int ITEMS = 2 * CHUNK * NG, PER = (ITEMS + 31) / 32;
-  const int* frozen_of = ids + (KG + warp) * CHUNK;
-  const int ppw = pages_a_warp(p);
-  bool any = false;
-  for (int pl = 0; pl < ppw; ++pl) any |= frozen_of[pl] != 0;
-  if (!any) return;
-  const int L = p.L;
-  const float* cb = reinterpret_cast<const float*>(slot + 2 * TILE);
+  constexpr int NGM = ((PACKED ? DH / 2 : DH) + 7) / 8;  // groups a row
+  constexpr int ITEMS = 2 * CHUNK * NGM, PER = (ITEMS + 31) / 32;
+  const int* page_of = ids + warp * CHUNK;
+  const int* key_page = ids + (2 * KG + warp) * CHUNK;
+  const int L = p.L, Dc = p.Dc, NG = (Dc + 7) / 8;
+  const bool whole = !GEN || Dc % 8 == 0;   // every group full, aligned
+  const float* cbs = reinterpret_cast<const float*>(slot + 2 * TILE);
   uint2 code[PER];
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
     const int it = lane + 32 * i;
-    const int kv = it / (CHUNK * NG), kk = (it / NG) % CHUNK;
-    const int j = it % NG;
-    if (it < ITEMS && frozen_of[kk >> p.bs_shift] && kbase + kk < n_keys)
+    const int kv = it / (CHUNK * NGM), kk = (it / NGM) % CHUNK;
+    const int j = it % NGM;
+    if (it < ITEMS && j < NG && key_page[kk] >= 0)
       code[i] = *reinterpret_cast<const uint2*>(slot + kv * TILE +
                                                 kk * PITCH + j * 8);
   }
@@ -488,23 +626,54 @@ __device__ __forceinline__ void dequant_chunk(const Params& p,
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
     const int it = lane + 32 * i;
-    const int kv = it / (CHUNK * NG), kk = (it / NG) % CHUNK;
-    const int j = it % NG, pl = kk >> p.bs_shift;
-    if (it < ITEMS && frozen_of[pl] && kbase + kk < n_keys) {
-      const float* t = cb + (kv * ppw + pl) * L;
-      unsigned char* row = slot + kv * TILE + kk * PITCH;
-      float lo[8], hi[8];
+    const int kv = it / (CHUNK * NGM), kk = (it / NGM) % CHUNK;
+    const int j = it % NGM, pl = key_page[kk];
+    if (!(it < ITEMS && j < NG && pl >= 0)) continue;
+    const float* t = CB_SMEM
+        ? cbs + (kv * p.lay.ppw + pl) * L
+        : (kv ? p.v_cb : p.k_cb) + (size_t)page_of[pl] * L;
+    unsigned char* row = slot + kv * TILE + kk * PITCH;
+    float lo[8], hi[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      lo[e] = hi[e] = 0.f;
+      if (!whole && j * 8 + e >= Dc) continue;
+      const uint32_t byte =
+          ((e < 4 ? code[i].x : code[i].y) >> (8 * (e & 3))) & 0xFFu;
+      const uint32_t c0 = PACKED ? (byte & 0xFu) : byte;
+      lo[e] = CB_SMEM ? t[c0] : __ldg(t + c0);
+      if (PACKED) hi[e] = CB_SMEM ? t[byte >> 4] : __ldg(t + (byte >> 4));
+    }
+    if (whole) {
+      store8(row + j * 8 * (int)sizeof(T), lo, T());
+      if (PACKED) store8(row + (Dc + j * 8) * (int)sizeof(T), hi, T());
+    } else {
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        const uint32_t byte =
-            ((e < 4 ? code[i].x : code[i].y) >> (8 * (e & 3))) & 0xFFu;
-        lo[e] = t[PACKED ? (byte & 0xFu) : byte];
-        hi[e] = t[byte >> 4];
+        if (j * 8 + e >= Dc) break;
+        store1(row, j * 8 + e, lo[e], T());
+        if (PACKED) store1(row, Dc + j * 8 + e, hi[e], T());
       }
-      store8(row + j * 8 * (int)sizeof(T), lo, T());
-      if (PACKED) store8(row + (DH / 2 + j * 8) * (int)sizeof(T), hi, T());
     }
   }
+}
+
+// The warp's frozen keys dequantized in place; a warp whose pages are all
+// hot has nothing to do.
+template <typename T, int DH, bool PACKED, bool GEN>
+__device__ __forceinline__ void dequant_chunk(const Params& p,
+                                              unsigned char* slot,
+                                              const int* ids, int warp,
+                                              int kbase, int lane) {
+  const int* frozen_of = ids + (KG + warp) * CHUNK;
+  const int np = chunk_pages(p, kbase);
+  bool any = false;
+  for (int pl = 0; pl < np; ++pl) any |= frozen_of[pl] != 0;
+  if (!any) return;
+  if (!GEN || p.lay.cb_smem)
+    dequant_keys<T, DH, PACKED, true, GEN>(p, slot, ids, warp, lane);
+  else
+    dequant_keys<T, DH, PACKED, false, GEN>(p, slot, ids, warp, lane);
 }
 
 // ------------------------------------------------------------ products
@@ -669,8 +838,9 @@ __device__ __forceinline__ void chunk_partial(const Params& p,
   }
 }
 
-// four output values of a tile row (element offset `off` in out, dims d
-// .. d + 3): acc / max(l, 1e-20) in T
+// four output values of a tile row (element offset `off` in out of dim
+// 0, dims d .. d + 3): acc / max(l, 1e-20) in T, the dims below the true
+// Dh only (one vector store when Dh % 4 == 0)
 __device__ __forceinline__ void store4(float* o, float4 v) {
   *reinterpret_cast<float4*>(o) = v;
 }
@@ -684,18 +854,35 @@ __device__ __forceinline__ void store4(__nv_bfloat16* o, float4 v) {
   *reinterpret_cast<uint2*>(o) = make_uint2(lo, hi);
 }
 
-template <typename T>
+__device__ __forceinline__ void store1(float* o, float v) { *o = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* o, float v) {
+  *o = __float2bfloat16_rn(v);
+}
+
+template <typename T, bool GEN>
 __device__ __forceinline__ void store_out(const Params& p, long long off,
-                                          float4 A, float L) {
+                                          int d, float4 A, float L) {
+  if (GEN && d >= p.Dh) return;
   const float inv = fmaxf(L, 1e-20f);
-  store4(static_cast<T*>(p.out) + off,
-         make_float4(A.x / inv, A.y / inv, A.z / inv, A.w / inv));
+  const float4 v = make_float4(A.x / inv, A.y / inv, A.z / inv, A.w / inv);
+  T* o = static_cast<T*>(p.out) + off + d;
+  if (!GEN || (p.Dh & 3) == 0) {
+    store4(o, v);
+  } else {
+    const float e[4] = {v.x, v.y, v.z, v.w};
+    for (int i = 0; i < 4 && d + i < p.Dh; ++i) store1(o + i, e[i]);
+  }
 }
 
 // Block (rank r of its cluster) computes splits r, r + cluster, ... of
 // tile blockIdx.x / cluster of kv head blockIdx.y of sequence blockIdx.z.
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads, 4)
+// Widths above 128 hold twice the accumulators; they take up to 255
+// registers (two blocks an SM). GEN kernels serve any head_dim up to DH
+// and any row and code widths; the others (the widths 32, 64, 96, 128)
+// only Dh == DH with whole 16-byte rows and codes and staged codebooks,
+// without the general paths' code and registers (launch_dh picks).
+template <typename T, int DH, bool GEN>
+__global__ void __launch_bounds__(kThreads, DH > 128 ? 2 : 4)
 paged_attention_kernel(const __grid_constant__ Params p) {
   constexpr int N4 = DH / 4, SP = DH + 8;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -749,15 +936,15 @@ paged_attention_kernel(const __grid_constant__ Params p) {
   }
   if (tid < rows_here) {                    // read after several barriers
     const int w = (row0 + tid) / G, g = row0 + tid - w * G;
-    row_off[tid] = ((long long)(b * p.W + w) * p.Hq + kvh * G + g) * DH;
+    row_off[tid] = ((long long)(b * p.W + w) * p.Hq + kvh * G + g) * p.Dh;
   }
-  issue_q<T, DH>(p, sq, b, kvh, row0, rows_here, tid);
+  issue_q<T, DH, GEN>(p, sq, b, kvh, row0, rows_here, tid);
   if (lane == 0) {
     mbar_init(bar);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncwarp();
-  issue_chunk<T, DH>(p, slot, bar, ids, warp, kvh,
+  issue_chunk<T, DH, GEN>(p, slot, bar, ids, warp, kvh,
                      rank * SPLIT_KEYS + warp * CHUNK, n_keys, lane);
 
   for (int t = 0; t < R; ++t) {
@@ -769,9 +956,10 @@ paged_attention_kernel(const __grid_constant__ Params p) {
       mbar_wait(bar, t & 1);
       __syncthreads();                      // Q and the slots have landed
       if (p.packed)
-        dequant_chunk<T, DH, true>(p, slot, ids, warp, kbase, n_keys, lane);
+        dequant_chunk<T, DH, true, GEN>(p, slot, ids, warp, kbase, lane);
       else
-        dequant_chunk<T, DH, false>(p, slot, ids, warp, kbase, n_keys, lane);
+        dequant_chunk<T, DH, false, GEN>(p, slot, ids, warp, kbase, lane);
+      if (GEN && DH != p.Dh) zero_pad<T, DH>(p, slot, lane);
       __syncwarp();
       const int lim[2] = {row_lim[0] - kbase, row_lim[1] - kbase};
       chunk_partial<T, DH>(p, sq, slot, lim, rows_here, lane);
@@ -799,7 +987,7 @@ paged_attention_kernel(const __grid_constant__ Params p) {
           apply(A, coef[r * KG + w],
                 *reinterpret_cast<const float4*>(staged(w) + r * SP + d));
         if (!exchange) {
-          store_out<T>(p, row_off[r] + d, A, row_ml[r].y);
+          store_out<T, GEN>(p, row_off[r], d, A, row_ml[r].y);
         } else {                            // to the row's owner, slice rank
           cg::cluster_group cluster = cg::this_cluster();
           const int owner = r / rpr, slice = rank * rpr + r - owner * rpr;
@@ -815,7 +1003,7 @@ paged_attention_kernel(const __grid_constant__ Params p) {
     if (next < ns) {                        // the next round's loads fly
       load_ids(p, ids, b, next, warp, lane);  // during the merge
       fence_proxy_async();                  // the slot's last generic writes
-      issue_chunk<T, DH>(p, slot, bar, ids, warp, kvh,
+      issue_chunk<T, DH, GEN>(p, slot, bar, ids, warp, kvh,
                          next * SPLIT_KEYS + warp * CHUNK, n_keys, lane);
     }
     cluster_arrive();
@@ -837,7 +1025,7 @@ paged_attention_kernel(const __grid_constant__ Params p) {
       for (int s = 0; s < CL && t * CL + s < ns; ++s)
         apply(A, coef[lr * CL + s], red[(s * rpr + lr) * N4 + d / 4]);
       if (t + 1 == R)
-        store_out<T>(p, row_off[r] + d, A, run_ml[lr].y);
+        store_out<T, GEN>(p, row_off[r], d, A, run_ml[lr].y);
       else
         run[e] = A;
     }
@@ -845,11 +1033,9 @@ paged_attention_kernel(const __grid_constant__ Params p) {
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool GEN>
 int launch(Params& p, int tiles, cudaStream_t s) {
-  p.lay = make_layout<T>(DH, p.bs, p.L, p.cluster);
-  if (p.lay.total > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  auto kern = paged_attention_kernel<T, DH>;
+  auto kern = paged_attention_kernel<T, DH, GEN>;
   // the opt-in to more than 48 KB, once per device at the most a block may
   // use: not on a call's path
   static bool opted_in[MAX_DEVICES] = {};
@@ -882,28 +1068,50 @@ int launch(Params& p, int tiles, cudaStream_t s) {
 
 template <typename T>
 int launch_dh(Params& p, int tiles, cudaStream_t s) {
-  switch (p.Dh) {
-    case 32: return launch<T, 32>(p, tiles, s);
-    case 64: return launch<T, 64>(p, tiles, s);
-    case 96: return launch<T, 96>(p, tiles, s);
-    case 128: return launch<T, 128>(p, tiles, s);
+  p.lay = make_layout<T>(pad_dh(p.Dh), p.bs, p.L, p.cluster);
+  if (p.lay.total > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  // the exact kernels take the shapes that need nothing general: whole
+  // 16-byte rows and codes, staged codebooks
+  const bool exact = p.Dh % 32 == 0 && p.Dh <= 128 &&
+                     (!p.quantized || (p.Dc % 16 == 0 && p.lay.cb_smem));
+  if (exact) {
+    switch (p.Dh) {
+      case 32: return launch<T, 32, false>(p, tiles, s);
+      case 64: return launch<T, 64, false>(p, tiles, s);
+      case 96: return launch<T, 96, false>(p, tiles, s);
+      case 128: return launch<T, 128, false>(p, tiles, s);
+    }
+  }
+  switch (pad_dh(p.Dh)) {
+    case 16: return launch<T, 16, true>(p, tiles, s);
+    case 32: return launch<T, 32, true>(p, tiles, s);
+    case 48: return launch<T, 48, true>(p, tiles, s);
+    case 64: return launch<T, 64, true>(p, tiles, s);
+    case 80: return launch<T, 80, true>(p, tiles, s);
+    case 96: return launch<T, 96, true>(p, tiles, s);
+    case 112: return launch<T, 112, true>(p, tiles, s);
+    case 128: return launch<T, 128, true>(p, tiles, s);
+    case 160: return launch<T, 160, true>(p, tiles, s);
+    case 192: return launch<T, 192, true>(p, tiles, s);
+    case 224: return launch<T, 224, true>(p, tiles, s);
+    case 256: return launch<T, 256, true>(p, tiles, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-bool takes(int Dh, int bs, int L, int split_pages, int tile_rows,
+bool takes(int Dh, int bs, int L, int split_keys, int tile_rows,
            int cluster) {
-  return Dh > 0 && Dh <= DH_MAX && Dh % 32 == 0 && bs > 0 && bs <= BS_MAX &&
-         (bs & (bs - 1)) == 0 && L > 0 && L <= L_MAX &&
-         split_pages * bs == SPLIT_KEYS && tile_rows == BM && cluster >= 1 &&
-         cluster <= MAX_CLUSTER;
+  return Dh > 0 && Dh <= DH_MAX && bs > 0 && bs <= BS_MAX && L > 0 &&
+         L <= L_MAX && split_keys == SPLIT_KEYS && tile_rows == BM &&
+         cluster >= 1 && cluster <= MAX_CLUSTER;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. split_pages, tile_rows and cluster are
+// dtype: 0 = float32, 1 = bfloat16. split_keys, tile_rows and cluster are
 // the launch plan (repro_torch/kernels/paged_attention.py:plan): the
-// kernel takes split_pages * bs == 64, tile_rows == 16, cluster 1-8.
+// kernel takes split_keys == 64, tile_rows == 16, cluster 1-8; head_dim
+// 1-256 (even when packed), blocks of 1-128 keys, codebooks of 1-256.
 // Returns cudaGetLastError() after the launch (0 = launched);
 // cudaErrorInvalidValue for shapes or a plan the kernel does not take.
 extern "C" int paged_attention_launch(
@@ -912,10 +1120,11 @@ extern "C" int paged_attention_launch(
     const void* blk_q, const void* block_table, const void* kv_valid_len,
     void* out, int B, int W, int Hq, int Hkv, int Dh, int nb, int bs, int mb,
     int Dc, int L, float scale, float softcap, int quantized, int packed,
-    int split_pages, int tile_rows, int cluster, int dtype, void* stream) {
-  if (!takes(Dh, bs, L, split_pages, tile_rows, cluster) || B <= 0 ||
+    int split_keys, int tile_rows, int cluster, int dtype, void* stream) {
+  if (!takes(Dh, bs, L, split_keys, tile_rows, cluster) || B <= 0 ||
       W <= 0 || Hkv <= 0 || Hq % Hkv != 0 || nb <= 0 || mb <= 0 ||
       B > 65535 || Hkv > 65535 ||
+      (quantized && packed && Dh % 2 != 0) ||
       (quantized && Dc != (packed ? Dh / 2 : Dh)))
     return (int)cudaErrorInvalidValue;
   Params p;
@@ -932,7 +1141,6 @@ extern "C" int paged_attention_launch(
   p.out = out;
   p.B = B; p.W = W; p.Hq = Hq; p.Hkv = Hkv; p.Dh = Dh; p.nb = nb; p.bs = bs;
   p.mb = mb; p.Dc = quantized ? Dc : Dh; p.L = quantized ? L : 1;
-  p.bs_shift = __builtin_ctz((unsigned)bs);
   p.scale = scale;
   p.softcap = softcap;
   p.quantized = quantized;
@@ -947,10 +1155,11 @@ extern "C" int paged_attention_launch(
 
 // Shared-memory bytes of a block under the plan (what a launch uses), or
 // -1 for shapes or a plan the kernel does not take.
-extern "C" int paged_attention_smem(int Dh, int bs, int L, int split_pages,
+extern "C" int paged_attention_smem(int Dh, int bs, int L, int split_keys,
                                     int tile_rows, int cluster, int dtype) {
-  if (!takes(Dh, bs, L, split_pages, tile_rows, cluster)) return -1;
-  if (dtype == 0) return make_layout<float>(Dh, bs, L, cluster).total;
-  if (dtype == 1) return make_layout<__nv_bfloat16>(Dh, bs, L, cluster).total;
+  if (!takes(Dh, bs, L, split_keys, tile_rows, cluster)) return -1;
+  const int DH = pad_dh(Dh);
+  if (dtype == 0) return make_layout<float>(DH, bs, L, cluster).total;
+  if (dtype == 1) return make_layout<__nv_bfloat16>(DH, bs, L, cluster).total;
   return -1;
 }

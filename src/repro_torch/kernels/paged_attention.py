@@ -8,11 +8,16 @@ no fallback: a build or launch failure raises. ``paged_decode_attention.
 launches`` counts kernel launches (never plain-version calls).
 
 ``plan(bs, Dh, dtype)`` is the kernel's launch plan: a kv head's keys cut
-into splits of ``split_pages`` pages (64 keys) at fixed page multiples,
-query rows into tiles of 16, the splits of a tile over a thread-block
-cluster. It never sees B, W, G, the valid lengths or the table width, so a
-row's result does not depend on what shares its call. The kernel checks
-the plan it is given against its own constants.
+into splits of ``split_keys`` (64) keys at fixed key multiples, whatever
+the block size, query rows into tiles of 16, the splits of a tile over a
+thread-block cluster. It never sees B, W, G, the valid lengths or the
+table width, so a row's result does not depend on what shares its call.
+The kernel checks the plan it is given against its own constants.
+
+The kernel takes every head_dim from 1 to 256 (even ones on packed
+pools: ``pack4`` splits a row at its true half), every block size from 1
+to 128 and codebooks of up to 16 entries packed or 256 unpacked
+(``shape_refusal``).
 
 ``pack4``/``unpack4`` keep the reference's split-half nibble layout byte
 for byte (byte i holds code[i] low, code[i + D/2] high), so pools convert
@@ -39,7 +44,7 @@ __all__ = ["BIG_NEG", "PaPlan", "kernel_smem", "pack4", "unpack4",
            "modeled_prefill_hbm_bytes_per_token"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_BS_MAX, _DH_MAX, _L_MAX = 32, 128, 256     # the kernel's static limits
+_BS_MAX, _DH_MAX, _L_MAX = 128, 256, 256    # the kernel's static limits
 # the kernel's constants (csrc/paged_attention.cu)
 SPLIT_KEYS = 64         # keys a split: 4 warps x 16
 TILE_ROWS = 16          # query rows a tile (one m16 tile)
@@ -48,18 +53,19 @@ CLUSTER = 8             # blocks of a tile's cluster (the portable maximum)
 
 class PaPlan(NamedTuple):
     """How the kernel cuts one kv head's work: keys into splits of
-    ``split_pages`` pages, split s covering pages [s P, s P + P); query
-    rows into tiles of ``tile_rows``; the splits of a tile over a cluster
-    of ``cluster`` blocks, rank r computing splits r, r + cluster, ...,
-    their partials folded in split order."""
-    split_pages: int
+    ``split_keys`` keys, split s covering keys [s S, s S + S) (a page may
+    straddle two splits); query rows into tiles of ``tile_rows``; the
+    splits of a tile over a cluster of ``cluster`` blocks, rank r
+    computing splits r, r + cluster, ..., their partials folded in split
+    order."""
+    split_keys: int
     tile_rows: int
     cluster: int
 
-    def split_ranges(self, n_pages: int) -> list[tuple[int, int]]:
-        """The page ranges [j0, j1) of the splits that cover n_pages."""
-        P = self.split_pages
-        return [(j, min(j + P, n_pages)) for j in range(0, n_pages, P)]
+    def split_ranges(self, n_keys: int) -> list[tuple[int, int]]:
+        """The key ranges [k0, k1) of the splits that cover n_keys."""
+        S = self.split_keys
+        return [(k, min(k + S, n_keys)) for k in range(0, n_keys, S)]
 
     def blocks(self, B: int, rows: int, Hkv: int) -> int:
         """Blocks launched for B sequences of ``rows`` query rows (W * G) a
@@ -70,11 +76,12 @@ class PaPlan(NamedTuple):
 @functools.cache
 def plan(bs: int, Dh: int, dtype: torch.dtype) -> PaPlan:
     """The launch plan for pages of ``bs`` keys: 64 keys a split (the 4
-    warps of a block take 16 each), tiles of 16 rows, clusters of 8. Dh
-    and the dtype are the other inputs a plan may read; today's plan reads
-    neither (they size only the block's shared memory, ``kernel_smem``,
-    which fits at every plan)."""
-    return PaPlan(max(1, SPLIT_KEYS // bs), TILE_ROWS, CLUSTER)
+    warps of a block take 16 each), tiles of 16 rows, clusters of 8. bs,
+    Dh and the dtype are the inputs a plan may read; today's plan reads
+    none of them (they size only the block's shared memory,
+    ``kernel_smem``, which fits at every plan)."""
+    del bs, Dh, dtype
+    return PaPlan(SPLIT_KEYS, TILE_ROWS, CLUSTER)
 
 
 def pack4(codes: torch.Tensor) -> torch.Tensor:
@@ -105,7 +112,7 @@ def kernel_smem(pl: PaPlan, bs: int, Dh: int, L: int,
     """Shared-memory bytes of a block of the kernel under plan ``pl``, as
     the kernel lays them out (builds the kernel)."""
     smem = build.load("paged_attention").paged_attention_smem(
-        Dh, bs, L, pl.split_pages, pl.tile_rows, pl.cluster,
+        Dh, bs, L, pl.split_keys, pl.tile_rows, pl.cluster,
         _DTYPE_CODE[dtype])
     if smem < 0:
         raise ValueError(f"kernel_smem: no layout for bs={bs}, Dh={Dh}, "
@@ -117,16 +124,21 @@ def shape_refusal(head_dim: int, block_size: int,
                   num_values: int | None = None, *,
                   packed: bool = True) -> str | None:
     """Why the kernel refuses a pool of this geometry, or None if it takes
-    it: head_dim a multiple of 32 up to 128, block a power of two up to
-    32, a codebook of at most 16 entries packed or 256 unpacked
-    (``num_values=None``: an fp pool, no codebook). The engine asks this
-    before it routes a CUDA pool to the kernel."""
-    if head_dim % 32 or head_dim > _DH_MAX:
-        return f"head_dim {head_dim} (want a multiple of 32, <= {_DH_MAX})"
-    if block_size > _BS_MAX or block_size & (block_size - 1):
-        return f"block size {block_size} (want a power of two <= {_BS_MAX})"
-    if num_values is not None and num_values > (16 if packed else _L_MAX):
-        return f"codebook width {num_values}"
+    it: head_dim 1 to 256 (even, when the codes are packed two a byte),
+    block 1 to 128 keys, a codebook of at most 16 entries packed or 256
+    unpacked (``num_values=None``: an fp pool, no codebook). The engine
+    asks this before it routes a CUDA pool to the kernel."""
+    if not 1 <= head_dim <= _DH_MAX:
+        return f"head_dim {head_dim} (want 1 to {_DH_MAX})"
+    if not 1 <= block_size <= _BS_MAX:
+        return f"block size {block_size} (want 1 to {_BS_MAX} keys)"
+    if num_values is not None:
+        most, how = (16, "packed") if packed else (_L_MAX, "unpacked")
+        if num_values > most:
+            return f"codebook width {num_values} (want <= {most} {how})"
+        if packed and head_dim % 2:
+            return (f"head_dim {head_dim} on a packed pool (want an even "
+                    f"head_dim: two codes a byte)")
     return None
 
 
@@ -196,7 +208,7 @@ def _launch(q, k_fp, v_fp, k_codes, v_codes, k_cb, v_cb, blk_q, block_table,
         block_table.data_ptr(), kv_valid_len.data_ptr(), out.data_ptr(),
         B, W, Hq, Hkv, Dh, nb, bs, mb, Dc, L,
         1.0 / math.sqrt(Dh), float(softcap or 0.0), int(quantized),
-        int(packed), pl.split_pages, pl.tile_rows, pl.cluster,
+        int(packed), pl.split_keys, pl.tile_rows, pl.cluster,
         _DTYPE_CODE[q.dtype], _stream(dev))
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "

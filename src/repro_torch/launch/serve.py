@@ -4,7 +4,10 @@ engine).
 Continuous batching under Poisson arrivals over a paged KV pool whose full
 pages freeze to 16-value codebooks (``--kv-quant kmeans_ls@16``, the exact
 k-means DP, or ``iter_l1@16``, batched FISTA under a per-row lambda
-bisection), with chunked prefill, optionally from PTQ'd weights:
+bisection, both solved on the device; or any other count method, such as
+``dp@16``, frozen page by page on the host as the reference does), with
+chunked prefill, optionally from PTQ'd weights, for any ``--arch`` the
+port has (qwen3_0_6b, glm4_9b, yi_34b, gemma2_27b):
 
     python -m repro_torch.launch.serve --engine continuous \\
         --kv-quant kmeans_ls@16 --quantize kmeans_ls@16 --prefill-chunk 64
@@ -12,7 +15,8 @@ bisection), with chunked prefill, optionally from PTQ'd weights:
 It runs on the card (``--device cuda``, the default, which fails without
 a GPU); ``--device cpu --reduced`` runs the reduced config on the host.
 Weights are seeded random (``--arch``'s full width and depth unless
-``--reduced``).
+``--reduced``; ``--layers N`` keeps the first N layers, for a config
+whose full depth does not fit the card).
 
 ``--quantize SPEC`` post-training quantizes every projection on the
 serving device (embed and lm_head stay dense), one leaf at a time with the
@@ -181,14 +185,14 @@ def compare_replays(a, b, outs_a, outs_b) -> dict:
         scale = max(scale, float(np.abs(la).max()))
         agree += sum(int(x == y) for x, y in zip(ta, tb))
         total += len(ta)
-    return {"dmax": dmax, "dmean": dsum / max(count, 1),
+    return {"dmax": dmax, "dmean": dsum / max(count, 1), "scale": scale,
             "rel": dmax / max(scale, 1e-9), "agree": agree, "total": total}
 
 
-def _verify_serving(params, cfg, args) -> bool:
+def serving_replay(params, cfg, args) -> dict:
     """Replay a deterministic batch through the fp engine vs the quantized
-    engine as configured and report the logit deviation quantized KV
-    pages introduce."""
+    engine as configured: ``compare_replays``'s deviation plus the
+    quantized engine's spec and freeze installs."""
     prompts = _replay_prompts(cfg, args)
     outs, engines = [], []
     for kv in (None, args.kv_quant):
@@ -198,16 +202,25 @@ def _verify_serving(params, cfg, args) -> bool:
         outs.append(eng.generate(prompts, max_new_tokens=args.gen))
         engines.append(eng)
     r = compare_replays(engines[0], engines[1], *outs)
+    r["spec"] = engines[1].kv_spec
+    r["installs"] = engines[1].counters["freeze_installs"]
+    return r
+
+
+def _verify_serving(params, cfg, args) -> bool:
+    """Report the logit deviation quantized KV pages introduce
+    (``serving_replay``) against the reference's tolerance."""
+    r = serving_replay(params, cfg, args)
     # the absolute bound is the reference's calibration for reduced
     # configs; the relative one holds at every width
     abs_tol = SERVING_ABS_TOL if args.reduced else math.inf
     ok = r["dmax"] <= abs_tol and r["rel"] <= SERVING_REL_TOL
-    print(f"[serve] serving check ({engines[1].kv_spec}): "
+    print(f"[serve] serving check ({r['spec']}): "
           f"max|dlogit|={r['dmax']:.3f} mean={r['dmean']:.4f} "
           f"rel={r['rel']:.3%} (tolerance: abs<={abs_tol}, "
           f"rel<={SERVING_REL_TOL:.0%}, over agreeing contexts) "
           f"greedy-token agreement {r['agree']}/{r['total']}, "
-          f"{engines[1].counters['freeze_installs']} freeze installs "
+          f"{r['installs']} freeze installs "
           f"-> {'OK' if ok else 'EXCEEDED'}")
     return ok
 
@@ -425,6 +438,25 @@ def quantize_params(params, args, dev):
     return params, info
 
 
+def full_context_layers(cfg) -> int:
+    """Layers whose attention reads the paged pool through the kernel (a
+    local-window layer reads by gather, as in the reference)."""
+    return sum(1 for spec in cfg.layer_specs() if spec.window is None)
+
+
+def cut_depth(cfg, n_layers: int):
+    """``cfg`` with its first ``n_layers`` layers (its layer pattern kept:
+    a whole number of groups after the head layers)."""
+    if not 0 < n_layers <= cfg.n_layers:
+        raise ValueError(f"--layers {n_layers}: want 1..{cfg.n_layers}")
+    return dataclasses.replace(cfg, n_layers=n_layers).validate()
+
+
+def cut_params(params, n_layers: int):
+    """The first ``n_layers`` layers of ``params`` (the rest shared)."""
+    return {**params, "layers": params["layers"][:n_layers]}
+
+
 def serve(args, params=None):
     """Serve a Poisson trace and print the summary. Returns (summary,
     params, cfg). The weights are ``params`` if given (for ``--arch``'s
@@ -437,6 +469,9 @@ def serve(args, params=None):
 
     dev = resolve_device(args.device)
     cfg = (get_reduced_config if args.reduced else get_config)(args.arch)
+    full = cfg.n_layers
+    if args.layers:
+        cfg = cut_depth(cfg, args.layers)
     ptq = None
     if params is None:
         params = models.init_params(
@@ -450,7 +485,9 @@ def serve(args, params=None):
                           max_new_tokens=args.gen, seed=args.seed,
                           shared_prefix_len=args.shared_prefix_len)
     print(f"[serve] continuous batching on {dev} ({cfg.name}, "
-          f"{cfg.n_layers} layers, {cfg.compute_dtype}): "
+          f"{cfg.n_layers} layers"
+          + (f" of {full}" if cfg.n_layers != full else "")
+          + f", {cfg.compute_dtype}): "
           f"{args.num_requests} requests, Poisson rate {args.request_rate}/s, "
           f"prompt {args.prompt_len}, gen {args.gen}, {args.max_slots} slots "
           f"x {args.max_seq_len} tokens, block {args.block_size}, "
@@ -482,9 +519,11 @@ def serve(args, params=None):
     print(f"[serve] attn_impl={s['attn_impl']}: "
           f"{s['paged_attention_launches']} paged-attention kernel launches "
           f"({s['decode_steps']} decode steps + {s['prefill_chunks']} "
-          f"prefill chunks, {cfg.n_layers} layers) | freeze: "
+          f"prefill chunks, {full_context_layers(cfg)} full-context "
+          f"layers) | freeze: "
           f"{s['freeze_dispatches']} dispatches -> {s['freeze_installs']} "
-          f"installs, {s['freeze_overlap_steps']} decode steps ran between "
+          f"installs, {s['host_page_solves']} host page solves, "
+          f"{s['freeze_overlap_steps']} decode steps ran between "
           f"dispatch and install, {s['freeze_deferred_pages']} pages "
           f"deferred by the per-step budget | read window <= "
           f"{s['max_gather_blocks']} blocks")
@@ -539,9 +578,16 @@ def run(args) -> dict:
 
 
 def parse_args(argv=None):
+    from repro_torch.configs import ARCHS
+
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="qwen3_0_6b")
+    ap.add_argument("--arch", default="qwen3_0_6b", choices=ARCHS,
+                    help="the config to serve (seeded random weights at "
+                         "its full width and depth unless --reduced)")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve the first N layers of --arch (a depth cut "
+                         "keeping its layer pattern)")
     ap.add_argument("--engine", choices=("continuous",), default="continuous")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; fails without a GPU) or cpu")
@@ -554,9 +600,10 @@ def parse_args(argv=None):
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--max-seq-len", type=int, default=256)
     ap.add_argument("--kv-quant", default=None,
-                    help="page codebook QuantSpec of a method that can "
-                         "freeze pages (kmeans_ls@16, iter_l1@16, "
-                         "kmeans@16)")
+                    help="page codebook QuantSpec of a count method: "
+                         "kmeans_ls@16, iter_l1@16 and kmeans@16 solve on "
+                         "the device; dp, l0, tv_iter, mog and dtc (e.g. "
+                         "dp@16) freeze each page on the host")
     ap.add_argument("--quantize", default=None,
                     help="PTQ the projections with this QuantSpec "
                          "(kmeans_ls@16, l1_ls:lam=0.05; a bare method "

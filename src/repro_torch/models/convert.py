@@ -3,7 +3,8 @@
 ``params_from_reference`` takes the reference's parameter pytree
 (``jax.tree.map(np.asarray, params)``) and unstacks its scanned ``groups``
 axis into the port's per-layer list, so both packages compute the same
-function. The paged-cache converter lives beside the cache
+function. Every leaf crosses by name, gemma2's ``post_ln1``/``post_ln2``
+and an untied ``lm_head`` among them. The paged-cache converter lives beside the cache
 (``serving.kv_cache.paged_layer_from_reference``).
 
 A PTQ'd reference tree carries QuantizedTensor leaves (numpy codebook and

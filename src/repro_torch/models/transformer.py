@@ -23,9 +23,13 @@ def init_layer(cfg, spec, gen: torch.Generator, dtype, device) -> dict:
                          f"{spec.mixer!r}")
     p = {"ln1": init_rms(cfg.d_model, dtype, device),
          "mixer": attn_lib.init_attention(cfg, spec, gen, dtype, device)}
+    if cfg.post_block_norm:
+        p["post_ln1"] = init_rms(cfg.d_model, dtype, device)
     if spec.ffn == "dense":
         p["ln2"] = init_rms(cfg.d_model, dtype, device)
         p["ffn"] = init_ffn(cfg, gen, dtype, device)
+        if cfg.post_block_norm:
+            p["post_ln2"] = init_rms(cfg.d_model, dtype, device)
     elif spec.ffn != "none":
         raise ValueError(f"the port serves dense FFNs only, got {spec.ffn!r}")
     return p
@@ -37,9 +41,14 @@ def apply_layer(p, cfg, spec, x, positions, *, cache=None, cache_index=None,
     out, new_c = attn_lib.attention(p["mixer"], cfg, spec, h, positions,
                                     cache=cache, cache_index=cache_index,
                                     causal=causal)
+    if cfg.post_block_norm:
+        out = rms_norm(out, p["post_ln1"])
     x = x + out
     if spec.ffn != "none":
-        x = x + ffn(p["ffn"], cfg, rms_norm(x, p["ln2"]))
+        f = ffn(p["ffn"], cfg, rms_norm(x, p["ln2"]))
+        if cfg.post_block_norm:
+            f = rms_norm(f, p["post_ln2"])
+        x = x + f
     return x, new_c
 
 

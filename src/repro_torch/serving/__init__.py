@@ -6,9 +6,9 @@ from .engine import ContinuousBatchingEngine
 from .kv_cache import (BlockAllocator, DoubleFree, PagedKVCache, PagedKVPool,
                        PoolExhausted, PrefixIndex, dispatch_freeze,
                        freeze_blocks, init_paged_cache, init_paged_layer,
-                       install_freeze,
-                       page_bytes, paged_layer_from_reference,
-                       resolve_kv_spec, thaw_blocks, with_tables)
+                       install_freeze, page_bytes, paged_layer_from_reference,
+                       quantize_page, resolve_kv_spec, thaw_blocks,
+                       with_tables)
 from .metrics import MetricsCollector, percentile
 from .scheduler import (ContinuousBatchingScheduler, Request, SeqState,
                         make_requests, poisson_trace)
@@ -20,7 +20,8 @@ __all__ = [
     "PagedKVCache", "PagedKVPool", "PoolExhausted", "PrefixIndex",
     "dispatch_freeze", "freeze_blocks", "init_paged_cache", "init_paged_layer",
     "install_freeze", "page_bytes", "paged_layer_from_reference",
-    "resolve_kv_spec", "thaw_blocks", "with_tables", "MetricsCollector",
+    "quantize_page", "resolve_kv_spec", "thaw_blocks", "with_tables",
+    "MetricsCollector",
     "percentile", "ContinuousBatchingScheduler", "Request", "SeqState",
     "make_requests", "poisson_trace", "DecodeWorker", "FinishedPrefill",
     "PrefillWorker", "sample_token", "DraftWorker", "derive_draft",

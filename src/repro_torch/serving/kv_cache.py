@@ -30,11 +30,16 @@ The reference's tree helpers ``map_layers``, ``merge_pools`` and
 views, writes need no merging, and a ``PendingFreeze`` carries its own
 completion event.
 
-Freezing is ``dispatch_freeze`` (every (page, layer, k/v) row of the event
-through the spec's batched device solver in one call, on a side CUDA stream
-so decode steps overlap it) and ``install_freeze`` (the main stream waits
-for the solve's event, then scatters). ``PendingFreeze.is_ready`` is the
-event's ``query()``: the counterpart of JAX's async dispatch. On the CPU,
+Freezing is ``dispatch_freeze`` and ``install_freeze`` (the main stream
+waits for the solve's event, then scatters). ``dispatch_freeze`` routes by
+the spec's method: a method with a batched device solver (kmeans_ls,
+kmeans, iter_l1) solves every (page, layer, k/v) row of the event in one
+call, on a side CUDA stream so decode steps overlap it;
+``PendingFreeze.is_ready`` is the event's ``query()``, the counterpart of
+JAX's async dispatch. Any other count method (dp, l0, tv_iter, mog, dtc)
+takes the reference's per-page host freeze (``quantize_page``): the pages
+come to the host once, each row is solved there, and the codes come back,
+so its ``PendingFreeze`` is complete when it is returned. On the CPU,
 freezing is synchronous.
 
 Reads: ``fused_decode``/``fused_prefill`` hand the raw pools and table to
@@ -46,6 +51,7 @@ full width for the caller's sdpa (installing a freeze materializes
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -344,12 +350,24 @@ def _pool_tensors(cfg_or_shape, *, num_blocks, block_size, n_layers,
     if packed and Dh % 2:
         raise ValueError(f"packed codes need an even head_dim, got {Dh}")
     Dc = Dh // 2 if packed else Dh
-    fp = (n_layers, num_blocks, block_size, Hkv, Dh)
-    cshape = (n_layers, num_blocks, block_size, Hkv, Dc) if quantized \
+    # every layer's view starts 16-byte aligned, as the kernel's vector
+    # loads need: each stacked pool holds nba >= num_blocks pages a layer,
+    # and the layer axis views the first num_blocks of them
+    per_block = [block_size * Hkv * Dh * dtype.itemsize]
+    if quantized:
+        per_block += [block_size * Hkv * Dc, num_values * 4]
+    step = math.lcm(*(16 // math.gcd(16, b) for b in per_block))
+    nba = -(-num_blocks // step) * step
+    fp = (n_layers, nba, block_size, Hkv, Dh)
+    cshape = (n_layers, nba, block_size, Hkv, Dc) if quantized \
         else (n_layers, 1, 1, 1, 1)
-    cbshape = (n_layers, num_blocks, num_values) if quantized \
+    cbshape = (n_layers, nba, num_values) if quantized \
         else (n_layers, 1, 1)
-    z = lambda s, dt: torch.zeros(s, dtype=dt, device=device)
+
+    def z(shape, dt):
+        t = torch.zeros(shape, dtype=dt, device=device)
+        return t[:, :num_blocks] if len(shape) > 1 else t
+
     return dict(k_fp=z(fp, dtype), v_fp=z(fp, dtype),
                 k_codes=z(cshape, torch.uint8), v_codes=z(cshape, torch.uint8),
                 k_cb=z(cbshape, torch.float32), v_cb=z(cbshape, torch.float32),
@@ -435,14 +453,15 @@ def with_prefill_fused(views: list[PagedKVCache]) -> list[PagedKVCache]:
 def resolve_kv_spec(spec=None, *, method=None, num_values=None) -> QuantSpec:
     """Coerce the engine's ``kv_quant`` argument to a validated QuantSpec:
     a QuantSpec, a compact string ("kmeans_ls@16"), or the legacy
-    (method, num_values) pair. Page freezing needs a method with a batched
-    device solver; anything else raises, naming those methods."""
-    hostonly = [m for m in registry.count_methods()
-                if m not in device_methods()]
-    capable = (f"methods that can freeze pages: "
-               f"{', '.join(device_methods())} (the count methods "
-               f"{', '.join(sorted(hostonly))} have no batched device solver"
-               f" in the port)")
+    (method, num_values) pair, including the old "tv" alias, which maps
+    to the exact-count ``tv_iter``. Page freezing needs a count budget:
+    a lam-parameterised spec raises, naming the methods that can freeze
+    pages."""
+    device = device_methods()
+    host_only = sorted(set(registry.count_methods()) - set(device))
+    capable = (f"device-batched methods: {', '.join(device)}; count "
+               f"methods with a per-page host freeze: "
+               f"{', '.join(host_only)}")
     try:
         if isinstance(spec, QuantSpec) or (
                 isinstance(spec, str) and ("@" in spec or ":" in spec)):
@@ -453,16 +472,17 @@ def resolve_kv_spec(spec=None, *, method=None, num_values=None) -> QuantSpec:
                     f"spec, e.g. 'kmeans_ls@{num_values or 16}'")
             out = QuantSpec.parse(spec)
         else:
-            m = spec if isinstance(spec, str) else method
-            out = QuantSpec(m or "kmeans_ls",
+            m = (spec if isinstance(spec, str) else method) or "kmeans_ls"
+            out = QuantSpec({"tv": "tv_iter"}.get(m, m),
                             num_values=16 if num_values is None
                             else num_values)
     except ValueError as e:
         raise ValueError(f"bad kv_quant spec: {e}\npage freezing needs a "
                          f"count-parameterised method — {capable}") from None
-    if out.param_kind != "count" or not out.device_capable:
-        raise ValueError(f"kv_quant spec {str(out)!r} cannot freeze pages — "
-                         f"{capable}")
+    if out.param_kind != "count":
+        raise ValueError(f"kv_quant spec {str(out)!r} is lam-parameterised; "
+                         f"page freezing needs a count budget "
+                         f"(method@num_values) — {capable}")
     return out
 
 
@@ -510,19 +530,65 @@ def _install(pool: PagedKVPool, jb: torch.Tensor, codes, cb) -> None:
     pool.blk_q[jb] = True
 
 
+def quantize_page(data: torch.Tensor, spec):
+    """The paper's solver on one page (any shape), on the page's device:
+    (codes uint8 of the page's shape, codebook (num_values,) f32). The
+    per-page host freeze of the count methods without a batched device
+    solver (reference ``quantize_page``). Pages always solve
+    multiplicity-weighted: the page is the full vector being served. A
+    codebook with fewer values than the budget is padded with its last
+    value (no code refers to the padding)."""
+    from repro_torch.core import quantize
+
+    spec = resolve_kv_spec(spec)
+    qt, _ = quantize(data.float(), spec.replace(weighted=True))
+    cb = qt.codebook.float()
+    codes = qt.indices.to(torch.uint8).reshape(data.shape)
+    if cb.shape[0] < spec.num_values:
+        cb = torch.cat([cb, cb[-1:].expand(spec.num_values - cb.shape[0])])
+    return codes, cb
+
+
+def _solve_pages_host(pool: PagedKVPool, jb: torch.Tensor,
+                      spec: QuantSpec):
+    """The per-page host freeze: pages ``jb`` of every layer to the host
+    in one copy, one ``quantize_page`` per (page, layer, k/v) row, the
+    codes and codebooks back in one copy each. Returns (codes, cb, the
+    number of row solves), laid out as ``_solve_pages``'s."""
+    both = torch.stack([pool.k_fp[:, jb], pool.v_fp[:, jb]])
+    # lint: sync(the host freeze reads the pages back, as the reference's _freeze_blocks_host does)
+    host = both.float().cpu()
+    pages = host.reshape((-1,) + tuple(host.shape[-3:]))
+    solved = [quantize_page(page, spec) for page in pages]
+    codes = torch.stack([c for c, _ in solved]).reshape(host.shape)
+    cb = torch.stack([b for _, b in solved]).reshape(
+        host.shape[:-3] + (spec.num_values,))
+    if pool.packed:
+        codes = pack4(codes)
+    # lint: sync(pageable copy of the host freeze's codes, as the reference's _freeze_blocks_host uploads them)
+    codes = torch.as_tensor(codes, device=pool.device)
+    # lint: sync(the same copy of its codebooks)
+    cb = torch.as_tensor(cb, device=pool.device)
+    return codes, cb, len(solved)
+
+
 class PendingFreeze:
     """Handle for an in-flight freeze: the solver outputs (still computing
     on the side stream on the card) and the page ids they target. Until
     ``install_freeze`` those pages keep serving from the exact fp pool, so
     decode steps issued meanwhile do not depend on the solve. ``drop``
     forgets pages whose sequence finished (a freed page must not be
-    installed over its next owner); it only flips a host-side mask."""
+    installed over its next owner); it only flips a host-side mask.
+    ``host_solves`` counts the row solves of a per-page host freeze (0 for
+    a device solve)."""
 
-    def __init__(self, bids: np.ndarray, codes, cb, event=None):
+    def __init__(self, bids: np.ndarray, codes, cb, event=None,
+                 host_solves: int = 0):
         self.bids = np.asarray(bids, np.int32)
         self.keep = np.ones(self.bids.shape, bool)
         self.codes, self.cb = codes, cb
         self.event = event
+        self.host_solves = host_solves
 
     def is_ready(self) -> bool:
         return self.event is None or self.event.query()
@@ -544,15 +610,26 @@ class PendingFreeze:
 
 def dispatch_freeze(cache, block_ids, spec=None, *,
                     num_values=None) -> PendingFreeze:
-    """Start the batched solve for ``block_ids`` in every layer; returns
-    at once with a PendingFreeze (the pool is not modified). On the card
-    the solve runs on the pool's side stream after everything the main
-    stream has queued (the pages' writes included)."""
+    """Start the solve for ``block_ids`` in every layer; returns with a
+    PendingFreeze (the pool is not modified). A method with a batched
+    device solver runs it at once on the card, on the pool's side stream
+    after everything the main stream has queued (the pages' writes
+    included); any other count method takes the per-page host freeze,
+    complete on return. The method alone picks the route."""
     pool = _stacked(cache)
     if not pool.quantized:
         raise ValueError("dispatch_freeze needs a quantized pool")
-    spec = resolve_kv_spec(spec, num_values=num_values).replace(seed=0)
+    spec = resolve_kv_spec(spec, num_values=num_values)
     bids = np.asarray(sorted(block_ids), np.int32)
+    if not spec.device_capable:
+        jb = torch.as_tensor(bids.astype(np.int64))
+        if pool.device.type == "cuda":
+            # lint: sync(pageable copy of the page ids; ROADMAP A2)
+            jb = jb.to(pool.device)
+        codes, cb, n = _solve_pages_host(pool, jb, spec)
+        return PendingFreeze(bids, codes, cb, host_solves=n)
+    # device solvers are deterministic: the seed is canonical
+    spec = spec.replace(seed=0)
     if pool.device.type != "cuda":
         jb = torch.as_tensor(bids.astype(np.int64))
         return PendingFreeze(bids, *_solve_pages(pool, jb, spec))
@@ -593,13 +670,16 @@ def install_freeze(cache, pending: PendingFreeze):
 
 
 def freeze_blocks(cache, block_ids, spec=None, *, method=None,
-                  num_values=None):
+                  num_values=None) -> PendingFreeze:
     """Quantize full pages ``block_ids`` in every layer and install them
-    (dispatch + install in one call)."""
+    (dispatch + install in one call). Returns the installed freeze (its
+    ``host_solves`` counts a per-page host freeze's row solves)."""
     if not len(block_ids):
-        return cache
+        return PendingFreeze(np.zeros(0, np.int32), None, None)
     spec = resolve_kv_spec(spec, method=method, num_values=num_values)
-    return install_freeze(cache, dispatch_freeze(cache, block_ids, spec))
+    pending = dispatch_freeze(cache, block_ids, spec)
+    install_freeze(cache, pending)
+    return pending
 
 
 def thaw_blocks(cache, block_ids):

@@ -124,7 +124,10 @@ class DecodeWorker:
         self.max_seq_len = self.max_blocks * block_size
         self.num_blocks = (num_blocks if num_blocks is not None
                            else max_slots * self.max_blocks + 1)
-        self.freeze_async = freeze_async and kv_spec is not None
+        # a per-page host freeze is complete when dispatched: it installs
+        # at once, as the reference's does
+        self.freeze_async = (freeze_async and kv_spec is not None
+                             and kv_spec.device_capable)
         self.freeze_page_budget = freeze_page_budget
         self.eos_id = eos_id
         self.record_logits = record_logits
@@ -155,9 +158,12 @@ class DecodeWorker:
                               num_values=16 if kv_spec is None
                               else kv_spec.num_values)
         # freeze/decode overlap accounting; freeze_deferred_pages counts
-        # pages pushed past their iteration by the per-step freeze budget
+        # pages pushed past their iteration by the per-step freeze budget;
+        # host_page_solves counts the per-page host freeze's row solves
+        # (0 with a batched device solver)
         self.counters = {"freeze_dispatches": 0, "freeze_installs": 0,
-                         "decode_steps": 0, "seq_decode_steps": 0,
+                         "host_page_solves": 0, "decode_steps": 0,
+                         "seq_decode_steps": 0,
                          "freeze_inflight_steps": 0, "freeze_overlap_steps": 0,
                          "freeze_pending_max": 0, "freeze_deferred_pages": 0,
                          "max_gather_blocks": 0,
@@ -524,10 +530,12 @@ class DecodeWorker:
         if newly > 0:
             self.counters["freeze_deferred_pages"] += newly
         self._deferred_seen = len(self._freeze_bids)
-        # pad to a power-of-two page count (repeating one page is a no-op
-        # at install): the solver sees a handful of batch shapes
-        bucket = 1 << (len(bids) - 1).bit_length()
-        bids = bids + [bids[-1]] * (bucket - len(bids))
+        if self.kv_spec.device_capable:
+            # pad to a power-of-two page count (repeating one page is a
+            # no-op at install): the solver sees a handful of batch shapes;
+            # the host freeze solves per page, where a duplicate is waste
+            bucket = 1 << (len(bids) - 1).bit_length()
+            bids = bids + [bids[-1]] * (bucket - len(bids))
         if self.freeze_async:
             pending = dispatch_freeze(self.pool, bids, self.kv_spec)
             self._pending_freezes.append(
@@ -536,10 +544,11 @@ class DecodeWorker:
                 self.counters["freeze_pending_max"],
                 len(self._pending_freezes))
         else:
-            freeze_blocks(self.pool, bids, self.kv_spec)
+            pending = freeze_blocks(self.pool, bids, self.kv_spec)
             self._frozen_pages.update(bids)
             self.counters["freeze_installs"] += 1
             self._publish_prefixes()    # synchronous install: shareable now
+        self.counters["host_page_solves"] += pending.host_solves
         self.counters["freeze_dispatches"] += 1
         tr.complete(self._trk_freeze, "flush", t0, pages=take,
                     mode="async" if self.freeze_async else "sync")

@@ -238,6 +238,113 @@ def test_decode_kernel_at_other_block_sizes(gen, dtype, bs):
             **_PA_TOL[dtype])
 
 
+def _shape_pool(gen, lens, dtype, *, Dh, bs, Hkv=2, L=16, packed=True):
+    """Pools of any head_dim and block size (half the pages frozen) for
+    sequences of the given lengths, each on its own pages; returns the
+    kernel's arguments after q and the valid lengths."""
+    pages = [-(-max(n, 1) // bs) for n in lens]
+    nb = 1 + sum(pages)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    codes = torch.randint(0, L, (2, nb, bs, Hkv, Dh), generator=gen,
+                          device="cuda", dtype=torch.uint8)
+    if packed:
+        codes = pack4(codes)
+    blk_q = torch.rand(nb, generator=gen, device="cuda") < 0.5
+    blk_q[0] = False
+    table = torch.zeros(len(lens), max(pages), dtype=torch.int32)
+    nxt = 1
+    for b, n in enumerate(pages):
+        table[b, :n] = torch.arange(nxt, nxt + n)
+        nxt += n
+    state = [rnd(nb, bs, Hkv, Dh).to(dtype), rnd(nb, bs, Hkv, Dh).to(dtype),
+             codes[0].clone(), codes[1].clone(), rnd(nb, L), rnd(nb, L),
+             blk_q, table.cuda()]
+    valid = torch.tensor([max(n, 1) for n in lens], dtype=torch.int32,
+                         device="cuda")
+    return state, valid
+
+
+# every head_dim and block size the reference kernel takes (Dh 1-256, even
+# when packed; bs 1-128), sampled: each Dh and each bs at least once, with
+# fp, packed and unpacked pools, decode, a W = 4 window and prefill chunks
+_SHAPES = [(1, 1, "fp"), (8, 5, "packed"), (8, 64, "unpacked"),
+           (16, 8, "packed"), (24, 12, "packed"), (24, 3, "unpacked"),
+           (40, 16, "fp"), (64, 24, "packed"), (80, 32, "unpacked"),
+           (100, 48, "packed"), (128, 128, "packed"), (130, 7, "fp"),
+           (192, 16, "packed"), (200, 100, "unpacked"), (255, 2, "fp"),
+           (256, 64, "packed"), (256, 1, "unpacked")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dh,bs,pool", _SHAPES)
+def test_kernel_at_every_head_dim_and_block_size(gen, dtype, Dh, bs, pool):
+    """Decode (ragged lengths over split boundaries, an idle slot), a W = 4
+    window and two prefill chunks against the plain version, at the
+    reference's bar (f32) or a bf16 ulp (bf16); non-finite values in the
+    pool rows past each length never reach the output."""
+    L = 200 if pool == "unpacked" else 16
+    lens = [1, 63, 64, 65, 130, 300, 0]
+    state, valid = _shape_pool(gen, lens, dtype, Dh=Dh, bs=bs, L=L,
+                               packed=pool == "packed")
+    kw = dict(quantized=pool != "fp", packed=pool == "packed")
+    for W in (1, 4):
+        q = torch.randn(len(lens), W, 6, Dh, generator=gen,
+                        device="cuda").to(dtype)
+        qq = q if W > 1 else q[:, 0]
+        for softcap in (None, 30.0):
+            out = paged_decode_attention(qq, *_stale_nan(state, valid),
+                                         valid, softcap=softcap, **kw)
+            ref = ref_paged_decode(qq, *state, valid, softcap=softcap, **kw)
+            assert bool(torch.isfinite(out).all())
+            torch.testing.assert_close(out.float(), ref.float(),
+                                       **_PA_TOL[dtype])
+    state, _ = _shape_pool(gen, [300], dtype, Dh=Dh, bs=bs, L=L,
+                           packed=pool == "packed")
+    q = torch.randn(1, 100, 6, Dh, generator=gen, device="cuda").to(dtype)
+    for off in (0, 200):
+        o = torch.tensor([off], dtype=torch.int32, device="cuda")
+        torch.testing.assert_close(
+            paged_prefill_attention(q, *state, o, **kw).float(),
+            ref_paged_decode(q, *state, o + 100, **kw).float(),
+            **_PA_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dh,bs", [(24, 12), (8, 64)])
+def test_bitwise_invariants_at_padded_head_dims_and_odd_blocks(
+        gen, dtype, Dh, bs):
+    """At a padded head_dim and a block that does not divide the 64-key
+    split (Dh 24, bs 12) and at Dh 8 with 64-key pages: chunked prefill
+    (chunks of 64 and 7) equals the whole prompt, a W = 5 window equals 5
+    single rows, and clusters of 1, 3 and 8 fold the same bits."""
+    pa = importlib.import_module("repro_torch.kernels.paged_attention")
+    kw = dict(quantized=True, packed=True)
+    state, _ = _shape_pool(gen, [300], dtype, Dh=Dh, bs=bs)
+    q = torch.randn(1, 300, 8, Dh, generator=gen, device="cuda").to(dtype)
+    zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+    whole = paged_prefill_attention(q, *state, zero, **kw)
+    torch.testing.assert_close(whole.float(), ref_paged_decode(
+        q, *state, zero + 300, **kw).float(), **_PA_TOL[dtype])
+    for C in (64, 7):
+        parts = torch.cat([paged_prefill_attention(
+            q[:, o:o + C], *state, zero + o, **kw)
+            for o in range(0, 300, C)], dim=1)
+        assert torch.equal(whole, parts), C
+    W = 5
+    state, valid = _shape_pool(gen, [700, 90, 6], dtype, Dh=Dh, bs=bs)
+    qw = torch.randn(3, W, 8, Dh, generator=gen, device="cuda").to(dtype)
+    win = paged_decode_attention(qw, *state, valid, **kw)
+    rows = torch.stack([paged_decode_attention(
+        qw[:, w], *state, valid - (W - 1 - w), **kw)
+        for w in range(W)], dim=1)
+    assert torch.equal(win, rows)
+    base = pa.plan(bs, Dh, dtype)
+    for cluster in (1, 3, 8):
+        got = pa._launch(qw, *state, valid, softcap=None, **kw,
+                         pl=base._replace(cluster=cluster))
+        assert torch.equal(got, win), cluster
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_attention_shared_memory_fits_every_plan(gen, dtype):
     """The block the kernel lays out fits Hopper's 227 KB for every block
@@ -245,8 +352,8 @@ def test_paged_attention_shared_memory_fits_every_plan(gen, dtype):
     path's shape (bs 16, Dh 128, L 16, bf16) four blocks fit an SM's 228
     KB, 1 KB each reserved."""
     pa = importlib.import_module("repro_torch.kernels.paged_attention")
-    for bs in (1, 2, 4, 8, 16, 32):
-        for Dh in (32, 64, 96, 128):
+    for bs in (1, 2, 3, 5, 8, 12, 16, 24, 32, 48, 64, 100, 128):
+        for Dh in (1, 8, 24, 32, 64, 96, 128, 130, 192, 256):
             for L in (1, 16, 256):
                 smem = pa.kernel_smem(pa.plan(bs, Dh, dtype), bs, Dh, L,
                                       dtype)
@@ -272,19 +379,20 @@ def test_paged_attention_wrapper_rejects_what_the_kernel_does_not_take(gen):
                                device="cuda")[:, ::2]
         paged_decode_attention(q, *state, strided, valid, quantized=True)
     with pytest.raises(ValueError, match="head_dim"):
-        paged_decode_attention(q[..., :16], *[t[..., :16] for t in state[:2]],
+        wide = [torch.zeros(9, 8, 2, 257, device="cuda")] * 2
+        paged_decode_attention(torch.zeros(1, 4, 257, device="cuda"), *wide,
                                *state[2:], table, valid)
     with pytest.raises(ValueError, match="codes shape"):
         paged_decode_attention(q, *state[:2], state[2][..., :8], *state[3:],
                                table, valid, quantized=True)
     with pytest.raises(ValueError, match="block size"):
-        big = [torch.zeros(2, 48, 2, 32, device="cuda")] * 2
+        big = [torch.zeros(2, 129, 2, 32, device="cuda")] * 2
         paged_decode_attention(q, *big, *state[2:], table, valid)
     with pytest.raises(RuntimeError, match="launch failed"):
         pl = pa.plan(8, 32, torch.float32)          # 64 keys a split
         pa._launch(q[:, None], *state, table, valid, softcap=None,
                    quantized=True, packed=True,
-                   pl=pl._replace(split_pages=4))
+                   pl=pl._replace(split_keys=32))
 
 
 # ------------------------------------------------------------ quant_matmul
@@ -1013,3 +1121,78 @@ def test_fused_prefill_past_spliced_frozen_pages_is_the_whole_prefill(gen):
         assert torch.equal(t[:, 4:6], t[:, 6:8]), name
     torch.testing.assert_close(part[0], whole[0, shared * bs:], atol=1e-5,
                                rtol=1e-5)
+
+
+# ------------------------------------------- the reduced configs on the card
+# glm4 and yi (Dh 8; G = 4), gemma2 (Dh 16; window 8 on its local layers,
+# which read by gather, softcaps on its global ones through the kernel),
+# all f32, block 12 (a page straddling the kernel's 16-key warp chunks).
+
+
+@pytest.mark.parametrize("arch,block_size", [
+    ("glm4_9b", 12), ("yi_34b", 12), ("gemma2_27b", 12), ("glm4_9b", 1),
+    ("glm4_9b", 5), ("glm4_9b", 7)])
+def test_fused_engine_equals_gather_engine_on_the_reduced_configs(
+        gen, arch, block_size):
+    """A fused engine (kernel 1 for every decode step and prefill chunk of
+    a full-context layer) against a gather engine on the same kmeans_ls@16
+    pages: equal greedy tokens, request logits within 1e-3 (the
+    reference's fused-vs-gather engine bar); the kernel launched once per
+    full-context layer per step and chunk. At blocks 1, 5 and 7 one
+    layer's packed code pages of reduced glm4 (4-byte rows) are not a
+    whole number of 16-byte pieces, over an odd page count: every layer
+    past the first must still be served."""
+    from repro_torch import models
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.serving import ContinuousBatchingEngine
+
+    cfg = get_reduced_config(arch)
+    params = models.init_params(cfg, gen, "cuda")
+    full = sum(1 for s in cfg.layer_specs() if s.window is None)
+    rng = torch.Generator().manual_seed(4)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=rng).tolist()
+               for n in (20, 13, 31)]
+    runs = []
+    for impl in ("fused", "gather"):
+        eng = ContinuousBatchingEngine(
+            params, cfg, device="cuda", max_slots=2, block_size=block_size,
+            max_seq_len=48, attn_impl=impl, record_logits=True,
+            kv_quant="kmeans_ls@16", freeze_async=False, prefill_chunk=7)
+        n0 = paged_decode_attention.launches
+        out = eng.generate(prompts, max_new_tokens=10)
+        launches = paged_decode_attention.launches - n0
+        steps = (eng.counters["decode_steps"]
+                 + eng.prefill.counters["prefill_chunks"])
+        assert launches == (full * steps if impl == "fused" else 0)
+        assert eng.counters["freeze_installs"] > 0
+        runs.append((eng, out))
+    (fused, out_f), (gather, out_g) = runs
+    assert out_f == out_g
+    for i in range(len(prompts)):
+        torch.testing.assert_close(
+            torch.from_numpy(fused.request_logits[i]),
+            torch.from_numpy(gather.request_logits[i]), atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("method", ["dp", "tv_iter"])
+def test_host_freeze_of_card_pages_equals_the_cpu(gen, method):
+    """The per-page host freeze of a card pool gives the codes and
+    codebooks of the same pool on the CPU, bitwise (both solve the same
+    host values), counting one solve per (page, layer, k/v) row."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.serving import dispatch_freeze, init_paged_cache
+
+    cfg = get_reduced_config("glm4_9b")
+    pools = [init_paged_cache(cfg, num_blocks=6, block_size=12,
+                              quantized=True, num_values=16, device=d)
+             for d in ("cuda", "cpu")]
+    k = torch.randn(pools[0].k_fp.shape, generator=gen, device="cuda")
+    v = torch.randn(pools[0].v_fp.shape, generator=gen, device="cuda")
+    for pool in pools:
+        pool.k_fp.copy_(k)
+        pool.v_fp.copy_(v)
+    card, cpu = (dispatch_freeze(p, [4, 2, 5], f"{method}@16") for p in pools)
+    assert card.codes.is_cuda and card.is_ready()
+    assert card.host_solves == cpu.host_solves == 3 * cfg.n_layers * 2
+    assert torch.equal(card.codes.cpu(), cpu.codes)
+    assert torch.equal(card.cb.cpu(), cpu.cb)

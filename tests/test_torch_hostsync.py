@@ -1,6 +1,6 @@
 """The port's host-sync check (``repro_torch.analysis.hostsync``): the hot
-modules make no host sync but those with a pragma (seven read-backs and
-waits, eleven pageable host-to-device copies), and the check finds each
+modules make no host sync but those with a pragma (eight read-backs and
+waits, fourteen pageable host-to-device copies), and the check finds each
 construct it names, honours a pragma on the call's line or the line
 before, and reports stale pragmas."""
 import subprocess
@@ -18,8 +18,11 @@ def test_hot_modules_sync_only_where_a_pragma_says_why():
     findings = hostsync.scan()
     assert hostsync.violations(findings) == []
     sites = sorted({(f.path, f.what) for f in findings})
-    assert sites == [("serving/kv_cache.py", ".synchronize()"),
+    assert sites == [("serving/kv_cache.py", ".cpu()"),
+                     ("serving/kv_cache.py", ".synchronize()"),
                      ("serving/kv_cache.py", ".to() host-to-device"),
+                     ("serving/kv_cache.py",
+                      "torch.as_tensor(device=) host-to-device"),
                      ("serving/speculative.py", ".cpu()"),
                      ("serving/speculative.py", ".numpy()"),
                      ("serving/speculative.py", ".to() host-to-device"),
@@ -29,9 +32,12 @@ def test_hot_modules_sync_only_where_a_pragma_says_why():
     lines = {(f.path, f.line) for f in findings}
     # the speculative path adds the verify read-backs (token ids, recorded
     # logits), the draft's per-step token read-back, and the pageable
-    # copies of the window's and the draft prompt's token ids
-    assert len(lines) == 18
-    assert len([f for f in findings if "host-to-device" in f.what]) == 11
+    # copies of the window's and the draft prompt's token ids; the
+    # per-page host freeze of the count methods without a device solver
+    # adds its pages' read-back and the copies of their page ids, codes
+    # and codebooks
+    assert len(lines) == 22
+    assert len([f for f in findings if "host-to-device" in f.what]) == 14
     assert all(f.reason for f in findings)
 
 

@@ -31,29 +31,49 @@ torch.set_num_threads(1)
 ATOL = RTOL = 1e-4
 
 
-@pytest.fixture(scope="module")
-def reduced():
-    jcfg = jax_reduced_config("qwen3_0_6b")
+# the reduced configs of every arch the port serves: qwen3 (qk-norm, tied
+# head), glm4 (Dh 8, G = 4, untied head), yi (Dh 8, 3 layers, untied) and
+# gemma2 (Dh 16, local window 8 + global, softcaps, post-block norms,
+# GeGLU, scaled tied embedding)
+ARCHS = ["qwen3_0_6b", "glm4_9b", "yi_34b", "gemma2_27b"]
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def reduced(request):
+    jcfg = jax_reduced_config(request.param)
     jparams = jmodels.init_params(jcfg, jax.random.PRNGKey(0))
-    cfg = get_reduced_config("qwen3_0_6b")
+    cfg = get_reduced_config(request.param)
     params = models.params_from_reference(
         jax.tree.map(np.asarray, jparams), cfg, "cpu")
     return jcfg, jparams, cfg, params
 
 
+_FIELDS = ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
+           "d_ff", "vocab", "qk_norm", "rope_theta", "tie_embeddings",
+           "attn_softcap", "final_softcap", "post_block_norm", "act",
+           "embed_scale", "param_dtype", "compute_dtype")
+
+
+def _layers(cfg):
+    specs = list(cfg.head_layers) + list(cfg.group) * cfg.n_groups
+    return [(s.mixer, s.ffn, s.window) for s in specs]
+
+
 def test_config_matches_reference(reduced):
     jcfg, _, cfg, _ = reduced
-    for f in ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
-              "d_ff", "vocab", "qk_norm", "rope_theta", "tie_embeddings"):
+    for f in _FIELDS:
         assert getattr(cfg, f) == getattr(jcfg, f), f
+    assert _layers(cfg) == _layers(jcfg)
     # the full config too: its widths are what the card serves
     from repro.configs import get_config as jax_config
     from repro_torch.configs import get_config
-    a, b = jax_config("qwen3_0_6b"), get_config("qwen3_0_6b")
-    for f in ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
-              "d_ff", "vocab", "qk_norm", "rope_theta", "tie_embeddings",
-              "param_dtype", "compute_dtype"):
+    arch = cfg.name.split("-")[0]
+    arch = {"qwen3": "qwen3_0_6b", "glm4": "glm4_9b", "yi": "yi_34b",
+            "gemma2": "gemma2_27b"}[arch]
+    a, b = jax_config(arch), get_config(arch)
+    for f in _FIELDS:
         assert getattr(a, f) == getattr(b, f), f
+    assert _layers(a) == _layers(b)
 
 
 def test_lm_forward_logits_match_reference(reduced):
@@ -141,11 +161,12 @@ def test_lm_forward_on_quantized_weights_matches_reference(reduced):
                               skip_patterns=PTQ_SKIP)
     params = models.params_from_reference(jax.tree.map(np.asarray, jq), cfg,
                                           "cpu")
+    G = len(cfg.group)
     wq = params["layers"][2]["mixer"]["wq"]
     assert isinstance(wq, QuantizedTensor) and not wq.stacked
     np.testing.assert_array_equal(
-        wq.indices.numpy(), np.asarray(jq["groups"]["l0"]["mixer"]["wq"]
-                                       .indices[2]))
+        wq.indices.numpy(), np.asarray(jq["groups"][f"l{2 % G}"]["mixer"]
+                                       ["wq"].indices[2 // G]))
     toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 11))
     ref = jmodels.forward(jq, jcfg, {"tokens": jnp.asarray(toks)},
                           train=False)

@@ -1,7 +1,7 @@
 """The paged-attention kernel's launch plan (``repro_torch.kernels.
 paged_attention.plan``) and its merge rule, on the CPU: the kernel's row
 independence rests on a plan that never sees B, W, G, the valid lengths or
-the table width, cuts keys at fixed page multiples, and on a fold in which
+the table width, cuts keys at fixed key multiples, and on a fold in which
 a fully masked partial is an exact identity. The kernel itself, and the
 shared memory it lays out for a plan, run only on the card
 (tests/test_torch_cuda.py)."""
@@ -20,7 +20,7 @@ plan = pa.plan
 
 torch.set_num_threads(1)
 
-BLOCK_SIZES = [1, 2, 4, 8, 16, 32]
+BLOCK_SIZES = [1, 2, 4, 5, 8, 12, 16, 24, 32, 48, 64, 100, 128]
 DTYPES = [torch.bfloat16, torch.float32]
 
 
@@ -31,23 +31,27 @@ def test_plan_takes_no_batch_window_group_length_or_table_width():
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("bs", BLOCK_SIZES)
 def test_splits_sit_at_page_multiples_and_cover_every_length(bs, dtype):
-    """For every valid length 1..2048 the splits cover the sequence's pages
-    exactly once, in order, each starting at a multiple of split_pages and
-    holding pa.SPLIT_KEYS keys (the last may hold fewer)."""
-    for Dh in (32, 64, 128):
+    """For every valid length 1..2048 the splits cover the sequence's keys
+    exactly once, in order, each starting at a multiple of
+    pa.SPLIT_KEYS keys and holding that many (the last may hold fewer),
+    whatever the block size: a page that does not divide the split (or is
+    longer than it) straddles splits, each key at (key // bs, key % bs);
+    every page of the sequence is read by some split."""
+    for Dh in (1, 8, 24, 32, 64, 128, 256):
         pl = plan(bs, Dh, dtype)
-        assert pl == plan(bs, 128, torch.bfloat16)
-        assert pl.split_pages * bs == pa.SPLIT_KEYS
+        assert pl == plan(16, 128, torch.bfloat16)
+        assert pl.split_keys == pa.SPLIT_KEYS
         assert pl.tile_rows == pa.TILE_ROWS and 1 <= pl.cluster <= 8
-    P = pl.split_pages
+    S = pl.split_keys
     for valid in range(1, 2049):
-        n_pages = -(-valid // bs)
-        ranges = pl.split_ranges(n_pages)
-        assert len(ranges) == -(-n_pages // P)
-        covered = [j for a, b in ranges for j in range(a, b)]
-        assert covered == list(range(n_pages))
-        assert all(a == s * P and b - a <= P
+        ranges = pl.split_ranges(valid)
+        assert len(ranges) == -(-valid // S)
+        covered = [k for a, b in ranges for k in range(a, b)]
+        assert covered == list(range(valid))
+        assert all(a == s * S and b - a <= S
                    for s, (a, b) in enumerate(ranges))
+        pages = {k // bs for a, b in ranges for k in range(a, b)}
+        assert pages == set(range(-(-valid // bs)))
 
 
 def test_decode_shape_fills_the_card():
@@ -57,7 +61,7 @@ def test_decode_shape_fills_the_card():
     B, Hq, Hkv, Dh, bs, valid = 4, 16, 8, 128, 16, 272
     pl = plan(bs, Dh, torch.bfloat16)
     rows = 1 * Hq // Hkv                        # W * G
-    n_splits = len(pl.split_ranges(-(-valid // bs)))
+    n_splits = len(pl.split_ranges(valid))
     tiles = -(-rows // pl.tile_rows)
     working = n_splits * tiles * Hkv * B
     assert working >= 132
@@ -90,11 +94,12 @@ def _pool(gen, *, nb=5, bs=16, Hkv=2, Dh=64, L=16, packed=True,
 
 
 # the launch arguments after the pointers, sizes and scales: quantized,
-# packed, then the plan's split_pages, tile_rows, cluster; then the dtype
+# packed, then the plan's split_keys, tile_rows, cluster; then the dtype
 _PLAN_ARGS = slice(25, 28)
 
 
-@pytest.mark.parametrize("bs,Dh", [(16, 128), (8, 32), (32, 64)])
+@pytest.mark.parametrize("bs,Dh", [(16, 128), (8, 32), (32, 64), (12, 24),
+                                   (64, 8)])
 def test_wrapper_passes_the_plan_whatever_softcap_packing_b_w(
         monkeypatch, bs, Dh):
     """The kernel gets plan(bs, Dh, dtype): the same for every softcap,

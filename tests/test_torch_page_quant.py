@@ -58,8 +58,10 @@ def test_prefix_sum_order_is_the_reference_cpu_order(N):
 def test_spec_strings_match_reference():
     """kmeans_ls and kmeans specs parse and print as in the reference; an
     unknown method, or a count spec without its budget, raises, naming
-    the registered methods; a known method without a page solver (a lam
-    method, or a count method solved on the host) cannot freeze pages."""
+    the registered methods; a lam method cannot freeze pages (the error
+    names the methods that can), and a count method without a device
+    solver resolves for the per-page host freeze, as in the
+    reference."""
     from repro.core import QuantSpec as JaxSpec
     from repro_torch.core import as_spec
 
@@ -72,10 +74,12 @@ def test_spec_strings_match_reference():
     for bad in ("tvx:lam=0.02", "l00@16", "kmeans_ls"):
         with pytest.raises(ValueError, match="kmeans_ls"):
             QuantSpec.parse(bad)
-    for host_only in ("tv:lam=0.02", "l0@16"):
-        QuantSpec.parse(host_only)
-        with pytest.raises(ValueError, match="cannot freeze pages.*l0"):
-            resolve_kv_spec(host_only)
+    QuantSpec.parse("tv:lam=0.02")
+    with pytest.raises(ValueError, match="count budget.*host freeze.*l0"):
+        resolve_kv_spec("tv:lam=0.02")
+    host_only = resolve_kv_spec("l0@16")
+    assert host_only == QuantSpec.parse("l0@16")
+    assert not host_only.device_capable
 
 
 def test_spec_clip_and_sorted_codebooks():

@@ -1,7 +1,9 @@
 """Serving: the port's allocator, scheduler, spec resolution and
 continuous-batching engine, held against the JAX package's engine on the
-reduced qwen3 config (f32) with kmeans_ls@16 KV pages and chunked prefill,
-with dense weights and with the reference's kmeans_ls@16 PTQ'd weights.
+reduced qwen3, glm4, yi and gemma2 configs (f32; gemma2's window of 8
+binds on the 12-24-token prompts) with kmeans_ls@16 KV pages and chunked
+prefill, with dense weights and with the reference's kmeans_ls@16 PTQ'd
+weights.
 
 Tolerances: request logits within atol 1e-3 of the reference engine's
 (the reference's own fused-vs-gather engine bar, tests/test_serving.py);
@@ -10,6 +12,7 @@ CPU, where the two read the same pages but run matmuls of different row
 counts (bitwise equality is checked on the card, through the kernel, by
 chip_smoke.py).
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -44,11 +47,18 @@ pytestmark = pytest.mark.serving
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.fixture(scope="module")
-def reduced():
-    jcfg = jax_reduced_config("qwen3_0_6b")
+# the reduced configs of every arch the port serves: qwen3 (qk-norm, tied
+# head), glm4 (Dh 8, G = 4, untied head), yi (Dh 8, 3 layers, untied) and
+# gemma2 (Dh 16, local window 8 + global, softcaps, post-block norms,
+# GeGLU, scaled tied embedding)
+ARCHS = ["qwen3_0_6b", "glm4_9b", "yi_34b", "gemma2_27b"]
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def reduced(request):
+    jcfg = jax_reduced_config(request.param)
     jparams = jmodels.init_params(jcfg, jax.random.PRNGKey(0))
-    cfg = get_reduced_config("qwen3_0_6b")
+    cfg = get_reduced_config(request.param)
     params = models.params_from_reference(
         jax.tree.map(np.asarray, jparams), cfg, "cpu")
     return jcfg, jparams, cfg, params
@@ -127,18 +137,22 @@ def test_entry_points_default_to_the_card(reduced):
 
 
 @pytest.mark.parametrize("head_dim,num_values,refused", [
-    (8, 16, "head_dim 8"), (16, 16, "head_dim 16"), (24, 16, "head_dim 24"),
+    (8, 16, None), (16, 16, None), (24, 16, None),
     (128, 16, None), (128, None, None), (32, 16, None),
-    (128, 300, "codebook width 300")])
+    (128, 300, "codebook width 300"), (257, 16, "head_dim 257"),
+    (257, None, "head_dim 257"), (9, 16, "head_dim 9 on a packed pool"),
+    (9, None, None), (9, 200, None), (256, 256, None), (1, None, None),
+    (128, 17, None)])
 def test_fused_cuda_engine_raises_on_pools_the_kernel_refuses(
         head_dim, num_values, refused):
     """On CUDA ``auto`` is the fused kernel on every pool, and both
     ``auto`` and ``fused`` raise, naming the shape, on a pool the kernel
-    refuses (Dh 8, 16 and 24, as the reference's reduced yi/glm4,
-    gemma2/granite and deepseek configs have; a codebook wider than 256)
-    instead of reading it another way; qwen3's Dh 128 and reduced Dh 32
-    take the kernel. ``gather`` is asked for, never chosen. No card is
-    needed: the resolution reads shapes only."""
+    refuses (head_dim past 256, an odd head_dim on a packed pool, a
+    codebook wider than 16 packed or 256 unpacked) instead of reading it
+    another way; every head_dim 1-256 takes the kernel otherwise, among
+    them the reference's reduced yi/glm4 (Dh 8), gemma2/granite (16) and
+    deepseek (24) shapes. ``gather`` is asked for, never chosen. No card
+    is needed: the resolution reads shapes only."""
     from repro_torch.serving.engine import _resolve_attn_impl
 
     cuda = torch.device("cuda")
@@ -156,13 +170,84 @@ def test_fused_cuda_engine_raises_on_pools_the_kernel_refuses(
     assert _resolve_attn_impl("auto", torch.device("cpu"), **kw) == "gather"
 
 
+def test_kernel_takes_every_reference_config_and_kernel_test_shape():
+    """shape_refusal takes the head_dim of every reference config, full
+    and reduced, at blocks of 8, 16, 32 and 64 keys, on fp, packed (16
+    values) and unpacked (256) pools, and the reference kernel tests' own
+    shapes (tests/test_kernels.py:147,170: Dh 16, block 8); it refuses a
+    head_dim past 256, an odd one on a packed pool and a block past 128."""
+    from repro.configs import get_config as jax_config
+    from repro.configs import list_archs
+    from repro_torch.kernels.paged_attention import shape_refusal
+
+    dims = set()
+    for arch in list_archs():
+        dims |= {jax_config(arch).head_dim,
+                 jax_reduced_config(arch).head_dim}
+    assert {8, 16, 24, 128} <= dims
+    for Dh in sorted(dims):
+        for bs in (8, 16, 32, 64):
+            for nv, packed in ((None, True), (16, True), (256, False)):
+                assert shape_refusal(Dh, bs, nv, packed=packed) is None, (
+                    Dh, bs, nv)
+    assert shape_refusal(16, 8) is None
+    assert shape_refusal(16, 8, 16, packed=True) is None
+    assert shape_refusal(16, 8, 16, packed=False) is None
+    assert "head_dim 257" in shape_refusal(257, 16)
+    assert "packed" in shape_refusal(25, 16, 16, packed=True)
+    assert shape_refusal(25, 16, 16, packed=False) is None
+    assert "block size 129" in shape_refusal(128, 129)
+
+
 def test_fused_cuda_engine_raises_on_an_odd_block_size():
+    """Blocks of 1-128 keys take the kernel, powers of two or not (24 and
+    48 were refused before the kernel cut its splits in keys); a block
+    past 128 is refused, naming it."""
     from repro_torch.serving.engine import _resolve_attn_impl
 
-    for impl, bs, nv in (("auto", 24, 16), ("fused", 48, None)):
+    for impl, bs, nv in (("auto", 24, 16), ("fused", 48, None),
+                         ("auto", 1, 16), ("fused", 128, 200),
+                         ("auto", 100, None)):
+        assert _resolve_attn_impl(impl, torch.device("cuda"), head_dim=128,
+                                  block_size=bs, num_values=nv) == "fused"
+    for impl, bs, nv in (("auto", 129, 16), ("fused", 256, None)):
         with pytest.raises(ValueError, match=f"block size {bs}"):
             _resolve_attn_impl(impl, torch.device("cuda"), head_dim=128,
                                block_size=bs, num_values=nv)
+
+
+@pytest.mark.parametrize("arch", ["glm4_9b", "yi_34b", "gemma2_27b"])
+@pytest.mark.parametrize("block_size", [1, 5, 7, 12, 13])
+@pytest.mark.parametrize("num_values", [None, 16, 5, 200])
+def test_every_layer_of_a_pool_is_a_kernel_operand(arch, block_size,
+                                                   num_values):
+    """Each layer's view of the stacked pools is what the kernel wrapper
+    demands of an operand (contiguous, 16-byte aligned) at every block
+    size, also where one layer's pages are not a whole number of 16-byte
+    pieces (reduced glm4/yi: Dh 8, 2 KV heads, 4-byte packed code rows;
+    the engine's default page count is odd), in f32 and bf16, and the
+    layers' pages do not overlap."""
+    from repro_torch.serving.kv_cache import init_paged_cache
+
+    cfg = get_reduced_config(arch)
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        pool = init_paged_cache(
+            c, num_blocks=2 * 6 + 1, block_size=block_size,
+            quantized=num_values is not None, num_values=num_values or 16,
+            device="cpu")
+        views = [pool.layer(i, None, None) for i in range(pool.n_layers)]
+        names = ["k_fp", "v_fp"] + (["k_codes", "v_codes", "k_cb", "v_cb"]
+                                    if pool.quantized else [])
+        for name in names:
+            ends = []
+            for v in views:
+                t = getattr(v, name)
+                assert t.shape[0] == 13 and t.is_contiguous(), name
+                assert t.data_ptr() % 16 == 0, (name, t.data_ptr() % 16)
+                ends.append((t.data_ptr(),
+                             t.data_ptr() + t.numel() * t.element_size()))
+            assert all(a[1] <= b[0] for a, b in zip(ends, ends[1:])), name
 
 
 def test_paged_layer_converter_feeds_both_packages_one_pool(reduced):
@@ -306,8 +391,9 @@ def test_chunked_prefill_matches_whole_prompt(reduced):
 
 
 def test_port_runs_without_jax():
-    """Import the whole port with jax blocked, PTQ the reduced model and
-    serve one request from its codes: the port needs no JAX."""
+    """Import the whole port (every config module too) with jax blocked,
+    PTQ the reduced model and serve one request from its codes: the port
+    needs no JAX."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -315,10 +401,12 @@ def test_port_runs_without_jax():
         import repro_torch.launch.serve, repro_torch.quant
         import repro_torch.serving
         from repro_torch import models
-        from repro_torch.configs import get_reduced_config
+        from repro_torch.configs import ARCHS, get_config, get_reduced_config
         from repro_torch.launch.serve import PTQ_SKIP
         from repro_torch.quant import quantize_tree
         from repro_torch.serving import ContinuousBatchingEngine
+        for arch in ARCHS:             # every config module of the port
+            get_config(arch), get_reduced_config(arch)
         assert not any(m == "repro" or m.startswith(("repro.", "jax"))
                        for m in sys.modules if sys.modules[m] is not None)
         cfg = get_reduced_config("qwen3_0_6b")
