@@ -13,7 +13,14 @@ FISTA kernel's freeze entry), with the replay checks; then the same
 weights with kmeans_ls@16 pages, speculative decoding (``--speculate 3``,
 the half-depth draft: verify windows of 4 through the attention kernel)
 and prefix sharing over a trace whose prompts share 192 tokens (prefills
-start past spliced frozen pages), with its replays; then a batched l1_ls
+start past spliced frozen pages), with its replays. Between those two,
+the same weights and trace through the disaggregated engine (a prefill
+worker with its own fp pool hands each prompt's pages to a decode worker
+as fp rows; then two decode workers), fp page migration between pools of
+different layer strides on its own (bitwise), the disaggregated engine
+against the colocated one in f32, and the static engine (the reference
+launcher's default: a fixed batch on the dense ring cache) against the
+continuous one. Then a batched l1_ls
 PTQ of the whole model in one FISTA launch, served for a few requests.
 Then the other configs: glm4-9b at full width and depth from kmeans_ls@16
 codes (its f32 replays on its first 8 layers), yi-34b and gemma2-27b at
@@ -113,6 +120,30 @@ SPEC_K = 3
 SPEC_ARGS = QUANT_ARGS + ["--speculate", str(SPEC_K), "--draft-config",
                           "auto", "--prefix-cache", "--shared-prefix-len",
                           "192"]
+# the main path's trace through the disaggregated engine: a prefill worker
+# with an fp pool of its own hands each prompt's pages, as fp rows, to a
+# decode worker (kmeans_ls@16 pages, the PTQ'd weights); without
+# --prefill-chunk, which disagg refuses, so each prompt prefills whole
+_CHUNK = QUANT_ARGS.index("--prefill-chunk")
+DISAGG_ARGS = (QUANT_ARGS[:_CHUNK] + QUANT_ARGS[_CHUNK + 2:]
+               + ["--engine", "disagg", "--prefill-workers", "1",
+                  "--decode-workers", "1", "--migrate", "fp"])
+# disagg vs colocated on an fp pool, f32, the same deterministic batch
+# (serve.disagg_replay): the pages cross unchanged, so only the decode
+# batches' composition can move a logit. Readings (tools/replay_readings.py
+# --disagg on the H100, NVIDIA H100 80GB HBM3, 700 W; PERF.md): 0, bitwise,
+# on prompt seeds 0-2; 4.6067% with the tail rows spliced one page off.
+# The chunked replay's fp bar, 1e-4, lies between.
+DISAGG_REL_TOL = 1e-4
+# the static engine (the reference launcher's default): the main path's
+# PTQ'd codes dequantized, 4 prompts of 64 tokens and 32 greedy steps on
+# the dense ring cache; against the continuous engine on an fp pool in
+# f32 at the chunked replay's fp bar (read 9.302e-07 of the range on the
+# H100, PERF.md: the two differ in summation order only)
+STATIC_ARGS = ["--engine", "static", "--quantize", "kmeans_ls@16",
+               "--batch", "4", "--prompt-len", "64", "--gen", "32",
+               "--seed", "0"]
+STATIC_REL_TOL = 1e-4
 # batched l1_ls PTQ of the whole model: lambda for the weighted objective
 # (counts of up to 88M weights a group) that leaves every group <= 256
 # values (uint8 codes); the short serve from its codes
@@ -865,7 +896,11 @@ def check_launches(s, cfg, launches, quantized: bool, *, fista: bool = False,
                    host: bool = False) -> str:
     """Paged attention: full-context layers x (decode steps + prefill
     chunks) (a local-window layer reads by gather); the dequant matmul: 7
-    projections x layers x that from codes, 0 from dense weights; FISTA:
+    projections x layers x that from codes, 0 from dense weights. On the
+    disaggregated engine (a summary with ``prefills_done``) the prefill
+    workers' whole-prompt prefills read their own fp pools by gather (no
+    attention launch) and each runs every projection once: the dequant
+    matmul adds 7 x layers x prefills. FISTA:
     one launch of its freeze entry per freeze dispatch on an iter_l1 pool,
     else 0, and none of its fista_quant entry; no stacked launch and no
     dense fallback on the serving path. With ``spec`` = k, a decode step
@@ -878,6 +913,7 @@ def check_launches(s, cfg, launches, quantized: bool, *, fista: bool = False,
     from repro_torch.launch.serve import full_context_layers
 
     steps = s["decode_steps"] + s["prefill_chunks"]
+    prefills = s.get("prefills_done", 0)
     fc = full_context_layers(cfg)
     draft_calls = 0
     if spec:
@@ -891,8 +927,8 @@ def check_launches(s, cfg, launches, quantized: bool, *, fista: bool = False,
                 f"requests")
     draft_mm = 7 * s.get("draft_layers", 0) * draft_calls
     expect = {"paged_decode_attention": fc * steps,
-              "quant_matmul": (7 * cfg.n_layers * steps + draft_mm
-                               if quantized else 0),
+              "quant_matmul": (7 * cfg.n_layers * (steps + prefills)
+                               + draft_mm if quantized else 0),
               "quant_matmul_stacked": 0,
               "fista_quant": 0,
               "fista_freeze": s["freeze_dispatches"] if fista else 0,
@@ -919,7 +955,11 @@ def check_launches(s, cfg, launches, quantized: bool, *, fista: bool = False,
             + ("verify steps" if spec else "decode steps")
             + f" + {s['prefill_chunks']} prefill chunks); "
             f"{expect['quant_matmul']} quant_matmul launches"
-            + (" = 7 x that" if quantized else "")
+            + (" = 7 x that" if quantized and not prefills else "")
+            + (f" = 7 x {cfg.n_layers} layers x ({s['decode_steps']} decode "
+               f"steps + {prefills} whole-prompt prefills on the prefill "
+               f"workers, which read by gather)" if quantized and prefills
+               else "")
             + (f" + 7 x {s.get('draft_layers', 0)} draft layers x "
                f"({s['draft_prefills']} draft prefills + "
                f"{s['draft_steps']} draft windows)" if spec else "")
@@ -1404,6 +1444,223 @@ def check_serve_iter_l1(params) -> dict:
     return dict(launches=launches["fista_freeze"],
                 freeze_dispatches=s["freeze_dispatches"],
                 tpot_p50_ms=s["tpot_p50_s"] * 1e3)
+
+
+def check_serve_disagg(params, main: dict) -> dict:
+    """The main path's weights and trace through ``--engine disagg`` (one
+    prefill worker, one decode worker, fp migration): launch gates, the
+    migration counters (8 handoffs, bytes crossed == fp-equivalent bytes
+    == the prompts' K/V rows), the serving check and the fused-vs-gather
+    replay on the disagg composition; then two decode workers: every
+    request finishes, the handoffs counted per worker."""
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    s, params, cfg, args, launches = serve_once(DISAGG_ARGS, params)
+    phase("serve-disagg", check_launches(s, cfg, launches, quantized=True))
+    rows = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2   # bf16
+    want = args.num_requests * args.prompt_len * rows
+    if (s["migrated_seqs"], s["prefills_done"]) != (8, 8) \
+            or not s["migrate_bytes"] == s["migrate_fp_equiv_bytes"] == want:
+        raise AssertionError(
+            f"serve-disagg: {s['prefills_done']} prefills, "
+            f"{s['migrated_seqs']} handoffs, {s['migrate_bytes']} bytes "
+            f"crossed, {s['migrate_fp_equiv_bytes']} fp-equivalent (want 8,"
+            f" 8, {want}, {want})")
+    phase("serve-disagg", f"{s['prefills_done']} prefills -> "
+          f"{s['migrated_seqs']} handoffs, {s['migrated_pages']} pages, "
+          f"{s['migrate_bytes'] / 1e6:.3f} MB crossed == fp-equivalent "
+          f"(migrate_compression {s['migrate_compression']:.1f})")
+    serve.verify(params, cfg, args)      # the serving check, disagg
+    check_fused_vs_gather(params, cfg, args, (None, "kmeans_ls@16"),
+                          name="serve-disagg")
+    phase("serve-disagg", f"disagg    {serve_line(s)}")
+    phase("serve-disagg", f"main path {serve_line(main['summary'])}")
+    s2, _, cfg2, _, launches2 = serve_once(
+        DISAGG_ARGS + ["--decode-workers", "2"], params)
+    check_launches(s2, cfg2, launches2, quantized=True)
+    per = [w["migrated_seqs"] for w in s2["per_worker"]["decode"]]
+    if s2["completed"] != 8 or sum(per) != 8 or min(per) < 1:
+        raise AssertionError(f"serve-disagg, 2 decode workers: completed "
+                             f"{s2['completed']}/8, handoffs per worker "
+                             f"{per}")
+    phase("serve-disagg", "2 decode workers: 8/8 completed, handoffs per "
+          f"decode worker {per}, MB in "
+          + str([round(w["migrate_bytes"] / 1e6, 3)
+                 for w in s2["per_worker"]["decode"]])
+          + f"; {serve_line(s2)}")
+    phase("serve-disagg", f"{time.perf_counter() - t0:.1f} s")
+    return dict(launches=launches, tpot_p50_ms=s["tpot_p50_s"] * 1e3,
+                tpot_p99_ms=s["tpot_p99_s"] * 1e3,
+                ttft_mean_ms=s["ttft_mean_s"] * 1e3,
+                two_decode_handoffs=per)
+
+
+def transfer_case(cfg, bs: int, P: int, gen) -> dict:
+    """fp migration of a ``P``-token sequence from a prefill-sized fp pool
+    to a decode-sized kmeans_ls@16 pool (padded to another layer stride),
+    on the card: the landed pages and tail rows bitwise the source, the
+    rest of the destination untouched, the kernel's decode over the landed
+    pages bitwise its decode over the source; one cold pass timed."""
+    from repro_torch.kernels import paged_decode_attention
+    from repro_torch.serving import (extract_pages, init_paged_cache,
+                                     splice_payload)
+
+    mb = -(-512 // bs)
+    src = init_paged_cache(cfg, num_blocks=2 * mb + 1, block_size=bs,
+                           device="cuda")
+    dst = init_paged_cache(cfg, num_blocks=4 * mb + 1, block_size=bs,
+                           quantized=True, num_values=16, device="cuda")
+    if src.k_fp.stride(0) == dst.k_fp.stride(0):
+        raise AssertionError("transfer: the pools share a layer stride")
+    for pool in (src, dst):
+        for t in (pool.k_fp, pool.v_fp):
+            t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+    dst.k_codes.random_(0, 256, generator=gen)
+    dst.blk_q[::3] = True
+    n_full, r = divmod(P, bs)
+    n_pages = n_full + (1 if r else 0)
+    blocks = list(range(src.k_fp.shape[1] - 1, 0, -1))[:n_pages]
+    new = [b for b in range(1, dst.k_fp.shape[1]) if b % 3][:n_pages]
+    before = {n: getattr(dst, n).clone() for n in
+              ("k_fp", "v_fp", "k_codes", "k_cb", "blk_q")}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    payload = extract_pages(src, blocks, P, block_size=bs, mode="fp")
+    t1 = time.perf_counter()
+    payload.event.synchronize()
+    t2 = time.perf_counter()
+    payload.to_host()
+    t3 = time.perf_counter()
+    splice_payload(dst, payload, new)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    for name in ("k_fp", "v_fp"):
+        sv, d, d0 = getattr(src, name), getattr(dst, name), before[name]
+        ok = all(torch.equal(d[:, new[j]], sv[:, blocks[j]])
+                 for j in range(n_full))
+        if r:
+            ok = ok and torch.equal(d[:, new[n_full], :r],
+                                    sv[:, blocks[n_full], :r]) \
+                and torch.equal(d[:, new[n_full], r:], d0[:, new[n_full], r:])
+        rest = [b for b in range(d.shape[1]) if b not in new]
+        if not (ok and torch.equal(d[:, rest], d0[:, rest])):
+            raise AssertionError(f"transfer ({cfg.name}, block {bs}): "
+                                 f"{name} not landed bitwise")
+    for name in ("k_codes", "k_cb", "blk_q"):
+        if not torch.equal(getattr(dst, name), before[name]):
+            raise AssertionError(f"transfer: the destination's {name} moved")
+    q = torch.randn(1, cfg.n_heads, cfg.head_dim, generator=gen,
+                    device="cuda").to(src.k_fp.dtype)
+    valid = torch.tensor([P], dtype=torch.int32, device="cuda")
+
+    def decode(pool, table):
+        bt = torch.tensor([table], dtype=torch.int32, device="cuda")
+        return [paged_decode_attention(
+            q, pool.k_fp[i], pool.v_fp[i], pool.k_codes[i], pool.v_codes[i],
+            pool.k_cb[i], pool.v_cb[i], pool.blk_q, bt, valid,
+            quantized=False) for i in range(cfg.n_layers)]
+    if not all(torch.equal(a, b) for a, b in zip(decode(src, blocks),
+                                                 decode(dst, new))):
+        raise AssertionError(f"transfer ({cfg.name}, block {bs}): the "
+                             f"decode over the landed pages differs")
+    mb_ = payload.nbytes / 1e6
+    return dict(mb=mb_, pages=n_pages, extract_ms=(t1 - t0) * 1e3,
+                gather_ms=(t2 - t0) * 1e3, to_host_ms=(t3 - t2) * 1e3,
+                splice_ms=(t4 - t3) * 1e3,
+                strides=(src.k_fp.stride(0), dst.k_fp.stride(0)))
+
+
+def check_transfer(gen) -> dict:
+    """``transfer_case`` at qwen3-0.6B's full shape (28 layers, bf16,
+    block 16; 256 + 7 tokens) and at reduced glm4's at block 5 (13 + 3),
+    where the packed decode pool pads its layers to another stride."""
+    from repro_torch.configs import get_config, get_reduced_config
+
+    t0 = time.perf_counter()
+    out = {}
+    for cfg, bs, P in ((get_config("qwen3_0_6b"), 16, 263),
+                       (get_reduced_config("glm4_9b"), 5, 43)):
+        r = transfer_case(cfg, bs, P, gen)
+        out[cfg.name] = r
+        phase("transfer", f"{cfg.name} ({cfg.n_layers} layers, "
+              f"{str(cfg.dtype('compute'))[6:]}, block {bs}), {P} tokens "
+              f"= {r['pages']} pages, {r['mb']:.3f} MB, layer strides "
+              f"{r['strides'][0]} / {r['strides'][1]} elements: landed "
+              f"pages and tail rows bitwise, the rest untouched, the "
+              f"kernel's decode over them bitwise; one cold pass: extract "
+              f"enqueued in {r['extract_ms']:.3f} ms, gathered by "
+              f"{r['gather_ms']:.3f} ms, to_host {r['to_host_ms']:.3f} ms, "
+              f"splice {r['splice_ms']:.3f} ms")
+    phase("transfer", f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def check_disagg_vs_colocated(params) -> dict:
+    """``serve.disagg_replay`` at full width and depth: greedy tokens
+    equal, logits within DISAGG_REL_TOL of the range."""
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    args = serve.parse_args(DISAGG_ARGS)
+    from repro_torch.configs import get_config
+    r = serve.disagg_replay(params, get_config(args.arch), args)
+    if not r["tokens_equal"] or r["rel"] > DISAGG_REL_TOL \
+            or r["handoffs"] != 3:
+        raise AssertionError(
+            f"disagg vs colocated: tokens {r['agree']}/{r['total']}, rel "
+            f"{r['rel']:.4g} (tolerance {DISAGG_REL_TOL:g}), "
+            f"{r['handoffs']} handoffs")
+    phase("disagg-vs-colocated", f"fp pool, f32, prompts of "
+          f"{r['prompt_lens']} + {args.gen} tokens: greedy tokens "
+          f"{r['agree']}/{r['total']} equal, max|dlogit| {r['dmax']:.4g} "
+          f"rel {r['rel']:.4g} (tolerance {DISAGG_REL_TOL:g}), "
+          f"{r['handoffs']} handoffs; {time.perf_counter() - t0:.1f} s")
+    return r
+
+
+def check_static(params) -> dict:
+    """``--engine static`` from the main path's PTQ'd codes (dequantized,
+    as the reference's static path does): no kernel launch, finite
+    logits; then the static engine against the continuous engine on an
+    fp pool in f32 at full depth: equal greedy tokens, logits within
+    STATIC_REL_TOL of the range."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.static_steps import static_generate
+    from repro_torch.serving import ContinuousBatchingEngine
+
+    t0 = time.perf_counter()
+    args = serve.parse_args(STATIC_ARGS)
+    r, launches = counting_launches(lambda: serve.run_static(args, params))
+    if any(launches.values()) or tuple(r["tokens"].shape) != (4, 32):
+        raise AssertionError(f"static: launches {launches}, tokens "
+                             f"{tuple(r['tokens'].shape)}")
+    phase("static", f"{args.batch} x ({args.prompt_len} + {args.gen}) "
+          f"tokens at full width and depth from dequantized kmeans_ls@16 "
+          f"codes in {r['seconds']:.2f} s, first call included; no kernel "
+          f"launch ({launches})")
+    p32, c32 = serve.f32_copy(r.pop("params"), r["cfg"])
+    tokens = serve.static_prompts(c32, args, "cuda")
+    out, logits = static_generate(p32, c32, tokens, args.gen)
+    eng = ContinuousBatchingEngine(p32, c32, device="cuda",
+                                   max_slots=args.batch, block_size=16,
+                                   max_seq_len=128, record_logits=True)
+    got = eng.generate(tokens.tolist(), max_new_tokens=args.gen)
+    want = out.tolist()
+    scale = float(logits.abs().max())
+    dmax = max(float(abs(eng.request_logits[i]
+                         - logits[i].cpu().numpy()).max())
+               for i in range(args.batch))
+    equal = [got[i] for i in range(args.batch)] == want
+    if not equal or dmax > STATIC_REL_TOL * scale:
+        raise AssertionError(f"static vs continuous: tokens "
+                             f"{'equal' if equal else 'DIFFER'}, max|dlogit|"
+                             f" {dmax:.4g} of {scale:.4g}")
+    phase("static", f"static vs continuous (fused, fp pool), f32, "
+          f"{c32.n_layers} layers: greedy tokens equal, max|dlogit| "
+          f"{dmax:.4g} rel {dmax / scale:.4g} (tolerance "
+          f"{STATIC_REL_TOL:g}); {time.perf_counter() - t0:.1f} s")
+    return dict(seconds=r["seconds"], rel=dmax / scale)
 
 
 def untied_draft(params, cfg) -> tuple:
@@ -2168,6 +2425,10 @@ def main() -> int:
     st = check_stacked_path(sv["params"], sv["cfg"], gen)
     cfg = sv["cfg"]
     it = check_serve_iter_l1(sv["params"])
+    dz = check_serve_disagg(sv["params"], sv)
+    check_transfer(gen)
+    check_disagg_vs_colocated(sv["params"])
+    check_static(sv["params"])
     sp = check_serve_spec(sv.pop("params"), sv)
     sp_launches = sp["launches"]
     pb = check_ptq_batched(cfg, gen)
@@ -2188,6 +2449,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/paged_attention.py:242",
          "launches": sv["launches"]["paged_decode_attention"],
          "serve_spec_launches": sp_launches["paged_decode_attention"],
+         "serve_disagg_launches": dz["launches"]["paged_decode_attention"],
          "serve_glm4_launches": g4["launches"]["paged_decode_attention"],
          "serve_yi_launches": wide["yi_34b"]["launches"][
              "paged_decode_attention"],
@@ -2201,6 +2463,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/quant_matmul.py:50",
          "launches": sv["launches"]["quant_matmul"],
          "serve_spec_launches": sp_launches["quant_matmul"],
+         "serve_disagg_launches": dz["launches"]["quant_matmul"],
          "serve_glm4_launches": g4["launches"]["quant_matmul"],
          "solvers_launches": so["quant_matmul"], **q},
         {"name": "quant_matmul_stacked", "route": "cuda",

@@ -46,6 +46,7 @@ HOT_MODULES = (
     "serving/workers.py",
     "serving/speculative.py",
     "serving/kv_cache.py",
+    "serving/transfer.py",
     "kernels/paged_attention.py",
     "kernels/quant_matmul.py",
     "kernels/page_quant.py",

@@ -1,5 +1,5 @@
-"""Serving launcher (port of ``repro/launch/serve.py``, the continuous
-engine).
+"""Serving launcher (port of ``repro/launch/serve.py``): the continuous,
+disaggregated and static engines.
 
 Continuous batching under Poisson arrivals over a paged KV pool whose full
 pages freeze to 16-value codebooks (``--kv-quant kmeans_ls@16``, the exact
@@ -12,8 +12,31 @@ port has (qwen3_0_6b, glm4_9b, yi_34b, gemma2_27b):
     python -m repro_torch.launch.serve --engine continuous \\
         --kv-quant kmeans_ls@16 --quantize kmeans_ls@16 --prefill-chunk 64
 
+``--engine disagg`` serves the same trace through disaggregated workers:
+``--prefill-workers N`` prefill workers, each with an fp pool of its own,
+hand every finished prompt's pages to one of ``--decode-workers M``
+decode workers as fp rows (``--migrate fp``), through a global router
+(``--staging-depth D`` caps the prefills in flight past its queue):
+
+    python -m repro_torch.launch.serve --engine disagg --prefill-workers 1 \\
+        --decode-workers 2 --migrate fp --kv-quant kmeans_ls@16 \\
+        --quantize kmeans_ls@16
+
+The summary adds the handoffs, pages and MB that crossed, for each worker.
+``--prefill-chunk`` and ``--prefix-cache`` serve the colocated pool only,
+as in the reference.
+
+``--engine static`` runs the reference's default engine: ``--batch B``
+prompts of ``--prompt-len`` tokens prefilled into the model's dense ring
+cache, then ``--gen`` greedy decode steps (``launch/static_steps.py``);
+``--quantize`` weights are dequantized first, as the reference does. The
+port's default engine stays ``continuous``.
+
 It runs on the card (``--device cuda``, the default, which fails without
 a GPU); ``--device cpu --reduced`` runs the reduced config on the host.
+``--temperature`` and ``--top-k`` sample the trace (greedy by default;
+each request's seed derives from ``--seed``), and
+``--freeze-page-budget`` caps the pages frozen a decode step.
 Weights are seeded random (``--arch``'s full width and depth unless
 ``--reduced``; ``--layers N`` keeps the first N layers, for a config
 whose full depth does not fit the card).
@@ -123,26 +146,38 @@ def _make_draft(params, cfg, args):
 
 def _make_engine(params, cfg, args, *, kv_quant, record_logits=False,
                  freeze_async=True, attn_impl=None, prefill_chunk=-1,
-                 freeze_page_budget=4, speculate=None, prefix_cache=False,
+                 freeze_page_budget=None, speculate=None, prefix_cache=False,
                  max_slots=None, draft=None):
-    """The engine ``args`` asks for; ``speculate`` (default
-    ``--speculate``) drafts with ``draft`` (params, cfg), by default
-    built from ``params`` by ``--draft-config``."""
-    from repro_torch.serving import ContinuousBatchingEngine
+    """The engine composition ``args`` asks for (``--engine continuous``
+    or ``disagg``), so every replay runs the composition served;
+    ``speculate`` (default ``--speculate``) drafts with ``draft`` (params,
+    cfg), by default built from ``params`` by ``--draft-config``; the
+    freeze budget defaults to ``--freeze-page-budget``."""
+    from repro_torch.serving import ContinuousBatchingEngine, DisaggEngine
 
     speculate = args.speculate if speculate is None else speculate
+    kw = dict(device=args.device, max_slots=max_slots or args.max_slots,
+              block_size=args.block_size, max_seq_len=args.max_seq_len,
+              kv_quant=kv_quant,
+              kv_num_values=None if kv_quant is None else args.kv_num_values,
+              attn_impl=attn_impl or args.attn_impl,
+              record_logits=record_logits, freeze_async=freeze_async,
+              freeze_page_budget=(args.freeze_page_budget
+                                  if freeze_page_budget is None
+                                  else freeze_page_budget),
+              speculate=speculate,
+              draft=(draft or _make_draft(params, cfg, args)) if speculate
+              else None)
+    if args.engine == "disagg":
+        return DisaggEngine(params, cfg,
+                            prefill_workers=args.prefill_workers,
+                            decode_workers=args.decode_workers,
+                            migrate=args.migrate,
+                            staging_depth=args.staging_depth, **kw)
     return ContinuousBatchingEngine(
-        params, cfg, device=args.device,
-        max_slots=max_slots or args.max_slots,
-        block_size=args.block_size, max_seq_len=args.max_seq_len,
-        kv_quant=kv_quant, attn_impl=attn_impl or args.attn_impl,
-        record_logits=record_logits, freeze_async=freeze_async,
-        freeze_page_budget=freeze_page_budget, speculate=speculate,
-        draft=(draft or _make_draft(params, cfg, args)) if speculate
-        else None,
-        prefix_cache=prefix_cache,
+        params, cfg, prefix_cache=prefix_cache,
         prefill_chunk=(args.prefill_chunk if prefill_chunk == -1
-                       else prefill_chunk))
+                       else prefill_chunk), **kw)
 
 
 def f32_copy(params, cfg):
@@ -191,8 +226,9 @@ def compare_replays(a, b, outs_a, outs_b) -> dict:
 
 def serving_replay(params, cfg, args) -> dict:
     """Replay a deterministic batch through the fp engine vs the quantized
-    engine as configured: ``compare_replays``'s deviation plus the
-    quantized engine's spec and freeze installs."""
+    engine as configured (the same composition as the served one):
+    ``compare_replays``'s deviation plus the quantized engine's spec,
+    freeze installs and host page solves (summed over decode workers)."""
     prompts = _replay_prompts(cfg, args)
     outs, engines = [], []
     for kv in (None, args.kv_quant):
@@ -204,6 +240,7 @@ def serving_replay(params, cfg, args) -> dict:
     r = compare_replays(engines[0], engines[1], *outs)
     r["spec"] = engines[1].kv_spec
     r["installs"] = engines[1].counters["freeze_installs"]
+    r["host_page_solves"] = engines[1].counters["host_page_solves"]
     return r
 
 
@@ -220,8 +257,8 @@ def _verify_serving(params, cfg, args) -> bool:
           f"rel={r['rel']:.3%} (tolerance: abs<={abs_tol}, "
           f"rel<={SERVING_REL_TOL:.0%}, over agreeing contexts) "
           f"greedy-token agreement {r['agree']}/{r['total']}, "
-          f"{r['installs']} freeze installs "
-          f"-> {'OK' if ok else 'EXCEEDED'}")
+          f"{r['installs']} freeze installs, {r['host_page_solves']} host "
+          f"page solves -> {'OK' if ok else 'EXCEEDED'}")
     return ok
 
 
@@ -346,6 +383,37 @@ def _verify_speculative(params, cfg, args) -> bool:
           f"{r['rollbacks']} rollbacks, tokens/step "
           f"{r['tokens_per_step']:.2f} -> {'OK' if ok else 'MISMATCH'}")
     return ok
+
+
+def disagg_replay(params, cfg, args) -> dict:
+    """Replay a deterministic batch through the colocated engine and the
+    disaggregated one (``--prefill-workers``/``--decode-workers``, fp
+    migration) on an fp pool, whole-prompt prefills and synchronous
+    freezing, in f32 on f32 copies of the weights: the pages cross
+    unchanged, so only the decode batches' composition (one attach an
+    iteration from a prefill worker, against all at once) can move a
+    logit. The prompts are cut to --prompt-len, and 1 and 2 times half a
+    page plus one token shorter, so the handoffs carry tail rows as well
+    as whole pages. Returns ``compare_replays``'s deviation, whether the
+    greedy tokens are equal, the disagg run's handoffs and the prompt
+    lengths."""
+    params, cfg = f32_copy(params, cfg)
+    cut = args.block_size // 2 + 1
+    prompts = [p[:max(len(p) - i * cut, 1)]
+               for i, p in enumerate(_replay_prompts(cfg, args))]
+    outs, engines = [], []
+    for engine in ("continuous", "disagg"):
+        a = argparse.Namespace(**{**vars(args), "engine": engine})
+        eng = _make_engine(params, cfg, a, kv_quant=None, record_logits=True,
+                           freeze_async=False, prefill_chunk=None,
+                           speculate=0)
+        outs.append(eng.generate(prompts, max_new_tokens=args.gen))
+        engines.append(eng)
+    r = compare_replays(engines[0], engines[1], *outs)
+    r["tokens_equal"] = outs[0] == outs[1]
+    r["handoffs"] = engines[1].counters["migrated_seqs"]
+    r["prompt_lens"] = [len(p) for p in prompts]
+    return r
 
 
 def _prefix_requests(cfg, args) -> list:
@@ -483,18 +551,26 @@ def serve(args, params=None):
     trace = poisson_trace(args.num_requests, args.request_rate,
                           vocab=cfg.vocab, prompt_len=args.prompt_len,
                           max_new_tokens=args.gen, seed=args.seed,
+                          temperature=args.temperature, top_k=args.top_k,
                           shared_prefix_len=args.shared_prefix_len)
-    print(f"[serve] continuous batching on {dev} ({cfg.name}, "
+    disagg = args.engine == "disagg"
+    tag = (f"disagg {args.prefill_workers}P/{args.decode_workers}D "
+           f"migrate={eng.migrate}" if disagg else "continuous batching")
+    draft = eng.decode[0].draft if disagg else eng.worker.draft
+    sampling = ("greedy" if args.temperature <= 0 else
+                f"T={args.temperature}, top_k={args.top_k}")
+    print(f"[serve] {tag} on {dev} ({cfg.name}, "
           f"{cfg.n_layers} layers"
           + (f" of {full}" if cfg.n_layers != full else "")
           + f", {cfg.compute_dtype}): "
           f"{args.num_requests} requests, Poisson rate {args.request_rate}/s, "
           f"prompt {args.prompt_len}, gen {args.gen}, {args.max_slots} slots "
           f"x {args.max_seq_len} tokens, block {args.block_size}, "
-          f"kv={eng.kv_spec or 'fp'}, attn_impl={eng.attn_impl}"
-          + (f", speculate={args.speculate} (draft "
-             f"{eng.worker.draft.cfg.name}, {eng.worker.draft.cfg.n_layers} "
-             f"layers)" if args.speculate else "")
+          f"kv={eng.kv_spec or 'fp'}, attn_impl={eng.attn_impl}, "
+          f"sampling {sampling}, freeze budget {args.freeze_page_budget} "
+          f"pages a step"
+          + (f", speculate={args.speculate} (draft {draft.cfg.name}, "
+             f"{draft.cfg.n_layers} layers)" if args.speculate else "")
           + (f", prefix cache (shared prefix {args.shared_prefix_len} "
              f"tokens)" if args.prefix_cache else ""))
     s = eng.run(trace)
@@ -520,7 +596,9 @@ def serve(args, params=None):
           f"{s['paged_attention_launches']} paged-attention kernel launches "
           f"({s['decode_steps']} decode steps + {s['prefill_chunks']} "
           f"prefill chunks, {full_context_layers(cfg)} full-context "
-          f"layers) | freeze: "
+          f"layers"
+          + ("; the prefill workers' whole-prompt prefills read by gather"
+             if disagg else "") + ") | freeze: "
           f"{s['freeze_dispatches']} dispatches -> {s['freeze_installs']} "
           f"installs, {s['host_page_solves']} host page solves, "
           f"{s['freeze_overlap_steps']} decode steps ran between "
@@ -534,6 +612,20 @@ def serve(args, params=None):
         print(f"[serve] prefix cache: {s['prefix_hits']} hits, "
               f"{s['prefix_shared_pages']} pages spliced shared, "
               f"{s['cow_copies']} copy-on-write tail materializations")
+    if disagg:
+        print(f"[serve] migration: {s['prefills_done']} prefills -> "
+              f"{s['migrated_seqs']} handoffs, {s['migrated_pages']} pages, "
+              f"{s['migrate_bytes'] / 1e6:.3f} MB crossed "
+              f"({s['migrate_compression']:.1f}x fewer than fp rows at "
+              f"{s['migrate_fp_equiv_bytes'] / 1e6:.3f} MB)")
+        for i, w in enumerate(s["per_worker"]["prefill"]):
+            print(f"[serve]   prefill worker {i}: {w['prefills']} prefills, "
+                  f"{w['migrated_pages']} pages, "
+                  f"{w['migrate_bytes'] / 1e6:.3f} MB out")
+        for i, w in enumerate(s["per_worker"]["decode"]):
+            print(f"[serve]   decode worker {i}: {w['migrated_seqs']} "
+                  f"handoffs, {w['migrated_pages']} pages, "
+                  f"{w['migrate_bytes'] / 1e6:.3f} MB in")
     if args.speculate:
         print(f"[serve] speculative: acceptance "
               f"{s.get('spec_acceptance_rate', 0.0):.1%} "
@@ -558,6 +650,56 @@ def serve(args, params=None):
     return s, params, cfg
 
 
+def static_prompts(cfg, args, dev) -> torch.Tensor:
+    """``--batch`` seeded prompts of ``--prompt-len`` tokens on ``dev``."""
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    return torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
+                         generator=gen, device=dev)
+
+
+def run_static(args, params=None) -> dict:
+    """The static engine: ``--batch`` prompts through one prefill into the
+    dense ring cache and ``--gen`` greedy decode steps. The weights are
+    ``params`` if given, else seeded random ones, PTQ'd with --quantize;
+    quantized leaves are dequantized first, as in the reference. Returns
+    {tokens (B, gen), logits (B, gen, V), seconds, params, cfg}."""
+    from repro_torch import models
+    from repro_torch.configs import get_config, get_reduced_config
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.static_steps import static_generate
+    from repro_torch.quant import dequantize_tree
+
+    dev = resolve_device(args.device)
+    cfg = (get_reduced_config if args.reduced else get_config)(args.arch)
+    full = cfg.n_layers
+    if args.layers:
+        cfg = cut_depth(cfg, args.layers)
+    if params is None:
+        params = models.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        if args.quantize:
+            params, _ = quantize_params(params, args, dev)
+    if args.quantize:
+        print("[serve] static: the PTQ'd weights dequantized to dense, as "
+              "the reference's static path serves them")
+    params = dequantize_tree(params)
+    tokens = static_prompts(cfg, args, dev)
+    t0 = time.perf_counter()
+    out, logits = static_generate(params, cfg, tokens, args.gen)
+    out = out.cpu()
+    dt = time.perf_counter() - t0
+    B, G = args.batch, args.gen
+    print(f"[serve] static on {dev} ({cfg.name}, {cfg.n_layers} layers"
+          + (f" of {full}" if cfg.n_layers != full else "")
+          + f", {cfg.compute_dtype}): {B} requests x {args.prompt_len} + "
+          f"{G} tokens in {dt:.2f}s ({B * G / dt:.1f} tok/s, first call "
+          f"included); sample: {out[0][:10].tolist()}")
+    if not bool(torch.isfinite(logits).all()):
+        raise SystemExit("[serve] static: non-finite logits")
+    return {"tokens": out, "logits": logits, "seconds": dt,
+            "params": params, "cfg": cfg}
+
+
 def verify(params, cfg, args) -> None:
     """The launcher's replay checks; a breach fails the run."""
     if args.kv_quant and not _verify_serving(params, cfg, args):
@@ -571,7 +713,10 @@ def verify(params, cfg, args) -> None:
 
 
 def run(args) -> dict:
-    """Serve, print the summary, run the replay checks."""
+    """Serve, print the summary, run the replay checks (the static engine:
+    generate and print)."""
+    if args.engine == "static":
+        return run_static(args)
     s, params, cfg = serve(args)
     verify(params, cfg, args)
     return s
@@ -588,11 +733,21 @@ def parse_args(argv=None):
     ap.add_argument("--layers", type=int, default=None,
                     help="serve the first N layers of --arch (a depth cut "
                          "keeping its layer pattern)")
-    ap.add_argument("--engine", choices=("continuous",), default="continuous")
+    ap.add_argument("--engine", choices=("static", "continuous", "disagg"),
+                    default="continuous",
+                    help="continuous (default here; the reference launcher "
+                         "defaults to static), disagg (prefill workers "
+                         "hand pages to decode workers) or static (one "
+                         "fixed batch on a dense ring cache)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; fails without a GPU) or cpu")
-    ap.add_argument("--prompt-len", type=int, default=64)
-    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--batch", type=int, default=4,
+                    help="static engine: prompts in the fixed batch")
+    ap.add_argument("--prompt-len", type=int, default=None,
+                    help="default 64 (16 for the static engine)")
+    ap.add_argument("--gen", type=int, default=None,
+                    help="new tokens a request; default 32 (16 for the "
+                         "static engine)")
     ap.add_argument("--request-rate", type=float, default=4.0,
                     help="Poisson arrival rate, requests/s")
     ap.add_argument("--num-requests", type=int, default=12)
@@ -604,6 +759,13 @@ def parse_args(argv=None):
                          "kmeans_ls@16, iter_l1@16 and kmeans@16 solve on "
                          "the device; dp, l0, tv_iter, mog and dtc (e.g. "
                          "dp@16) freeze each page on the host")
+    ap.add_argument("--kv-num-values", type=int, default=None,
+                    help="count budget for a bare --kv-quant method name "
+                         "(default 16; conflicts with a spec-form "
+                         "--kv-quant)")
+    ap.add_argument("--freeze-page-budget", type=int, default=4,
+                    help="most KV pages frozen a decode step (a prefill "
+                         "burst's remainder is deferred, and counted)")
     ap.add_argument("--quantize", default=None,
                     help="PTQ the projections with this QuantSpec "
                          "(kmeans_ls@16, l1_ls:lam=0.05; a bare method "
@@ -616,6 +778,25 @@ def parse_args(argv=None):
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="admit prompts in N-token chunks, one per engine "
                          "iteration, interleaved with decode steps")
+    ap.add_argument("--prefill-workers", type=int, default=1,
+                    help="disagg: prefill workers, each with a pool of its "
+                         "own")
+    ap.add_argument("--decode-workers", type=int, default=1,
+                    help="disagg: decode workers, each with a pool and a "
+                         "freeze stream of its own")
+    ap.add_argument("--migrate", choices=("fp",), default="fp",
+                    help="disagg: how a finished prompt's pages cross to "
+                         "the decode worker; fp rows only here (frozen "
+                         "codes + codebooks: ROADMAP.md A5c)")
+    ap.add_argument("--staging-depth", type=int, default=None,
+                    help="disagg: most prefills in flight past the waiting "
+                         "queue; a decode stall backpressures the prefill "
+                         "workers (default: unbounded)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature of the trace (0 = greedy, "
+                         "the default and the replays' path)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="top-k truncation when sampling (0 = all)")
     ap.add_argument("--speculate", type=int, default=0,
                     help="draft k tokens a step and verify all k+1 "
                          "positions in one batched target pass (0 = off; "
@@ -634,14 +815,39 @@ def parse_args(argv=None):
                          "the generated trace are the same")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.request_rate <= 0:
+    serving = args.engine != "static"
+    if args.prompt_len is None:
+        args.prompt_len = 64 if serving else 16
+    if args.gen is None:
+        args.gen = 32 if serving else 16
+    if serving and args.request_rate <= 0:
         ap.error("--request-rate must be > 0 (requests per second)")
-    if args.prefill_chunk is not None and args.prefill_chunk < 1:
-        ap.error("--prefill-chunk must be >= 1 token")
+    if args.prefill_chunk is not None:
+        if args.engine != "continuous":
+            ap.error("--prefill-chunk interleaves the continuous engine's "
+                     "decode loop (disagg already overlaps through its "
+                     "workers)")
+        if args.prefill_chunk < 1:
+            ap.error("--prefill-chunk must be >= 1 token")
+    if args.prefix_cache and args.engine != "continuous":
+        ap.error("--prefix-cache shares pages within one colocated pool "
+                 "(the continuous engine); disagg pools migrate pages out")
     if args.speculate < 0:
         ap.error("--speculate must be >= 0")
+    if args.speculate and args.temperature > 0:
+        ap.error("--speculate serves the greedy path; drop --temperature")
+    if args.shared_prefix_len and not serving:
+        ap.error("--shared-prefix-len shapes the continuous/disagg trace")
     if not 0 <= args.shared_prefix_len <= args.prompt_len:
         ap.error("--shared-prefix-len must lie in [0, --prompt-len]")
+    if args.freeze_page_budget < 1:
+        ap.error("--freeze-page-budget must cover >= 1 page")
+    if args.prefill_workers < 1 or args.decode_workers < 1:
+        ap.error("--prefill-workers and --decode-workers must be >= 1")
+    if args.staging_depth is not None and args.staging_depth < 1:
+        ap.error("--staging-depth must be >= 1")
+    if args.batch < 1:
+        ap.error("--batch must be >= 1")
     return args
 
 

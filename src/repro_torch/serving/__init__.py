@@ -1,8 +1,9 @@
 """Serving subsystem (port of ``repro/serving``): continuous batching over
 a paged KV pool whose full pages freeze to codebooks, read through the
 fused paged-attention kernel, with speculative decoding and prefix
-sharing."""
-from .engine import ContinuousBatchingEngine
+sharing, colocated or disaggregated (prefill workers handing fp pages to
+decode workers)."""
+from .engine import ContinuousBatchingEngine, DisaggEngine
 from .kv_cache import (BlockAllocator, DoubleFree, PagedKVCache, PagedKVPool,
                        PoolExhausted, PrefixIndex, dispatch_freeze,
                        freeze_blocks, init_paged_cache, init_paged_layer,
@@ -10,13 +11,17 @@ from .kv_cache import (BlockAllocator, DoubleFree, PagedKVCache, PagedKVPool,
                        quantize_page, resolve_kv_spec, thaw_blocks,
                        with_tables)
 from .metrics import MetricsCollector, percentile
-from .scheduler import (ContinuousBatchingScheduler, Request, SeqState,
-                        make_requests, poisson_trace)
+from .scheduler import (ContinuousBatchingScheduler, DisaggRouter, Request,
+                        SeqState, make_requests, poisson_trace)
 from .speculative import DraftWorker, derive_draft, window_step
-from .workers import DecodeWorker, FinishedPrefill, PrefillWorker, sample_token
+from .transfer import (FinishedPrefill, PagePayload, extract_pages,
+                       splice_payload)
+from .workers import DecodeWorker, PrefillWorker, sample_token
 
 __all__ = [
-    "ContinuousBatchingEngine", "BlockAllocator", "DoubleFree",
+    "ContinuousBatchingEngine", "DisaggEngine", "DisaggRouter",
+    "PagePayload", "extract_pages", "splice_payload", "BlockAllocator",
+    "DoubleFree",
     "PagedKVCache", "PagedKVPool", "PoolExhausted", "PrefixIndex",
     "dispatch_freeze", "freeze_blocks", "init_paged_cache", "init_paged_layer",
     "install_freeze", "page_bytes", "paged_layer_from_reference",

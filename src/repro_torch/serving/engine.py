@@ -1,6 +1,9 @@
-"""Continuous-batching serving engine (port of ``repro/serving/engine.py``,
-the colocated composition): one decode worker plus a prefill worker
-borrowing its pool, behind a wall-clock run loop.
+"""Serving engines (port of ``repro/serving/engine.py``):
+``ContinuousBatchingEngine``, the colocated composition (one decode worker
+plus a prefill worker borrowing its pool), and ``DisaggEngine``, the
+disaggregated one (N prefill workers with pools of their own feeding M
+decode workers through a global router, the pages migrating as fp rows),
+each behind a wall-clock run loop.
 
 ``attn_impl`` picks the read path of decode steps and prefill chunks:
 "fused" goes through the hand-written paged-attention kernel (frozen pages
@@ -53,7 +56,8 @@ from repro_torch.quant.serve import fallback_count
 
 from .kv_cache import resolve_kv_spec
 from .metrics import MetricsCollector
-from .scheduler import Request, make_requests
+from .scheduler import DisaggRouter, Request, make_requests
+from .transfer import check_mode
 from .workers import DecodeWorker, PrefillWorker
 
 
@@ -77,6 +81,32 @@ def _resolve_attn_impl(attn_impl: str, device: torch.device, *,
                              f"paged-attention kernel refuses this pool: "
                              f"{refusal}")
     return attn_impl
+
+
+class _LaunchCounts:
+    """The kernels' launches and the dense fallbacks since construction:
+    a run's summary reports their differences."""
+
+    def __init__(self):
+        self.attn0 = paged_decode_attention.launches
+        self.qmm0, self.fb0 = quant_matmul.launches, fallback_count()
+
+    def into(self, out: dict, metrics) -> None:
+        out["paged_attention_launches"] = (paged_decode_attention.launches
+                                           - self.attn0)
+        out["quant_matmul_launches"] = quant_matmul.launches - self.qmm0
+        fallbacks = fallback_count() - self.fb0
+        out["qmatmul_dequant_fallback"] = fallbacks
+        metrics.stats.counter("qmatmul_dequant_fallback").inc(fallbacks)
+
+
+def _tokens_per_step(out: dict) -> None:
+    """Decode-generated tokens per sequence decode step: 1.0 without
+    speculation, more when verify windows accept drafts."""
+    if out.get("seq_decode_steps"):
+        out["tokens_per_step"] = ((out.get("gen_tokens", 0)
+                                   - out.get("completed", 0))
+                                  / out["seq_decode_steps"])
 
 
 class ContinuousBatchingEngine:
@@ -153,8 +183,7 @@ class ContinuousBatchingEngine:
         arrival; the loop sleeps only when idle. The summary carries this
         run's kernel launches and dequant fallbacks."""
         w = self.worker
-        launches0 = paged_decode_attention.launches
-        qmm0, fallbacks0 = quant_matmul.launches, fallback_count()
+        launches = _LaunchCounts()
         pending = deque(sorted(requests, key=lambda r: (r.arrival_time, r.id)))
         t0 = time.perf_counter()
         now_fn = lambda: time.perf_counter() - t0
@@ -199,16 +228,8 @@ class ContinuousBatchingEngine:
         if w.draft is not None:
             out.update(w.draft.counters, draft_layers=w.draft.cfg.n_layers)
         out["prefill_chunks"] = self.prefill.counters["prefill_chunks"]
-        out["paged_attention_launches"] = (paged_decode_attention.launches
-                                           - launches0)
-        out["quant_matmul_launches"] = quant_matmul.launches - qmm0
-        fallbacks = fallback_count() - fallbacks0
-        out["qmatmul_dequant_fallback"] = fallbacks
-        self.metrics.stats.counter("qmatmul_dequant_fallback").inc(fallbacks)
-        if out.get("seq_decode_steps"):
-            out["tokens_per_step"] = ((out.get("gen_tokens", 0)
-                                       - out.get("completed", 0))
-                                      / out["seq_decode_steps"])
+        launches.into(out, self.metrics)
+        _tokens_per_step(out)
         out["speculate"] = self.speculate
         return out
 
@@ -217,6 +238,214 @@ class ContinuousBatchingEngine:
                  seed: int | None = None) -> dict:
         """Batch convenience: all requests arrive at t=0; returns outputs
         (None for requests rejected by admission control)."""
+        self.run(make_requests(prompts, max_new_tokens,
+                               temperature=temperature, top_k=top_k,
+                               seed=seed))
+        return {i: self.outputs.get(i) for i in range(len(prompts))}
+
+
+class DisaggEngine:
+    """Disaggregated serving: ``prefill_workers`` prefill workers, each with
+    an fp pool of its own (``prefill_blocks`` pages, default twice a
+    longest prompt's plus the null page), feed ``decode_workers`` decode
+    workers through a global ``DisaggRouter``; a finished prompt's pages
+    migrate to the decode worker's pool as fp rows (``migrate="fp"``; the
+    reference's "frozen" raises, naming ROADMAP.md A5c). Every decode
+    worker owns its pool and its freeze stream on the same card, and all
+    of them share one ``MetricsCollector`` and one outputs dict. The
+    decode options are the colocated engine's, but for chunked prefill
+    and prefix sharing, which the reference does not compose with
+    migration either."""
+
+    def __init__(self, params, cfg, *, device="cuda",
+                 prefill_workers: int = 1, decode_workers: int = 1,
+                 migrate: str = "fp", max_slots: int = 8,
+                 block_size: int = 16, max_seq_len: int = 256,
+                 num_blocks: int | None = None,
+                 prefill_blocks: int | None = None, kv_quant=None,
+                 kv_num_values: int | None = None, max_queue: int = 256,
+                 staging_depth: int | None = None, eos_id: int | None = None,
+                 record_logits: bool = False, attn_impl: str = "auto",
+                 freeze_async: bool = True, freeze_page_budget: int = 4,
+                 speculate: int = 0, draft: tuple | None = None,
+                 tracer=None):
+        if cfg.family != "lm":
+            raise ValueError("paged serving drives decoder-only LMs")
+        if prefill_workers < 1 or decode_workers < 1:
+            raise ValueError(f"{prefill_workers} prefill and "
+                             f"{decode_workers} decode workers: want >= 1 "
+                             f"of each")
+        check_mode(migrate)
+        if migrate == "splice":
+            raise ValueError("migrate='splice' is the colocated composition "
+                             "(ContinuousBatchingEngine)")
+        self.device = resolve_device(device)
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.kv_spec = (None if kv_quant is None else
+                        resolve_kv_spec(kv_quant, num_values=kv_num_values))
+        self.attn_impl = _resolve_attn_impl(
+            attn_impl, self.device, head_dim=cfg.head_dim,
+            block_size=block_size,
+            num_values=None if self.kv_spec is None
+            else self.kv_spec.num_values)
+        self.params, self.cfg = params, cfg
+        self.migrate = migrate
+        self.speculate = speculate
+        self.record_logits = record_logits
+        self.metrics = MetricsCollector()
+        self.outputs: dict[int, list[int]] = {}
+        self.request_logits: dict[int, object] = {}
+        self.decode = [DecodeWorker(
+            params, cfg, device=self.device, worker_id=i,
+            max_slots=max_slots, block_size=block_size,
+            max_seq_len=max_seq_len, num_blocks=num_blocks,
+            kv_spec=self.kv_spec, attn_impl=self.attn_impl,
+            freeze_async=freeze_async,
+            freeze_page_budget=freeze_page_budget, max_queue=max_queue,
+            eos_id=eos_id, record_logits=record_logits, speculate=speculate,
+            draft=draft, metrics=self.metrics, outputs=self.outputs,
+            request_logits=self.request_logits, tracer=self.tracer)
+            for i in range(decode_workers)]
+        self.prefills = [PrefillWorker(
+            params, cfg, device=self.device, worker_id=i,
+            block_size=block_size, max_seq_len=max_seq_len, migrate=migrate,
+            num_blocks=prefill_blocks, record_logits=record_logits,
+            metrics=self.metrics, tracer=self.tracer)
+            for i in range(prefill_workers)]
+        self.router = DisaggRouter(max_queue=max_queue,
+                                   staging_depth=staging_depth,
+                                   tracer=self.tracer)
+        self._launches = _LaunchCounts()
+        self.block_size = block_size
+        self.max_seq_len = self.decode[0].max_seq_len
+        self.freeze_async = self.decode[0].freeze_async
+        self.eos_id = eos_id
+
+    @property
+    def counters(self) -> dict:
+        """The decode workers' counters summed (``max_gather_blocks``: the
+        largest)."""
+        agg: dict = {}
+        for dw in self.decode:
+            for k, v in dw.counters.items():
+                agg[k] = (max(agg.get(k, 0), v) if k == "max_gather_blocks"
+                          else agg.get(k, 0) + v)
+        return agg
+
+    def submit(self, req: Request, now: float) -> bool:
+        if self.speculate and req.temperature > 0.0:
+            raise ValueError(
+                "speculative decoding serves the greedy (temperature=0) "
+                "verification path; submit sampled requests to a "
+                "non-speculative engine")
+        d0, p0 = self.decode[0], self.prefills[0]
+        if (not d0.fits(req)
+                or -(-req.prompt_len // self.block_size)
+                > p0.num_blocks - 1):
+            # what no worker can ever hold would block the router's
+            # queues forever
+            self.router.rejected.append(req.id)
+            self.metrics.admission("rejected_pool_full")
+            self.tracer.instant("router", "reject", rid=req.id,
+                                reason="never_fits")
+            return False
+        ok = self.router.submit(req)
+        if ok:
+            self.metrics.arrival(req.id, now, req.prompt_len)
+        else:
+            self.metrics.admission("rejected_queue_full")
+        return ok
+
+    @property
+    def _has_work(self) -> bool:
+        return (self.router.has_work or any(p.busy for p in self.prefills)
+                or any(d.sched.has_work or d.has_work for d in self.decode))
+
+    @torch.inference_mode()
+    def run(self, requests: list[Request], *, poll_s: float = 0.002) -> dict:
+        """Serve a trace (arrival_time = seconds from start). One loop
+        iteration: route waiting requests onto prefill workers, advance
+        each prefill worker (dispatch or harvest, never waiting for the
+        card), place finished prefills onto decode workers, then one
+        decode step per decode worker with work. Decode never waits on a
+        prefill."""
+        self._launches = _LaunchCounts()
+        pending = deque(sorted(requests, key=lambda r: (r.arrival_time, r.id)))
+        t0 = time.perf_counter()
+        now_fn = lambda: time.perf_counter() - t0
+
+        def place(dw, fin):
+            st = dw.sched.admit_direct(fin.req)
+            if st is None:          # the router checked can_accept
+                raise RuntimeError(f"decode worker {dw.worker_id} has no "
+                                   f"free slot for request {fin.req.id}")
+            dw.attach(st, fin, now_fn())
+
+        while pending or self._has_work:
+            now = now_fn()
+            while pending and pending[0].arrival_time <= now:
+                self.submit(pending.popleft(), now)
+            if not self._has_work:
+                if not pending:     # everything left was rejected
+                    break
+                nxt = pending[0].arrival_time
+                time.sleep(min(max(nxt - now, 0.0), poll_s) or poll_s)
+                continue
+            progressed = False
+            self.router.route_prefill(self.prefills)
+            for pw in self.prefills:
+                for fin in pw.step(now_fn):
+                    self.router.stage(fin)
+                    progressed = True
+            progressed |= bool(self.router.route_decode(self.decode, place))
+            for dw in self.decode:
+                if dw.has_work:
+                    dw.step(now_fn)
+                    progressed = progressed or bool(dw.sched.active)
+            if not progressed:
+                # only in-flight prefills to wait on: let the card work
+                time.sleep(poll_s / 4)
+        for dw in self.decode:
+            dw.drain()
+        return self._summary()
+
+    def _summary(self) -> dict:
+        out = self.metrics.summary()
+        out.update(self.counters)
+        if self.speculate:
+            for dw in self.decode:
+                for k, v in dw.draft.counters.items():
+                    out[k] = out.get(k, 0) + v
+            out["draft_layers"] = self.decode[0].draft.cfg.n_layers
+        out["prefills_done"] = sum(p.counters["prefills"]
+                                   for p in self.prefills)
+        out["prefill_chunks"] = 0
+        self._launches.into(out, self.metrics)
+        out["rejected"] = len(self.router.rejected)
+        out["attn_impl"] = self.attn_impl
+        out["migrate"] = self.migrate
+        _tokens_per_step(out)
+        out["speculate"] = self.speculate
+        out["prefill_workers"] = len(self.prefills)
+        out["decode_workers"] = len(self.decode)
+        out["per_worker"] = {
+            "prefill": [{k: p.counters[k] for k in
+                         ("prefills", "migrated_pages", "migrate_bytes")}
+                        for p in self.prefills],
+            "decode": [{k: d.counters[k] for k in
+                        ("migrated_seqs", "migrated_pages", "migrate_bytes")}
+                       for d in self.decode]}
+        pb = self.decode[0]._pb
+        out["page_compression"] = pb["fp"] / pb["frozen"]
+        out["migrate_compression"] = (
+            out["migrate_fp_equiv_bytes"] / out["migrate_bytes"]
+            if out.get("migrate_bytes") else 1.0)
+        return out
+
+    def generate(self, prompts: list[list[int]], max_new_tokens: int,
+                 *, temperature: float = 0.0, top_k: int = 0,
+                 seed: int | None = None) -> dict:
+        """Batch convenience, as the colocated engine's."""
         self.run(make_requests(prompts, max_new_tokens,
                                temperature=temperature, top_k=top_k,
                                seed=seed))

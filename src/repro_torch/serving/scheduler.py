@@ -1,6 +1,7 @@
 """Continuous-batching scheduler: iteration-level batching with admission
-control (port of ``repro/serving/scheduler.py``; the disaggregated router
-and the preemption queue come in later slices).
+control, and the disaggregated engine's router (port of
+``repro/serving/scheduler.py``; the preemption queue comes with overload
+in a later slice).
 
 Pure decision logic over a free-page count: no model, no tensors.
 Admission is conservative: a request is scheduled only when its worst-case
@@ -15,6 +16,8 @@ import dataclasses
 from collections import deque
 
 import numpy as np
+
+from repro_torch.obs.trace import NULL_TRACER
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,6 +107,19 @@ class ContinuousBatchingScheduler:
             free_blocks -= need
         return admitted
 
+    def admit_direct(self, req: Request) -> SeqState | None:
+        """Bind ``req`` to a free slot now, bypassing the waiting queue:
+        the disaggregated import path, whose request was queued by the
+        router and prefilled on a prefill worker already. None when no
+        slot is free. Page accounting stays with the caller, which checks
+        the worker's free pages before offering."""
+        if not self._free_slots:
+            return None
+        slot = self._free_slots.pop()
+        st = SeqState(req=req, slot=slot, length=0)
+        self.active[slot] = st
+        return st
+
     def stage(self, st: SeqState) -> None:
         """Park an admitted sequence out of the decode batch (slot and
         pages stay reserved) while its prompt prefills in chunks."""
@@ -126,6 +142,111 @@ class ContinuousBatchingScheduler:
 
     def active_slots(self) -> list[int]:
         return sorted(self.active)
+
+
+class DisaggRouter:
+    """The disaggregated engine's global router: one queue in front of N
+    prefill workers and M decode workers. Pure decision logic: workers are
+    duck-typed (prefill workers expose ``worker_id``, ``load``,
+    ``can_accept()`` and ``submit``; decode workers ``worker_id``,
+    ``can_accept(req)`` and ``free_slots``), so the policy is testable
+    with fakes. Requests flow
+
+        submit -> waiting -> [prefill worker] -> stage -> [decode worker]
+
+    ``route_prefill`` assigns FCFS to the least-loaded prefill worker
+    (ties to the lowest index, so the schedule is deterministic);
+    ``route_decode`` places staged prefills FCFS onto the decode worker
+    with the most free slots that can hold the request's worst-case pages.
+    A staged head that fits nowhere waits (head-of-line): its pages are
+    computed and on the host already, so holding it costs no device
+    memory, and FCFS keeps it starvation-free.
+
+    ``staging_depth`` bounds the prefills in flight past the waiting
+    queue (on a prefill worker or staged): when decode capacity stalls,
+    ``route_prefill`` stops feeding the prefill workers instead of growing
+    ``staged`` without bound, and the waiting queue's ``max_queue`` door
+    rejects. None is unbounded."""
+
+    def __init__(self, *, max_queue: int = 256,
+                 staging_depth: int | None = None, tracer=None):
+        if staging_depth is not None and staging_depth < 1:
+            raise ValueError(f"staging_depth {staging_depth}: want >= 1 or "
+                             f"None")
+        self.max_queue = max_queue
+        self.staging_depth = staging_depth
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.waiting: deque[Request] = deque()
+        self.staged: deque = deque()           # FinishedPrefill artifacts
+        self.rejected: list[int] = []
+
+    def submit(self, req: Request) -> bool:
+        """Queue-depth admission control at the global door (False = 429)."""
+        if len(self.waiting) >= self.max_queue:
+            self.rejected.append(req.id)
+            self.tracer.instant("router", "reject", rid=req.id,
+                                reason="queue_full")
+            return False
+        self.waiting.append(req)
+        self.tracer.instant("router", "admit", rid=req.id,
+                            queued=len(self.waiting))
+        return True
+
+    def route_prefill(self, workers) -> list:
+        """Assign waiting requests to prefill workers; returns the
+        (worker, request) assignments made. With a ``staging_depth`` the
+        assignments stop once prefill-worker load plus staged artifacts
+        reach it."""
+        out = []
+        inflight = (sum(w.load for w in workers) + len(self.staged)
+                    if self.staging_depth is not None else 0)
+        while self.waiting:
+            if (self.staging_depth is not None
+                    and inflight >= self.staging_depth):
+                break
+            ranked = sorted((w for w in workers if w.can_accept()),
+                            key=lambda w: (w.load, w.worker_id))
+            if not ranked:
+                break
+            req = self.waiting.popleft()
+            ranked[0].submit(req)
+            inflight += 1
+            self.tracer.instant("router", "route_prefill", rid=req.id,
+                                worker=ranked[0].worker_id,
+                                load=ranked[0].load)
+            out.append((ranked[0], req))
+        return out
+
+    def stage(self, finished) -> None:
+        """Park a finished prefill until a decode worker can take it."""
+        self.staged.append(finished)
+        self.tracer.instant("router", "stage", rid=finished.req.id,
+                            staged=len(self.staged))
+
+    def route_decode(self, workers, place=None) -> list:
+        """Offer staged prefills FCFS to decode workers. ``place(worker,
+        finished)`` runs at once for each placement, so the next one sees
+        the capacity (slots, pages) this one consumed. Returns the
+        placements made."""
+        out = []
+        while self.staged:
+            req = self.staged[0].req
+            ranked = sorted((w for w in workers if w.can_accept(req)),
+                            key=lambda w: (-w.free_slots, w.worker_id))
+            if not ranked:
+                break
+            fin = self.staged.popleft()
+            self.tracer.instant("router", "route_decode", rid=fin.req.id,
+                                worker=ranked[0].worker_id,
+                                free_slots=ranked[0].free_slots)
+            if place is not None:
+                place(ranked[0], fin)
+            out.append((ranked[0], fin))
+        return out
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.waiting or self.staged)
 
 
 def derive_seed(seed: int | None, i: int) -> int | None:

@@ -1,25 +1,39 @@
-"""Serving workers: the decode role and the prefill role over one paged
-pool (port of ``repro/serving/workers.py``, colocated composition).
+"""Serving workers: the decode role and the prefill role (port of
+``repro/serving/workers.py``).
 
-``DecodeWorker`` owns the paged pool and the decode hot loop: iteration
+``DecodeWorker`` owns a paged pool and the decode hot loop: iteration
 batching over its slots, async page freezing (batched kmeans_ls solves,
 rate-limited per decode step) and slot recycling, behind ``step()`` /
-``attach()``. With ``speculate=k`` every decode iteration is a draft
-propose (``speculative.DraftWorker``), one batched (B, k+1) verify window
-on the target, and a per-slot accept/rollback. With ``prefix_cache`` the
-worker publishes shareable full prompt pages into a ``PrefixIndex``, and
-later prompts splice them at a refcount instead of prefilling them.
-``PrefillWorker`` borrows the decode worker's pool and allocator and turns
-admitted prompts into finished prefills, whole (``run_inline``) or chunk
-by chunk (``start_chunked``/``advance_chunk``), starting past any spliced
-shared pages.
+``attach()``. Sequences enter it only as finished prefills
+(``transfer.FinishedPrefill``): a splice payload's pages already live in
+its pool, a migration payload's pages are spliced in at fresh blocks. With
+``speculate=k`` every decode iteration is a draft propose
+(``speculative.DraftWorker``), one batched (B, k+1) verify window on the
+target, and a per-slot accept/rollback. With ``prefix_cache`` the worker
+publishes shareable full prompt pages into a ``PrefixIndex``, and later
+prompts splice them at a refcount instead of prefilling them.
 
-Preemption/restore, the owned-pool (disaggregated) prefill mode and its
-page payloads come in later slices.
+``PrefillWorker`` turns prompts into finished prefills in one of two
+compositions:
+
+  owned pool (disaggregated)   ``pool=None``: the worker prefills into its
+      own fp pool, extracts the pages as an fp payload and frees its
+      blocks. ``step()`` dispatches at most one prefill and harvests it on
+      a later call, once the card is done, so the caller's decode loop
+      never waits on a prompt.
+
+  borrowed pool (colocated)    ``pool=<DecodeWorker>``: prompts prefill
+      straight into the decode worker's pool with blocks from its
+      allocator, whole (``run_inline``) or chunk by chunk
+      (``start_chunked``/``advance_chunk``), starting past any spliced
+      shared pages; the handoff is a "splice" payload of block ids.
+
+Preemption/restore and frozen migration come in later slices.
 """
 from __future__ import annotations
 
 import dataclasses
+from collections import deque
 
 import numpy as np
 import torch
@@ -34,6 +48,8 @@ from .kv_cache import (BlockAllocator, PrefixIndex, dispatch_freeze,
 from .metrics import MetricsCollector
 from .scheduler import ContinuousBatchingScheduler, Request, SeqState
 from .speculative import DraftWorker, window_step
+from .transfer import (FinishedPrefill, check_mode, extract_pages,
+                       splice_of, splice_payload)
 
 
 def sample_token(row: np.ndarray, *, temperature: float = 0.0,
@@ -49,21 +65,6 @@ def sample_token(row: np.ndarray, *, temperature: float = 0.0,
         logits = np.where(logits >= kth, logits, -np.inf)
     p = np.exp(logits - logits.max())
     return int(rng.choice(logits.size, p=p / p.sum()))
-
-
-@dataclasses.dataclass
-class FinishedPrefill:
-    """What a prefill hands the decode worker: the sampled first token
-    (and its logits when recorded), the sampler state, and the sequence's
-    pages, already resident in the shared pool, the first
-    ``shared_pages`` of them spliced from the prefix index."""
-
-    req: Request
-    first_token: int
-    blocks: list
-    rng: np.random.Generator
-    last_logits: np.ndarray | None = None
-    shared_pages: int = 0
 
 
 class _Slot:
@@ -85,8 +86,9 @@ class DecodeWorker:
     """The decode role: paged pool + iteration-batched decode loop + async
     freeze machinery, fed through ``attach(seq_state, finished_prefill)``."""
 
-    def __init__(self, params, cfg, *, device, max_slots: int = 8,
-                 block_size: int = 16, max_seq_len: int = 256,
+    def __init__(self, params, cfg, *, device, worker_id: int = 0,
+                 max_slots: int = 8, block_size: int = 16,
+                 max_seq_len: int = 256,
                  num_blocks: int | None = None, kv_spec=None,
                  attn_impl: str = "gather", freeze_async: bool = True,
                  freeze_page_budget: int = 4, max_queue: int = 256,
@@ -112,9 +114,11 @@ class DecodeWorker:
                     f"size {block_size}; the fused-window gate would also "
                     f"catch prefill steps")
         self.speculate = speculate
+        self.worker_id = worker_id
         self.tracer = tracer if tracer is not None else NULL_TRACER
-        self._trk_decode, self._trk_freeze = "decode/w0", "freeze/w0"
-        self._trk_spec = "spec/w0"
+        self._trk_decode = f"decode/w{worker_id}"
+        self._trk_freeze = f"freeze/w{worker_id}"
+        self._trk_spec = f"spec/w{worker_id}"
         self.params, self.cfg = params, cfg
         self.device = torch.device(device)
         self.kv_spec = kv_spec
@@ -157,16 +161,18 @@ class DecodeWorker:
         self._pb = page_bytes(cfg, block_size, quantized=kv_spec is not None,
                               num_values=16 if kv_spec is None
                               else kv_spec.num_values)
-        # freeze/decode overlap accounting; freeze_deferred_pages counts
-        # pages pushed past their iteration by the per-step freeze budget;
-        # host_page_solves counts the per-page host freeze's row solves
-        # (0 with a batched device solver)
+        # freeze/decode overlap and migration accounting;
+        # freeze_deferred_pages counts pages pushed past their iteration by
+        # the per-step freeze budget; host_page_solves counts the per-page
+        # host freeze's row solves (0 with a batched device solver)
         self.counters = {"freeze_dispatches": 0, "freeze_installs": 0,
                          "host_page_solves": 0, "decode_steps": 0,
                          "seq_decode_steps": 0,
                          "freeze_inflight_steps": 0, "freeze_overlap_steps": 0,
                          "freeze_pending_max": 0, "freeze_deferred_pages": 0,
-                         "max_gather_blocks": 0,
+                         "max_gather_blocks": 0, "migrated_seqs": 0,
+                         "migrated_pages": 0, "migrate_bytes": 0,
+                         "migrate_fp_equiv_bytes": 0,
                          # prefix sharing: prefills that matched a published
                          # run, the pages they spliced instead of
                          # prefilling, and write-hot tail pages prefilled
@@ -203,16 +209,41 @@ class DecodeWorker:
             self.metrics.admission("rejected_queue_full")
         return ok
 
+    def can_accept(self, req: Request) -> bool:
+        """Router probe: a free slot and the request's worst-case pages."""
+        return (bool(self.sched._free_slots)
+                and self.sched.blocks_for(req) <= self.alloc.num_free)
+
+    @property
+    def free_slots(self) -> int:
+        return len(self.sched._free_slots)
+
     @property
     def has_work(self) -> bool:
         return bool(self.sched.active or self._pending_freezes
                     or self._freeze_bids)
 
     def attach(self, st: SeqState, fin: FinishedPrefill, now: float) -> None:
-        """Start decoding a finished prefill at slot ``st.slot``."""
+        """Start decoding a finished prefill at slot ``st.slot``.
+
+        A "splice" payload (colocated) carries blocks already living in
+        this pool; a migration payload allocates the request's worst-case
+        blocks here and lands the prompt pages in the first of them (the
+        rest fill during decode). Either way the full pages then queue for
+        freezing, on this pool's own side stream."""
         req, s = st.req, self.slots[st.slot]
+        payload = fin.payload
+        if payload.mode == "splice":
+            blocks = list(payload.blocks)
+        else:
+            blocks = self.alloc.alloc(self.sched.blocks_for(req))
+            splice_payload(self.pool, payload, blocks, tracer=self.tracer)
+            self.counters["migrated_seqs"] += 1
+            self.counters["migrated_pages"] += payload.n_pages
+            self.counters["migrate_bytes"] += payload.nbytes
+            self.counters["migrate_fp_equiv_bytes"] += payload.fp_equiv_bytes
         P = req.prompt_len
-        s.rid, s.blocks = req.id, list(fin.blocks)
+        s.rid, s.blocks = req.id, blocks
         s.out, s.logits = [fin.first_token], []
         s.last_token = fin.first_token
         s.rng, s.temperature, s.top_k = fin.rng, req.temperature, req.top_k
@@ -225,7 +256,8 @@ class DecodeWorker:
         # spliced shared pages are installed-frozen: they start the frozen
         # watermark, so they are never queued for a second solve (an fp
         # pool shares exact pages and never freezes)
-        s.frozen_upto = fin.shared_pages if self.kv_spec is not None else 0
+        s.frozen_upto = (payload.shared_pages if self.kv_spec is not None
+                         else 0)
         self._queue_freeze(st.slot)
         if self.draft is not None:
             # the draft prefills the same prompt on its own pool and
@@ -623,24 +655,77 @@ class _ChunkedPrefill:
 
 
 class PrefillWorker:
-    """The prefill role, colocated: prompts prefill straight into the
-    decode worker's pool with blocks from its allocator, so the handoff to
-    decode is just the block ids."""
+    """The prefill role: prompts -> finished prefills.
 
-    def __init__(self, params, cfg, *, pool: DecodeWorker,
-                 record_logits: bool = False, metrics=None,
-                 prefill_chunk: int | None = None, tracer=None):
-        if prefill_chunk is not None and prefill_chunk < 1:
-            raise ValueError("prefill_chunk must be >= 1 token")
+    With ``pool=<DecodeWorker>`` it borrows the decode worker's pool and
+    allocator (the colocated composition) and emits "splice" payloads of
+    block ids. With ``pool=None`` it owns an fp pool sized for in-flight
+    prompts (``2 * max_prompt_blocks + 1`` pages unless ``num_blocks``)
+    and emits ``migrate`` payloads through ``step()``, which dispatches at
+    most one prefill and harvests it on a later call once the card is
+    done. The owned pool's whole-prompt prefill reads no earlier page, so
+    it takes the gather path and no paged-attention launch."""
+
+    MAX_QUEUE = 64      # prompts routed to one worker and not yet harvested
+
+    def __init__(self, params, cfg, *, pool: DecodeWorker | None = None,
+                 device=None, worker_id: int = 0, block_size: int = 16,
+                 max_seq_len: int = 256, migrate: str = "fp",
+                 num_blocks: int | None = None, record_logits: bool = False,
+                 metrics=None, prefill_chunk: int | None = None,
+                 tracer=None):
+        if prefill_chunk is not None and (prefill_chunk < 1 or pool is None):
+            raise ValueError("prefill_chunk must be >= 1 token and needs a "
+                             "colocated pool (pool=<DecodeWorker>)")
+        check_mode(migrate)
+        self.worker_id = worker_id
         self.tracer = tracer if tracer is not None else NULL_TRACER
-        self._trk = "prefill/w0"
+        self._trk = f"prefill/w{worker_id}"
         self.params, self.cfg = params, cfg
         self.pool = pool
-        self.block_size = pool.block_size
+        self.migrate = migrate
+        self.block_size = pool.block_size if pool is not None else block_size
         self.record_logits = record_logits
         self.prefill_chunk = prefill_chunk
         self.metrics = metrics if metrics is not None else MetricsCollector()
-        self.counters = {"prefills": 0, "prefill_chunks": 0}
+        self.queue: deque[Request] = deque()
+        self._inflight = None   # (req, blocks, logits row, payload)
+        self.counters = {"prefills": 0, "prefill_chunks": 0, "queue_peak": 0,
+                         "migrated_pages": 0, "migrate_bytes": 0}
+        if pool is None:
+            if device is None:
+                raise ValueError("an owned-pool PrefillWorker needs device=")
+            self.device = torch.device(device)
+            max_prompt_blocks = -(-max_seq_len // block_size)
+            self.num_blocks = (num_blocks if num_blocks is not None
+                               else 2 * max_prompt_blocks + 1)
+            self.own_pool = init_paged_cache(
+                cfg, num_blocks=self.num_blocks, block_size=block_size,
+                device=self.device)
+            self.alloc = BlockAllocator(self.num_blocks)
+        else:
+            self.device = pool.device
+            self.num_blocks = pool.num_blocks
+
+    # ------------------------------------------------------------ routing
+
+    @property
+    def load(self) -> int:
+        return len(self.queue) + (1 if self._inflight else 0)
+
+    @property
+    def busy(self) -> bool:
+        return self.load > 0
+
+    def can_accept(self) -> bool:
+        return self.load < self.MAX_QUEUE
+
+    def submit(self, req: Request) -> None:
+        self.queue.append(req)
+        self.counters["queue_peak"] = max(self.counters["queue_peak"],
+                                          self.load)
+
+    # ------------------------------------------------------ prefix sharing
 
     def _match_prefix(self, req: Request) -> list[int]:
         """Longest published-prefix match: retain the matched pages (rc + 1
@@ -671,18 +756,38 @@ class PrefillWorker:
                              pages=len(shared), cow=cow)
         return shared
 
+    # ------------------------------------------------------------ prefill
+
+    def _prompt(self, req: Request) -> np.ndarray:
+        """The zero-padded prompt (1, ppad), ppad a whole number of
+        pages."""
+        ppad = -(-req.prompt_len // self.block_size) * self.block_size
+        toks = np.zeros((1, ppad), np.int32)
+        toks[0, :req.prompt_len] = req.prompt
+        return toks
+
     def _alloc(self, req: Request, now_fn):
         """Splice any published shared prefix, then allocate the rest of
-        the request's worst-case pages. Returns (blocks, zero-padded
-        prompt (1, ppad), prompt pages, shared pages)."""
+        the request's worst-case pages in the colocated pool. Returns
+        (blocks, zero-padded prompt (1, ppad), prompt pages, shared
+        pages)."""
         self.metrics.prefill_start(req.id, now_fn())
-        ppad = -(-req.prompt_len // self.block_size) * self.block_size
         shared = self._match_prefix(req)
         blocks = shared + self.pool.alloc.alloc(
             self.pool.sched.blocks_for(req) - len(shared))
-        toks = np.zeros((1, ppad), np.int32)
-        toks[0, :req.prompt_len] = req.prompt
-        return blocks, toks, ppad // self.block_size, len(shared)
+        toks = self._prompt(req)
+        return blocks, toks, toks.shape[1] // self.block_size, len(shared)
+
+    def _whole(self, pool, toks: np.ndarray, blocks):
+        """Whole-prompt prefill of ``toks`` (1, ppad) into ``pool`` over
+        ``blocks`` (the gather read path). Returns logits (1, ppad, V)."""
+        views = with_tables(pool, np.asarray([blocks], np.int32),
+                            np.zeros((1,), np.int32))
+        logits, _ = models.prefill(
+            self.params, self.cfg,
+            # lint: sync(pageable copy of the prompt's ids; ROADMAP A2)
+            {"tokens": torch.as_tensor(toks).to(pool.device)}, views)
+        return logits
 
     def _chunk(self, toks: np.ndarray, blocks, off: int):
         """Prefill the prompt slice ``toks`` (1, C) at token offset
@@ -705,8 +810,8 @@ class PrefillWorker:
             views)
         return logits
 
-    def _finish(self, req: Request, blocks, last, now_fn,
-                shared: int = 0) -> FinishedPrefill:
+    def _finish(self, req: Request, payload, last,
+                now_fn) -> FinishedPrefill:
         last = last.cpu().numpy()  # lint: sync(first-token sampling)
         now = now_fn()                        # TTFT includes prefill time
         rng = req.make_rng()
@@ -715,14 +820,15 @@ class PrefillWorker:
         self.metrics.first_token(req.id, now)
         self.counters["prefills"] += 1
         return FinishedPrefill(
-            req=req, first_token=tok, blocks=[int(b) for b in blocks],
-            rng=rng, last_logits=last if self.record_logits else None,
-            shared_pages=shared)
+            req=req, first_token=tok, payload=payload, rng=rng,
+            last_logits=last if self.record_logits else None,
+            worker_id=self.worker_id)
 
     def run_inline(self, req: Request, now_fn) -> FinishedPrefill:
-        """Synchronous whole-prompt prefill (the gather read path). Past a
-        spliced shared prefix it is one chunk from the page-aligned offset
-        (explicit positions; through the kernel when fused)."""
+        """Synchronous whole-prompt prefill into the colocated pool (the
+        gather read path). Past a spliced shared prefix it is one chunk
+        from the page-aligned offset (explicit positions; through the
+        kernel when fused)."""
         tr = self.tracer
         t0 = tr.now()
         blocks, toks, nblk, shared = self._alloc(req, now_fn)
@@ -730,17 +836,66 @@ class PrefillWorker:
         if off:
             logits = self._chunk(toks[:, off:], blocks[:nblk], off)
         else:
-            views = with_tables(self.pool.pool,
-                                np.asarray([blocks[:nblk]], np.int32),
-                                np.zeros((1,), np.int32))
-            logits, _ = models.prefill(
-                self.params, self.cfg,
-                # lint: sync(pageable copy of the prompt's ids; ROADMAP A2)
-                {"tokens": torch.as_tensor(toks).to(self.pool.device)}, views)
+            logits = self._whole(self.pool.pool, toks, blocks[:nblk])
         tr.complete(self._trk, "prefill", t0, rid=req.id,
                     prompt_len=req.prompt_len, shared=shared)
-        return self._finish(req, blocks, logits[0, req.prompt_len - 1 - off],
-                            now_fn, shared)
+        return self._finish(
+            req, splice_of(blocks, req.prompt_len, self.block_size, shared),
+            logits[0, req.prompt_len - 1 - off], now_fn)
+
+    # ------------------------------------------------ owned pool (async)
+
+    def _dispatch(self, req: Request, now_fn) -> None:
+        """Enqueue one prompt's prefill into the owned pool and the
+        extraction of its pages; returns without waiting for the card."""
+        tr = self.tracer
+        t0 = tr.now()
+        self.metrics.prefill_start(req.id, now_fn())
+        toks = self._prompt(req)
+        blocks = self.alloc.alloc(toks.shape[1] // self.block_size)
+        logits = self._whole(self.own_pool, toks, blocks)
+        payload = extract_pages(self.own_pool, blocks, req.prompt_len,
+                                block_size=self.block_size,
+                                mode=self.migrate, tracer=tr)
+        self._inflight = (req, blocks, logits[0, req.prompt_len - 1],
+                          payload)
+        tr.complete(self._trk, "dispatch", t0, rid=req.id,
+                    prompt_len=req.prompt_len, pages=len(blocks))
+
+    def _harvest(self, now_fn) -> FinishedPrefill:
+        """The finished prefill: sample the first token, stage the
+        payload to host memory, free the owned pool's blocks."""
+        tr = self.tracer
+        t0 = tr.now()
+        req, blocks, last, payload = self._inflight
+        self._inflight = None
+        fin = self._finish(req, payload, last, now_fn)
+        payload.to_host()           # gated on is_ready: the card is done
+        self.alloc.free(blocks)     # the pages left as a host payload
+        self.counters["migrated_pages"] += payload.n_pages
+        self.counters["migrate_bytes"] += payload.nbytes
+        tr.complete(self._trk, "harvest", t0, rid=req.id,
+                    bytes=payload.nbytes)
+        return fin
+
+    def step(self, now_fn) -> list[FinishedPrefill]:
+        """Advance the owned-pool worker: dispatch the queue head if idle
+        (and its prompt pages fit), harvest the in-flight prefill once the
+        card finished it. Returns 0 or 1 finished prefills."""
+        if self.pool is not None:
+            raise ValueError("step() drives an owned-pool worker; a "
+                             "colocated one runs run_inline or chunks")
+        if self._inflight is None and self.queue:
+            nblk = -(-self.queue[0].prompt_len // self.block_size)
+            if nblk <= self.alloc.num_free:
+                self._dispatch(self.queue.popleft(), now_fn)
+        # harvest only once the prefill and the gather landed: to_host()
+        # on work still in flight would stall the caller's decode loop
+        if self._inflight is not None and self._inflight[3].is_ready():
+            return [self._harvest(now_fn)]
+        return []
+
+    # ---------------------------------------------------------- chunked
 
     def start_chunked(self, req: Request, now_fn) -> _ChunkedPrefill:
         """Open a chunked prefill: allocate the request's worst-case pages
@@ -777,5 +932,6 @@ class PrefillWorker:
                     chunk=C)
         if not state.done:
             return None
-        return self._finish(req, state.blocks, state.last_row, now_fn,
-                            state.shared)
+        return self._finish(
+            req, splice_of(state.blocks, P, self.block_size, state.shared),
+            state.last_row, now_fn)

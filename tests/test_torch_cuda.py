@@ -1196,3 +1196,116 @@ def test_host_freeze_of_card_pages_equals_the_cpu(gen, method):
     assert card.host_solves == cpu.host_solves == 3 * cfg.n_layers * 2
     assert torch.equal(card.codes.cpu(), cpu.codes)
     assert torch.equal(card.cb.cpu(), cpu.cb)
+
+
+# ------------------------------------------- fp page migration on the card
+# A prefill pool (fp) and a decode pool (kmeans_ls@16, packed) of other
+# sizes: their layers start at different padded strides, so only a splice
+# by block id in each layer's view lands the pages where a decode reads
+# them.
+
+
+@pytest.mark.parametrize("arch,block_size", [
+    ("glm4_9b", 1), ("glm4_9b", 5), ("glm4_9b", 7), ("glm4_9b", 16),
+    ("qwen3_0_6b", 16)])
+def test_fp_transfer_is_bitwise_between_pools_of_other_strides(
+        gen, arch, block_size):
+    """extract -> to_host -> splice between pools of different padded
+    strides: landed pages and tail rows equal the source bitwise, the
+    destination's other pages (and the tail page's other rows, codes,
+    codebooks and flags) untouched, and the kernel's decode over the
+    landed pages equals its decode over the source pages bitwise."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.serving import (extract_pages, init_paged_cache,
+                                     splice_payload)
+
+    cfg = get_reduced_config(arch)
+    bs = block_size
+    mb = -(-64 // bs)
+    src = init_paged_cache(cfg, num_blocks=2 * mb + 1, block_size=bs,
+                           device="cuda")
+    dst = init_paged_cache(cfg, num_blocks=2 * mb + 2, block_size=bs,
+                           quantized=True, num_values=16, device="cuda")
+    assert src.k_fp.stride(0) != dst.k_fp.stride(0)
+    for pool in (src, dst):
+        for t in (pool.k_fp, pool.v_fp):
+            t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+    dst.k_codes.random_(0, 256, generator=gen)
+    dst.blk_q[::3] = True
+    P = 3 * bs + max(bs // 2, 1) if bs > 1 else 7
+    n_full, r = divmod(P, bs)
+    n_pages = n_full + (1 if r else 0)
+    blocks = list(range(src.k_fp.shape[1] - 1, 0, -1))[:n_pages]
+    new = [b for b in range(1, dst.k_fp.shape[1]) if b % 3][:n_pages]
+    before = {n: getattr(dst, n).clone() for n in
+              ("k_fp", "v_fp", "k_codes", "k_cb", "blk_q")}
+    payload = extract_pages(src, blocks, P, block_size=bs, mode="fp")
+    torch.cuda.synchronize()
+    assert payload.event is not None and payload.is_ready()
+    payload.to_host()
+    assert payload.full is None or not payload.full.is_cuda
+    assert payload.nbytes == payload.fp_equiv_bytes
+    splice_payload(dst, payload, new)
+    for name in ("k_fp", "v_fp"):
+        s, d, d0 = getattr(src, name), getattr(dst, name), before[name]
+        for j in range(n_full):
+            assert torch.equal(d[:, new[j]], s[:, blocks[j]])
+        if r:
+            assert torch.equal(d[:, new[n_full], :r],
+                               s[:, blocks[n_full], :r])
+            assert torch.equal(d[:, new[n_full], r:], d0[:, new[n_full], r:])
+        rest = [b for b in range(d.shape[1]) if b not in new]
+        assert torch.equal(d[:, rest], d0[:, rest])
+    for name in ("k_codes", "k_cb", "blk_q"):
+        assert torch.equal(getattr(dst, name), before[name])
+    q = torch.randn(1, cfg.n_heads, cfg.head_dim, generator=gen,
+                    device="cuda")
+    valid = torch.tensor([P], dtype=torch.int32, device="cuda")
+
+    def decode(pool, table):
+        bt = torch.tensor([table], dtype=torch.int32, device="cuda")
+        return [paged_decode_attention(
+            q, pool.k_fp[i], pool.v_fp[i], pool.k_codes[i], pool.v_codes[i],
+            pool.k_cb[i], pool.v_cb[i], pool.blk_q, bt, valid,
+            quantized=False) for i in range(cfg.n_layers)]
+    n0 = paged_decode_attention.launches
+    for a, b in zip(decode(src, blocks), decode(dst, new)):
+        assert torch.equal(a, b)
+    assert paged_decode_attention.launches - n0 == 2 * cfg.n_layers
+
+
+@pytest.mark.parametrize("arch", ["qwen3_0_6b", "glm4_9b"])
+def test_disagg_engine_equals_colocated_on_the_card(gen, arch):
+    """The fused disaggregated engine (fp pages migrating from the prefill
+    worker's pool) against the fused colocated engine on an fp pool, f32:
+    equal greedy tokens, logits within 1e-4 of their range; the kernel
+    launched once a layer a decode step (the owned pool's whole-prompt
+    prefills read by gather), and every handoff counted."""
+    from repro_torch import models
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.serving import ContinuousBatchingEngine, DisaggEngine
+
+    cfg = get_reduced_config(arch)
+    params = models.init_params(cfg, gen, "cuda")
+    rng = torch.Generator().manual_seed(4)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=rng).tolist()
+               for n in (20, 13, 31)]
+    kw = dict(device="cuda", max_slots=2, block_size=8, max_seq_len=48,
+              attn_impl="fused", record_logits=True)
+    co = ContinuousBatchingEngine(params, cfg, **kw)
+    out_co = co.generate(prompts, max_new_tokens=10)
+    dz = DisaggEngine(params, cfg, **kw)
+    n0 = paged_decode_attention.launches
+    out_dz = dz.generate(prompts, max_new_tokens=10)
+    assert paged_decode_attention.launches - n0 == (
+        cfg.n_layers * dz.counters["decode_steps"])
+    assert out_dz == out_co
+    scale = max(float(abs(co.request_logits[i]).max())
+                for i in range(len(prompts)))
+    for i in range(len(prompts)):
+        d = float(abs(dz.request_logits[i] - co.request_logits[i]).max())
+        assert d <= 1e-4 * scale, (i, d, scale)
+    c = dz.counters
+    assert c["migrated_seqs"] == len(prompts)
+    assert c["migrate_bytes"] == c["migrate_fp_equiv_bytes"] > 0
+    assert dz.decode[0].alloc.num_free == dz.decode[0].num_blocks - 1

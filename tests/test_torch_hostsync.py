@@ -1,6 +1,6 @@
 """The port's host-sync check (``repro_torch.analysis.hostsync``): the hot
-modules make no host sync but those with a pragma (eight read-backs and
-waits, fourteen pageable host-to-device copies), and the check finds each
+modules make no host sync but those with a pragma (nine read-backs and
+waits, seventeen pageable host-to-device copies), and the check finds each
 construct it names, honours a pragma on the call's line or the line
 before, and reports stale pragmas."""
 import subprocess
@@ -26,6 +26,9 @@ def test_hot_modules_sync_only_where_a_pragma_says_why():
                      ("serving/speculative.py", ".cpu()"),
                      ("serving/speculative.py", ".numpy()"),
                      ("serving/speculative.py", ".to() host-to-device"),
+                     ("serving/transfer.py", ".cpu()"),
+                     ("serving/transfer.py",
+                      "torch.as_tensor(device=) host-to-device"),
                      ("serving/workers.py", ".cpu()"),
                      ("serving/workers.py", ".numpy()"),
                      ("serving/workers.py", ".to() host-to-device")]
@@ -35,9 +38,11 @@ def test_hot_modules_sync_only_where_a_pragma_says_why():
     # copies of the window's and the draft prompt's token ids; the
     # per-page host freeze of the count methods without a device solver
     # adds its pages' read-back and the copies of their page ids, codes
-    # and codebooks
-    assert len(lines) == 22
-    assert len([f for f in findings if "host-to-device" in f.what]) == 14
+    # and codebooks; fp page migration adds the payload's staging to the
+    # host (gated on its event) and the copies of the source page ids, the
+    # staged pages and the destination page ids
+    assert len(lines) == 26
+    assert len([f for f in findings if "host-to-device" in f.what]) == 17
     assert all(f.reason for f in findings)
 
 
@@ -45,7 +50,7 @@ def test_every_hot_module_is_read():
     for rel in hostsync.HOT_MODULES:
         assert (hostsync.PACKAGE / rel).is_file(), rel
     assert {"serving/workers.py", "serving/kv_cache.py",
-            "serving/speculative.py",
+            "serving/speculative.py", "serving/transfer.py",
             "kernels/fista_quant.py"} <= set(hostsync.HOT_MODULES)
 
 

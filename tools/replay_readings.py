@@ -5,11 +5,14 @@ width and depth on the card, from kmeans_ls@16-PTQ'd weights as in
 without a bound. With ``--speculate``, the serve-spec phase's replays
 instead: speculative vs non-speculative (with the auto draft and with
 ``chip_smoke.untied_draft``, which rolls back), shared vs unshared prefix
-(fp pool) and fused vs gather of speculative engines. Run from a copy of the
-repository with one line of ``src/`` changed to read a planted fault.
+(fp pool) and fused vs gather of speculative engines. With ``--disagg``,
+the disaggregated engine against the colocated one on an fp pool (f32,
+``chip_smoke.DISAGG_ARGS``) instead. Run from a copy of the repository
+with one line of ``src/`` changed to read a planted fault.
 
     python3 tools/replay_readings.py --kv-quant iter_l1@16 --seeds 0 1 2
     python3 tools/replay_readings.py --kv-quant kmeans_ls@16 --speculate
+    python3 tools/replay_readings.py --disagg
 """
 from __future__ import annotations
 
@@ -33,6 +36,9 @@ def main(argv=None) -> int:
     ap.add_argument("--speculate", action="store_true",
                     help="the serve-spec phase's replays (chip_smoke."
                          "SPEC_ARGS) instead")
+    ap.add_argument("--disagg", action="store_true",
+                    help="disagg vs colocated on an fp pool (chip_smoke."
+                         "DISAGG_ARGS) instead")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("replay_readings: no CUDA device visible", file=sys.stderr)
@@ -43,6 +49,7 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     args = serve.parse_args((chip_smoke.SPEC_ARGS if opts.speculate
+                             else chip_smoke.DISAGG_ARGS if opts.disagg
                              else chip_smoke.QUANT_ARGS)
                             + ["--kv-quant", opts.kv_quant])
     cfg = get_config(args.arch)
@@ -53,6 +60,14 @@ def main(argv=None) -> int:
     print(chip_smoke.card_line())
     for seed in opts.seeds:
         args.seed = seed
+        if opts.disagg:
+            r = serve.disagg_replay(params, cfg, args)
+            print(f"seed {seed} disagg vs colocated (fp pool): rel "
+                  f"{r['rel']:.4%} max|dlogit| {r['dmax']:.4g} tokens "
+                  f"{r['agree']}/{r['total']} "
+                  f"{'equal' if r['tokens_equal'] else 'DIFFER'} "
+                  f"handoffs {r['handoffs']}", flush=True)
+            continue
         if opts.speculate:
             for name, fn in (
                     ("speculative vs non-speculative (auto draft)",
