@@ -20,7 +20,14 @@ as fp rows; then two decode workers), fp page migration between pools of
 different layer strides on its own (bitwise), the disaggregated engine
 against the colocated one in f32, and the static engine (the reference
 launcher's default: a fixed batch on the dense ring cache) against the
-continuous one. Then a batched l1_ls
+continuous one. After serve-disagg, phase ``serve-disagg-frozen`` serves
+the trace through frozen migration (each prompt's pages solved on the
+prefill worker's pool and crossing as codes + codebooks; kmeans_ls@16,
+then iter_l1@16 through ``fista_freeze``), and phase ``overload``
+demotes and restores the longest sequence at decode steps 3 and 7
+(colocated and disagg frozen; tokens equal the uninterrupted run's),
+serves the trace with ``--preempt --offload-pages`` and half the
+requests best_effort, and with ``--admission slo``. Then a batched l1_ls
 PTQ of the whole model in one FISTA launch, served for a few requests.
 Then the other configs: glm4-9b at full width and depth from kmeans_ls@16
 codes (its f32 replays on its first 8 layers), yi-34b and gemma2-27b at
@@ -128,6 +135,29 @@ _CHUNK = QUANT_ARGS.index("--prefill-chunk")
 DISAGG_ARGS = (QUANT_ARGS[:_CHUNK] + QUANT_ARGS[_CHUNK + 2:]
                + ["--engine", "disagg", "--prefill-workers", "1",
                   "--decode-workers", "1", "--migrate", "fp"])
+# the same through frozen migration: each prompt's 16 full pages are solved
+# on the prefill worker's (quantized) pool behind its prefill and cross as
+# packed codes + codebooks, 16,512 B a page and layer against 65,536 B of
+# bf16 rows (3.97x)
+DISAGG_FROZEN_ARGS = DISAGG_ARGS + ["--migrate", "frozen"]
+# overload. The forced restore (the longest sequence demoted at decode
+# steps 3 and 7 and restored at once) runs with synchronous freezes and a
+# freeze budget that covers every queued page, so in both runs each page
+# freezes at the flush after it fills; a smaller budget re-queues a
+# victim's deferred pages behind others' at restore, which changes when
+# they freeze, not what the restore lands.
+FORCED_STEPS = (3, 7)
+FORCED_ARGS = ["--freeze-page-budget", "64"]
+# the main path's trace with preemption: on seed 0, requests 3, 5 and 7 are
+# best_effort, and request 4 (latency) arrives at 0.284 s into 4 full slots
+PREEMPT_ARGS = QUANT_ARGS + ["--preempt", "--offload-pages",
+                             "--best-effort-frac", "0.5"]
+# SLO admission with an inter-token p99 target no step meets: best_effort
+# arrivals shed once the policy's window holds 16 gaps (its min_samples),
+# so the trace runs at 2 req/s (the best_effort requests 5 and 7 arrive at
+# 1.95 and 2.66 s; at 8 req/s they come before 16 gaps can exist)
+SLO_ARGS = QUANT_ARGS + ["--admission", "slo", "--itl-slo", "0.001",
+                         "--best-effort-frac", "0.5", "--request-rate", "2"]
 # disagg vs colocated on an fp pool, f32, the same deterministic batch
 # (serve.disagg_replay): the pages cross unchanged, so only the decode
 # batches' composition can move a logit. Readings (tools/replay_readings.py
@@ -898,11 +928,13 @@ def check_launches(s, cfg, launches, quantized: bool, *, fista: bool = False,
     chunks) (a local-window layer reads by gather); the dequant matmul: 7
     projections x layers x that from codes, 0 from dense weights. On the
     disaggregated engine (a summary with ``prefills_done``) the prefill
-    workers' whole-prompt prefills read their own fp pools by gather (no
+    workers' whole-prompt prefills read their own pools by gather (no
     attention launch) and each runs every projection once: the dequant
     matmul adds 7 x layers x prefills. FISTA:
-    one launch of its freeze entry per freeze dispatch on an iter_l1 pool,
-    else 0, and none of its fista_quant entry; no stacked launch and no
+    one launch of its freeze entry per freeze dispatch on an iter_l1 pool
+    (and per frozen migration's solve on a prefill worker,
+    ``migrate_solves``), else 0, and none of its fista_quant entry; no
+    stacked launch and no
     dense fallback on the serving path. With ``spec`` = k, a decode step
     is one verify window of the target (the same launches), and the draft
     (gather path: no attention launch) makes one call per request's
@@ -931,7 +963,8 @@ def check_launches(s, cfg, launches, quantized: bool, *, fista: bool = False,
                                + draft_mm if quantized else 0),
               "quant_matmul_stacked": 0,
               "fista_quant": 0,
-              "fista_freeze": s["freeze_dispatches"] if fista else 0,
+              "fista_freeze": (s["freeze_dispatches"]
+                               + s.get("migrate_solves", 0)) if fista else 0,
               "fallbacks": 0}
     if s["completed"] != requests or s["freeze_installs"] <= 0 \
             or s["freeze_dispatches"] <= 0 \
@@ -964,8 +997,9 @@ def check_launches(s, cfg, launches, quantized: bool, *, fista: bool = False,
                f"({s['draft_prefills']} draft prefills + "
                f"{s['draft_steps']} draft windows)" if spec else "")
             + f"; {expect['fista_freeze']} fista_freeze launches"
-            + (f" = 1 x {s['freeze_dispatches']} freeze dispatches"
-               if fista else "") + "; 0 fista_quant launches"
+            + (f" = 1 x ({s['freeze_dispatches']} freeze dispatches + "
+               f"{s.get('migrate_solves', 0)} prefill-side migration "
+               f"solves)" if fista else "") + "; 0 fista_quant launches"
             + f"; qmatmul_dequant_fallback=0; {s['freeze_installs']} freeze "
             f"installs; {s['host_page_solves']} host page solves")
 
@@ -1494,6 +1528,177 @@ def check_serve_disagg(params, main: dict) -> dict:
                 tpot_p99_ms=s["tpot_p99_s"] * 1e3,
                 ttft_mean_ms=s["ttft_mean_s"] * 1e3,
                 two_decode_handoffs=per)
+
+
+def check_serve_disagg_frozen(params) -> dict:
+    """The main path's weights and trace through ``--engine disagg
+    --migrate frozen``: launch gates, the migration counters (8 handoffs,
+    128 pages, the bytes exactly the frozen pages' codes and codebooks,
+    one solve a prompt on the prefill worker, no host page solve), the
+    serving check and fused vs gather on that composition; then the same
+    with iter_l1@16 pages, whose prefill-side solves are ``fista_freeze``
+    launches too."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import page_bytes
+
+    name = "serve-disagg-frozen"
+    t0 = time.perf_counter()
+    s, params, cfg, args, launches = serve_once(DISAGG_FROZEN_ARGS, params)
+    phase(name, check_launches(s, cfg, launches, quantized=True))
+    pb = page_bytes(cfg, args.block_size, quantized=True, num_values=16)
+    pages = args.num_requests * (args.prompt_len // args.block_size)
+    n = args.num_requests
+    want = (n, n, pages, pages * pb["frozen"], pages * pb["fp"], n, 0)
+    got = (s["prefills_done"], s["migrated_seqs"], s["migrated_pages"],
+           s["migrate_bytes"], s["migrate_fp_equiv_bytes"],
+           s["migrate_solves"], s["host_page_solves"])
+    if got != want:
+        raise AssertionError(f"{name}: (prefills, handoffs, pages, bytes, "
+                             f"fp-equivalent, prefill-side solves, host "
+                             f"page solves) {got}, want {want}")
+    phase(name, f"{s['prefills_done']} prefills -> {s['migrated_seqs']} "
+          f"handoffs, {s['migrated_pages']} pages, {s['migrate_bytes']:,} B "
+          f"crossed against {s['migrate_fp_equiv_bytes']:,} B of fp rows "
+          f"(migrate_compression {s['migrate_compression']:.4f}); "
+          f"{s['migrate_solves']} solves on the prefill worker, 0 host page "
+          f"solves")
+    serve.verify(params, cfg, args)      # the serving check, disagg frozen
+    check_fused_vs_gather(params, cfg, args, ("kmeans_ls@16",), name=name)
+    phase(name, f"disagg frozen {serve_line(s)}")
+    s2, _, cfg2, _, launches2 = serve_once(
+        DISAGG_FROZEN_ARGS + ["--kv-quant", "iter_l1@16"], params)
+    line = check_launches(s2, cfg2, launches2, quantized=True, fista=True)
+    if s2["migrate_solves"] != n or s2["host_page_solves"] != 0:
+        raise AssertionError(f"{name} iter_l1@16: {s2['migrate_solves']} "
+                             f"prefill-side solves, {s2['host_page_solves']} "
+                             f"host page solves")
+    phase(name, f"iter_l1@16: {line}; migrate_compression "
+          f"{s2['migrate_compression']:.4f}; {serve_line(s2)}")
+    phase(name, f"{time.perf_counter() - t0:.1f} s")
+    return dict(launches=launches, iter_launches=launches2,
+                migrate_bytes=s["migrate_bytes"],
+                compression=s["migrate_compression"],
+                tpot_p50_ms=s["tpot_p50_s"] * 1e3)
+
+
+def forced_offload(eng, requests, worker, at_steps=FORCED_STEPS):
+    """Run ``requests`` on ``eng``, demoting the longest live sequence of
+    ``worker`` to the host tier at each decode step in ``at_steps`` (the
+    next step reads its pages: the restore has no slack). Returns (outputs,
+    summary); fails if the fault never fired or the host tier did not
+    drain."""
+    om = eng.overload
+    orig_step = worker.step
+    fired = set()
+
+    def step(now_fn):
+        n = worker.counters["decode_steps"]
+        if n in at_steps and n not in fired and worker.sched.active:
+            fired.add(n)
+            slot = max(worker.sched.active,
+                       key=lambda i: (int(worker.lens[i]), i))
+            st = worker.sched.active[slot]
+            if not st.done and worker.slots[slot].out:
+                entry = worker.preempt(st, "restore", now_fn())
+                om.store.put(entry)
+                om.resume.append(entry)
+        orig_step(now_fn)
+
+    worker.step = step
+    summary = eng.run(requests)
+    if not fired or len(om.store) or om.resume:
+        raise AssertionError(f"forced offload fired at steps {sorted(fired)}"
+                             f", {len(om.store)} entries left demoted")
+    return dict(eng.outputs), summary
+
+
+def check_forced_restore(params, cfg, argv, tag) -> tuple[str, dict]:
+    """The replay batch on the composition ``argv`` asks for (synchronous
+    freezes), uninterrupted and with the longest sequence demoted and
+    restored at decode steps 3 and 7: greedy tokens equal, every demoted
+    page and byte restored. Returns (the phase line, launches)."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import make_requests
+
+    args = serve.parse_args(argv + FORCED_ARGS + ["--offload-pages"])
+    prompts = serve._replay_prompts(cfg, args)
+    kw = dict(kv_quant=args.kv_quant, freeze_async=False, record_logits=True)
+    golden = serve._make_engine(params, cfg, args, **kw)
+    golden.generate(prompts, max_new_tokens=args.gen)
+    eng = serve._make_engine(params, cfg, args, overload=True, **kw)
+    worker = eng.decode[0] if args.engine == "disagg" else eng.worker
+    (outs, s), launches = counting_launches(lambda: forced_offload(
+        eng, make_requests(prompts, args.gen), worker))
+    r = serve.compare_replays(golden, eng, dict(golden.outputs), outs)
+    if outs != dict(golden.outputs) \
+            or not s["preempt_offloads"] == s["restored_seqs"] >= 1 \
+            or s["offloaded_pages"] != s["restored_pages"] \
+            or not s["offload_bytes"] == s["restore_bytes"] > 0:
+        raise AssertionError(
+            f"forced restore ({tag}): tokens {r['agree']}/{r['total']}, "
+            f"{s['preempt_offloads']} offloads, {s['restored_seqs']} "
+            f"restores, pages {s['offloaded_pages']}/{s['restored_pages']},"
+            f" bytes {s['offload_bytes']}/{s['restore_bytes']}")
+    return (f"forced restore at decode steps {list(FORCED_STEPS)} ({tag}, "
+            f"{len(prompts)} x {args.prompt_len} + {args.gen}, "
+            f"{cfg.compute_dtype}): greedy tokens {r['agree']}/{r['total']} "
+            f"equal the uninterrupted run's, max|dlogit| {r['dmax']:.4g} "
+            f"(rel {r['rel']:.4%}); {s['preempt_offloads']} offloads == "
+            f"{s['restored_seqs']} restores, {s['offloaded_pages']} pages "
+            f"and {s['offload_bytes']:,} B each way, offload_compression "
+            f"{s['offload_compression']:.4f}"), launches
+
+
+def check_overload(params, cfg) -> dict:
+    """Overload at full width on the main path's weights: (1) the forced
+    restore on the colocated main path and on disagg frozen migration;
+    (2) the main path's trace with ``--preempt --offload-pages
+    --best-effort-frac 0.5``: every request completes, at least one
+    preemption, never a recompute (a quantized pool restores), launch
+    gates; (3) ``--admission slo --itl-slo 0.001``: best_effort arrivals
+    shed, every latency request completes."""
+    name = "overload"
+    t0 = time.perf_counter()
+    launches = []
+    for tag, argv in (("colocated main path", QUANT_ARGS),
+                      ("disagg, frozen migration", DISAGG_FROZEN_ARGS)):
+        line, l = check_forced_restore(params, cfg, argv, tag)
+        launches.append(l)
+        phase(name, line)
+    s, _, cfg, _, l2 = serve_once(PREEMPT_ARGS, params)
+    line = check_launches(s, cfg, l2, quantized=True)
+    if s["preemptions"] < 1 or s["preempt_recomputes"] != 0 \
+            or s["preempt_offloads"] != s["restored_seqs"]:
+        raise AssertionError(f"{name}: {s['preemptions']} preemptions, "
+                             f"{s['preempt_recomputes']} recomputes, "
+                             f"{s['preempt_offloads']} offloads, "
+                             f"{s['restored_seqs']} restores")
+    phase(name, f"--preempt --offload-pages: 8/8 completed, "
+          f"{s['preemptions']} preemptions ({s['preempt_offloads']} "
+          f"offloaded, {s['preempt_recomputes']} recomputed), "
+          f"{s['offloaded_pages']} pages / {s['offload_bytes']:,} B to the "
+          f"host tier (offload_compression "
+          f"{s.get('offload_compression', 0.0):.4f}), {s['restored_seqs']} "
+          f"restored; {line}")
+    phase(name, f"preempt   {serve_line(s)}")
+    s3, _, _, args3, l3 = serve_once(SLO_ARGS, params)
+    shed = s3.get("shed_slo", 0)
+    line = check_launches(s3, cfg, l3, quantized=True,
+                          requests=s3["completed"])
+    if shed < 1 or s3["rejected"] != shed \
+            or s3["completed"] + shed != args3.num_requests:
+        raise AssertionError(f"{name} slo: shed {shed}, rejected "
+                             f"{s3['rejected']}, completed "
+                             f"{s3['completed']}/{args3.num_requests}")
+    phase(name, f"--admission slo --itl-slo 0.001: {shed} best_effort "
+          f"arrivals shed, {s3['completed']}/{args3.num_requests} completed "
+          f"(every latency request); {line}")
+    launches += [l2, l3]
+    phase(name, f"{time.perf_counter() - t0:.1f} s")
+    return dict(launches={k: sum(l[k] for l in launches)
+                          for k in launches[0]},
+                preemptions=s["preemptions"], shed_slo=shed,
+                offload_compression=s.get("offload_compression"))
 
 
 def transfer_case(cfg, bs: int, P: int, gen) -> dict:
@@ -2426,6 +2631,8 @@ def main() -> int:
     cfg = sv["cfg"]
     it = check_serve_iter_l1(sv["params"])
     dz = check_serve_disagg(sv["params"], sv)
+    dzf = check_serve_disagg_frozen(sv["params"])
+    ov = check_overload(sv["params"], cfg)
     check_transfer(gen)
     check_disagg_vs_colocated(sv["params"])
     check_static(sv["params"])
@@ -2450,6 +2657,9 @@ def main() -> int:
          "launches": sv["launches"]["paged_decode_attention"],
          "serve_spec_launches": sp_launches["paged_decode_attention"],
          "serve_disagg_launches": dz["launches"]["paged_decode_attention"],
+         "serve_disagg_frozen_launches": dzf["launches"][
+             "paged_decode_attention"],
+         "overload_launches": ov["launches"]["paged_decode_attention"],
          "serve_glm4_launches": g4["launches"]["paged_decode_attention"],
          "serve_yi_launches": wide["yi_34b"]["launches"][
              "paged_decode_attention"],
@@ -2464,6 +2674,8 @@ def main() -> int:
          "launches": sv["launches"]["quant_matmul"],
          "serve_spec_launches": sp_launches["quant_matmul"],
          "serve_disagg_launches": dz["launches"]["quant_matmul"],
+         "serve_disagg_frozen_launches": dzf["launches"]["quant_matmul"],
+         "overload_launches": ov["launches"]["quant_matmul"],
          "serve_glm4_launches": g4["launches"]["quant_matmul"],
          "solvers_launches": so["quant_matmul"], **q},
         {"name": "quant_matmul_stacked", "route": "cuda",
@@ -2480,6 +2692,8 @@ def main() -> int:
          "launches": it["launches"],
          "freeze_dispatches": it["freeze_dispatches"],
          "solvers_launches": so["fista_freeze"],
+         "serve_disagg_frozen_launches": dzf["iter_launches"][
+             "fista_freeze"],
          "serve_iter_l1_tpot_p50_ms": it["tpot_p50_ms"], **f["freeze"]},
     ]}
     phase("done", f"{time.perf_counter() - t_start:.1f} s")

@@ -47,6 +47,7 @@ HOT_MODULES = (
     "serving/speculative.py",
     "serving/kv_cache.py",
     "serving/transfer.py",
+    "serving/overload.py",
     "kernels/paged_attention.py",
     "kernels/quant_matmul.py",
     "kernels/page_quant.py",

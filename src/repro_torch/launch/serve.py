@@ -13,16 +13,32 @@ port has (qwen3_0_6b, glm4_9b, yi_34b, gemma2_27b):
         --kv-quant kmeans_ls@16 --quantize kmeans_ls@16 --prefill-chunk 64
 
 ``--engine disagg`` serves the same trace through disaggregated workers:
-``--prefill-workers N`` prefill workers, each with an fp pool of its own,
+``--prefill-workers N`` prefill workers, each with a pool of its own,
 hand every finished prompt's pages to one of ``--decode-workers M``
-decode workers as fp rows (``--migrate fp``), through a global router
-(``--staging-depth D`` caps the prefills in flight past its queue):
+decode workers through a global router (``--staging-depth D`` caps the
+prefills in flight past its queue), as fp rows (``--migrate fp``) or as
+packed codes + codebooks solved on the prefill worker's pool behind the
+prefill (``--migrate frozen``, which needs a ``--kv-quant`` with a device
+solver: kmeans_ls, kmeans or iter_l1):
 
     python -m repro_torch.launch.serve --engine disagg --prefill-workers 1 \\
-        --decode-workers 2 --migrate fp --kv-quant kmeans_ls@16 \\
+        --decode-workers 2 --migrate frozen --kv-quant kmeans_ls@16 \\
         --quantize kmeans_ls@16
 
 The summary adds the handoffs, pages and MB that crossed, for each worker.
+
+Overload, on the continuous and disagg engines: ``--preempt`` evicts the
+least recently served best_effort sequence when a latency request is
+blocked on slots or pages, ``--offload-pages`` demotes a victim's pages to
+host memory (frozen pages as their codes + codebooks) and restores them
+exactly (without it, or when moving the pages back costs more than
+re-prefilling an fp greedy run, the victim is recomputed), and
+``--admission slo`` sheds best_effort arrivals while the windowed
+inter-token p99 exceeds ``--itl-slo`` seconds and defers them while the
+pool is nearly full. ``--priority`` sets every request's tier, or
+``--best-effort-frac F`` marks a seed-derived fraction best_effort. The
+summary adds admission outcomes by reason and the preemption, offload and
+restore counters.
 ``--prefill-chunk`` and ``--prefix-cache`` serve the colocated pool only,
 as in the reference.
 
@@ -147,12 +163,15 @@ def _make_draft(params, cfg, args):
 def _make_engine(params, cfg, args, *, kv_quant, record_logits=False,
                  freeze_async=True, attn_impl=None, prefill_chunk=-1,
                  freeze_page_budget=None, speculate=None, prefix_cache=False,
-                 max_slots=None, draft=None):
+                 max_slots=None, draft=None, overload=False):
     """The engine composition ``args`` asks for (``--engine continuous``
     or ``disagg``), so every replay runs the composition served;
     ``speculate`` (default ``--speculate``) drafts with ``draft`` (params,
     cfg), by default built from ``params`` by ``--draft-config``; the
-    freeze budget defaults to ``--freeze-page-budget``."""
+    freeze budget defaults to ``--freeze-page-budget``. ``overload`` turns
+    on the overload flags (the served run; the replays probe an
+    uncontended pool). A disagg engine without ``kv_quant`` migrates fp,
+    the only pages that cross without a spec."""
     from repro_torch.serving import ContinuousBatchingEngine, DisaggEngine
 
     speculate = args.speculate if speculate is None else speculate
@@ -168,11 +187,15 @@ def _make_engine(params, cfg, args, *, kv_quant, record_logits=False,
               speculate=speculate,
               draft=(draft or _make_draft(params, cfg, args)) if speculate
               else None)
+    if overload:
+        kw.update(offload_pages=args.offload_pages, preempt=args.preempt,
+                  admission=args.admission, itl_slo_s=args.itl_slo)
     if args.engine == "disagg":
         return DisaggEngine(params, cfg,
                             prefill_workers=args.prefill_workers,
                             decode_workers=args.decode_workers,
-                            migrate=args.migrate,
+                            migrate=(args.migrate if kv_quant is not None
+                                     else "fp"),
                             staging_depth=args.staging_depth, **kw)
     return ContinuousBatchingEngine(
         params, cfg, prefix_cache=prefix_cache,
@@ -547,16 +570,24 @@ def serve(args, params=None):
         if args.quantize:
             params, ptq = quantize_params(params, args, dev)
     eng = _make_engine(params, cfg, args, kv_quant=args.kv_quant,
-                       prefix_cache=args.prefix_cache)
+                       prefix_cache=args.prefix_cache, overload=True)
     trace = poisson_trace(args.num_requests, args.request_rate,
                           vocab=cfg.vocab, prompt_len=args.prompt_len,
                           max_new_tokens=args.gen, seed=args.seed,
                           temperature=args.temperature, top_k=args.top_k,
+                          best_effort_frac=(1.0 if args.priority
+                                            == "best_effort"
+                                            else args.best_effort_frac),
                           shared_prefix_len=args.shared_prefix_len)
     disagg = args.engine == "disagg"
     tag = (f"disagg {args.prefill_workers}P/{args.decode_workers}D "
            f"migrate={eng.migrate}" if disagg else "continuous batching")
     draft = eng.decode[0].draft if disagg else eng.worker.draft
+    over = [n for n, on in (("preempt", args.preempt),
+                            ("offload-pages", args.offload_pages),
+                            (f"admission slo, itl_slo {args.itl_slo}s",
+                             args.admission == "slo")) if on]
+    n_be = sum(r.priority == "best_effort" for r in trace)
     sampling = ("greedy" if args.temperature <= 0 else
                 f"T={args.temperature}, top_k={args.top_k}")
     print(f"[serve] {tag} on {dev} ({cfg.name}, "
@@ -572,7 +603,9 @@ def serve(args, params=None):
           + (f", speculate={args.speculate} (draft {draft.cfg.name}, "
              f"{draft.cfg.n_layers} layers)" if args.speculate else "")
           + (f", prefix cache (shared prefix {args.shared_prefix_len} "
-             f"tokens)" if args.prefix_cache else ""))
+             f"tokens)" if args.prefix_cache else "")
+          + (f", overload ({', '.join(over)})" if over else "")
+          + (f", {n_be} best_effort requests" if n_be else ""))
     s = eng.run(trace)
     if ptq is not None:
         s["ptq"] = ptq
@@ -612,12 +645,32 @@ def serve(args, params=None):
         print(f"[serve] prefix cache: {s['prefix_hits']} hits, "
               f"{s['prefix_shared_pages']} pages spliced shared, "
               f"{s['cow_copies']} copy-on-write tail materializations")
+    adm = {k: s[k] for k in ("rejected_queue_full", "rejected_pool_full",
+                             "shed_slo", "deferred") if s.get(k)}
+    if adm or args.admission == "slo":
+        print(f"[serve] admission ({args.admission}"
+              + (f", itl_slo={args.itl_slo}s" if args.itl_slo else "")
+              + "): " + (", ".join(f"{k}={v}" for k, v in adm.items())
+                         or "none"))
+    if s.get("preemptions"):
+        comp = s.get("offload_compression", 0.0)
+        print(f"[serve] overload: {s['preemptions']} preemptions "
+              f"({s['preempt_offloads']} offloaded to host, "
+              f"{s['preempt_recomputes']} recomputed); "
+              f"{s['offloaded_pages']} pages -> host tier at "
+              f"{s['offload_bytes'] / 1e6:.3f} MB"
+              + (f" ({comp:.2f}x smaller than fp)" if comp else "")
+              + f", {s['restored_seqs']} sequences "
+              f"({s['restored_pages']} pages) restored")
     if disagg:
-        print(f"[serve] migration: {s['prefills_done']} prefills -> "
-              f"{s['migrated_seqs']} handoffs, {s['migrated_pages']} pages, "
+        print(f"[serve] migration ({eng.migrate}): {s['prefills_done']} "
+              f"prefills -> {s['migrated_seqs']} handoffs, "
+              f"{s['migrated_pages']} pages, "
               f"{s['migrate_bytes'] / 1e6:.3f} MB crossed "
-              f"({s['migrate_compression']:.1f}x fewer than fp rows at "
-              f"{s['migrate_fp_equiv_bytes'] / 1e6:.3f} MB)")
+              f"({s['migrate_compression']:.2f}x fewer than fp rows at "
+              f"{s['migrate_fp_equiv_bytes'] / 1e6:.3f} MB)"
+              + (f", {s['migrate_solves']} page solves on the prefill "
+                 f"workers" if eng.migrate == "frozen" else ""))
         for i, w in enumerate(s["per_worker"]["prefill"]):
             print(f"[serve]   prefill worker {i}: {w['prefills']} prefills, "
                   f"{w['migrated_pages']} pages, "
@@ -784,10 +837,11 @@ def parse_args(argv=None):
     ap.add_argument("--decode-workers", type=int, default=1,
                     help="disagg: decode workers, each with a pool and a "
                          "freeze stream of its own")
-    ap.add_argument("--migrate", choices=("fp",), default="fp",
+    ap.add_argument("--migrate", choices=("fp", "frozen"), default="fp",
                     help="disagg: how a finished prompt's pages cross to "
-                         "the decode worker; fp rows only here (frozen "
-                         "codes + codebooks: ROADMAP.md A5c)")
+                         "the decode worker: fp rows, or (frozen; needs "
+                         "--kv-quant) packed codes + codebooks solved on "
+                         "the prefill worker")
     ap.add_argument("--staging-depth", type=int, default=None,
                     help="disagg: most prefills in flight past the waiting "
                          "queue; a decode stall backpressures the prefill "
@@ -813,6 +867,29 @@ def parse_args(argv=None):
     ap.add_argument("--shared-prefix-len", type=int, default=0,
                     help="the first N prompt tokens of every request in "
                          "the generated trace are the same")
+    ap.add_argument("--offload-pages", action="store_true",
+                    help="demote preemption victims' pages to a host tier "
+                         "(frozen pages as codes + codebooks) and restore "
+                         "them exactly")
+    ap.add_argument("--preempt", action="store_true",
+                    help="evict the least recently served best_effort "
+                         "sequence when a latency request is blocked on "
+                         "slots or pages (restore or recompute by the cost "
+                         "model; preempted work re-admits ahead of FCFS)")
+    ap.add_argument("--admission", choices=("fcfs", "slo"), default="fcfs",
+                    help="slo: shed or defer best_effort arrivals by the "
+                         "windowed inter-token p99 (--itl-slo) and the "
+                         "pool occupancy, protecting the latency tier")
+    ap.add_argument("--itl-slo", type=float, default=None,
+                    help="inter-token p99 target in seconds for "
+                         "--admission slo (unset: occupancy only)")
+    ap.add_argument("--priority", choices=("latency", "best_effort"),
+                    default="latency",
+                    help="tier of every request in the generated trace")
+    ap.add_argument("--best-effort-frac", type=float, default=0.0,
+                    help="mark this seed-derived fraction of the trace "
+                         "best_effort: the tier --admission slo sheds and "
+                         "--preempt evicts")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     serving = args.engine != "static"
@@ -822,6 +899,18 @@ def parse_args(argv=None):
         args.gen = 32 if serving else 16
     if serving and args.request_rate <= 0:
         ap.error("--request-rate must be > 0 (requests per second)")
+    if (args.offload_pages or args.preempt or args.admission == "slo") \
+            and not serving:
+        ap.error("--offload-pages/--preempt/--admission slo serve the "
+                 "continuous and disagg engines")
+    if args.engine == "disagg" and args.migrate == "frozen" \
+            and not args.kv_quant:
+        ap.error("--migrate frozen needs --kv-quant (pages cross as "
+                 "codes + codebooks)")
+    if not 0.0 <= args.best_effort_frac <= 1.0:
+        ap.error("--best-effort-frac must lie in [0, 1]")
+    if args.itl_slo is not None and args.itl_slo <= 0:
+        ap.error("--itl-slo must be > 0 seconds")
     if args.prefill_chunk is not None:
         if args.engine != "continuous":
             ap.error("--prefill-chunk interleaves the continuous engine's "

@@ -2,8 +2,20 @@
 ``ContinuousBatchingEngine``, the colocated composition (one decode worker
 plus a prefill worker borrowing its pool), and ``DisaggEngine``, the
 disaggregated one (N prefill workers with pools of their own feeding M
-decode workers through a global router, the pages migrating as fp rows),
-each behind a wall-clock run loop.
+decode workers through a global router), each behind a wall-clock run
+loop. The disaggregated engine migrates a finished prompt's pages as fp
+rows (``migrate="fp"``) or, with a ``kv_quant`` spec that has a device
+solver, as packed codes + codebooks solved on the prefill worker's pool
+(``migrate="frozen"``), which land installed.
+
+Overload (``serving.overload``), on either engine: ``offload_pages``
+demotes a preemption victim's pages to a host tier and restores them
+exactly, ``preempt`` evicts a best_effort sequence when a latency request
+is blocked on capacity (restore or recompute by the cost model), and
+``admission="slo"`` sheds best_effort arrivals while the windowed
+inter-token p99 breaches ``itl_slo_s`` and defers them while the pool is
+nearly full. With all three off the run loops take none of that path and
+the summary holds no overload key.
 
 ``attn_impl`` picks the read path of decode steps and prefill chunks:
 "fused" goes through the hand-written paged-attention kernel (frozen pages
@@ -48,6 +60,7 @@ from collections import deque
 
 import torch
 
+from repro_torch.core import device_methods
 from repro_torch.device import resolve_device
 from repro_torch.kernels import paged_decode_attention, quant_matmul
 from repro_torch.kernels.paged_attention import shape_refusal
@@ -56,9 +69,62 @@ from repro_torch.quant.serve import fallback_count
 
 from .kv_cache import resolve_kv_spec
 from .metrics import MetricsCollector
+from .overload import OverloadManager, SLOAdmission
 from .scheduler import DisaggRouter, Request, make_requests
-from .transfer import check_mode
 from .workers import DecodeWorker, PrefillWorker
+
+
+def _make_overload(metrics, *, offload_pages: bool, preempt: bool,
+                   admission: str, itl_slo_s: float | None, router=None):
+    """The overload machinery of either engine: None when every overload
+    feature is off, else an ``OverloadManager`` with an SLO policy when
+    ``admission`` is "slo"."""
+    if admission not in ("fcfs", "slo"):
+        raise ValueError(f"admission {admission!r}: fcfs or slo")
+    if not (offload_pages or preempt or admission == "slo"):
+        return None
+    policy = (SLOAdmission(metrics, itl_slo_s=itl_slo_s)
+              if admission == "slo" else None)
+    return OverloadManager(offload_pages=offload_pages, policy=policy,
+                           router=router)
+
+
+def _slo_door(om, req, occupancy: float, metrics, rejected: list,
+              now: float) -> bool | None:
+    """The SLO policy's verdict on an arrival that passed the never-fits
+    door: False if shed (counted, rejected), True if deferred (arrival
+    metered, parked in ``om.deferred``), None to admit as usual."""
+    if om is None or om.policy is None:
+        return None
+    verdict = om.policy.decide(req, occupancy=occupancy)
+    if verdict == "shed":
+        rejected.append(req.id)
+        metrics.admission("shed_slo")
+        return False
+    if verdict == "defer":
+        om.deferred.append(req)
+        metrics.arrival(req.id, now, req.prompt_len)
+        metrics.admission("deferred")
+        return True
+    return None
+
+
+def _retire_demoted(om, outputs: dict) -> None:
+    """End of run: release every host-tier entry still demoted (its
+    request finished or was cancelled while offloaded, or never restored),
+    so both tiers drain; its output is what it emitted before eviction."""
+    if om is None:
+        return
+    for entry in om.store.entries():
+        om.retire(entry.req.id)
+        outputs.setdefault(entry.req.id, list(entry.out))
+
+
+def _offload_compression(out: dict) -> None:
+    """What the host tier saved against demoting at fp width."""
+    if out.get("offload_bytes"):
+        out["offload_compression"] = (out["offload_fp_equiv_bytes"]
+                                      / out["offload_bytes"])
 
 
 def _resolve_attn_impl(attn_impl: str, device: torch.device, *,
@@ -121,7 +187,9 @@ class ContinuousBatchingEngine:
                  freeze_page_budget: int = 4, speculate: int = 0,
                  draft: tuple | None = None,
                  prefill_chunk: int | None = None,
-                 prefix_cache: bool = False, tracer=None):
+                 prefix_cache: bool = False, tracer=None,
+                 offload_pages: bool = False, preempt: bool = False,
+                 admission: str = "fcfs", itl_slo_s: float | None = None):
         if cfg.family != "lm":
             raise ValueError("paged serving drives decoder-only LMs")
         self.device = resolve_device(device)
@@ -163,6 +231,10 @@ class ContinuousBatchingEngine:
         self.max_seq_len = self.worker.max_seq_len
         self.freeze_async = self.worker.freeze_async
         self.eos_id = eos_id
+        self.preempt = preempt
+        self.overload = _make_overload(
+            self.metrics, offload_pages=offload_pages, preempt=preempt,
+            admission=admission, itl_slo_s=itl_slo_s)
 
     @property
     def counters(self):
@@ -174,7 +246,16 @@ class ContinuousBatchingEngine:
                 "speculative decoding serves the greedy (temperature=0) "
                 "verification path; submit sampled requests to a "
                 "non-speculative engine")
-        return self.worker.submit(req, now)
+        w = self.worker
+        if w.fits(req):
+            # the SLO door comes after the never-fits one: a request no
+            # pool could hold is a rejection, not a shed
+            occ = 1.0 - w.alloc.num_free / (w.num_blocks - 1)
+            verdict = _slo_door(self.overload, req, occ, self.metrics,
+                                w.sched.rejected, now)
+            if verdict is not None:
+                return verdict
+        return w.submit(req, now)
 
     @torch.inference_mode()
     def run(self, requests: list[Request], *, poll_s: float = 0.002) -> dict:
@@ -182,21 +263,29 @@ class ContinuousBatchingEngine:
         driven: a request becomes visible when the loop's clock passes its
         arrival; the loop sleeps only when idle. The summary carries this
         run's kernel launches and dequant fallbacks."""
-        w = self.worker
+        w, om = self.worker, self.overload
         launches = _LaunchCounts()
         pending = deque(sorted(requests, key=lambda r: (r.arrival_time, r.id)))
         t0 = time.perf_counter()
         now_fn = lambda: time.perf_counter() - t0
-        while pending or w.sched.has_work or self._chunking:
+        busy = lambda: (w.sched.has_work or bool(self._chunking)
+                        or (om is not None and om.has_work))
+        while pending or busy():
             now = now_fn()
             while pending and pending[0].arrival_time <= now:
                 self.submit(pending.popleft(), now)
-            if not (w.sched.has_work or self._chunking):
+            if not busy():
                 if not pending:     # everything left was rejected
                     break
                 nxt = pending[0].arrival_time
                 time.sleep(min(max(nxt - now, 0.0), poll_s) or poll_s)
                 continue
+            if om is not None:
+                # restore ahead of admission: an offloaded sequence
+                # re-enters (its pages landed before the decode step that
+                # reads them) ahead of every queued arrival
+                om.retry_deferred(w)
+                om.try_restore(w, now_fn)
             # with the prefix cache on, admission charges each request its
             # worst case minus the prompt pages already shareable (its
             # prefill splices those instead of allocating them)
@@ -218,8 +307,11 @@ class ContinuousBatchingEngine:
                     self._chunking.popleft()
                     w.sched.activate(st)
                     w.attach(st, fin, now_fn())
+            if om is not None and self.preempt:
+                om.maybe_preempt(w, now_fn)
             w.step(now_fn)
         w.drain()
+        _retire_demoted(om, self.outputs)
         out = self.metrics.summary()
         out["page_compression"] = w._pb["fp"] / w._pb["frozen"]
         out["rejected"] = len(w.sched.rejected)
@@ -230,6 +322,7 @@ class ContinuousBatchingEngine:
         out["prefill_chunks"] = self.prefill.counters["prefill_chunks"]
         launches.into(out, self.metrics)
         _tokens_per_step(out)
+        _offload_compression(out)
         out["speculate"] = self.speculate
         return out
 
@@ -249,8 +342,10 @@ class DisaggEngine:
     an fp pool of its own (``prefill_blocks`` pages, default twice a
     longest prompt's plus the null page), feed ``decode_workers`` decode
     workers through a global ``DisaggRouter``; a finished prompt's pages
-    migrate to the decode worker's pool as fp rows (``migrate="fp"``; the
-    reference's "frozen" raises, naming ROADMAP.md A5c). Every decode
+    migrate to the decode worker's pool as fp rows (``migrate="fp"``) or
+    as codes + codebooks solved on the prefill worker's (quantized) pool
+    (``migrate="frozen"``, which needs a ``kv_quant`` with a device
+    solver). Every decode
     worker owns its pool and its freeze stream on the same card, and all
     of them share one ``MetricsCollector`` and one outputs dict. The
     decode options are the colocated engine's, but for chunked prefill
@@ -268,21 +363,33 @@ class DisaggEngine:
                  record_logits: bool = False, attn_impl: str = "auto",
                  freeze_async: bool = True, freeze_page_budget: int = 4,
                  speculate: int = 0, draft: tuple | None = None,
-                 tracer=None):
+                 tracer=None, offload_pages: bool = False,
+                 preempt: bool = False, admission: str = "fcfs",
+                 itl_slo_s: float | None = None):
         if cfg.family != "lm":
             raise ValueError("paged serving drives decoder-only LMs")
         if prefill_workers < 1 or decode_workers < 1:
             raise ValueError(f"{prefill_workers} prefill and "
                              f"{decode_workers} decode workers: want >= 1 "
                              f"of each")
-        check_mode(migrate)
-        if migrate == "splice":
-            raise ValueError("migrate='splice' is the colocated composition "
-                             "(ContinuousBatchingEngine)")
+        if migrate not in ("fp", "frozen"):
+            raise ValueError(f"migrate must be 'fp' or 'frozen', got "
+                             f"{migrate!r} (splice is the colocated "
+                             f"composition, resident the host tier's)")
         self.device = resolve_device(device)
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.kv_spec = (None if kv_quant is None else
                         resolve_kv_spec(kv_quant, num_values=kv_num_values))
+        if migrate == "frozen":
+            if self.kv_spec is None:
+                raise ValueError(
+                    "migrate='frozen' ships pages as codes + codebooks and "
+                    "needs a kv_quant spec (e.g. kmeans_ls@16)")
+            if not self.kv_spec.device_capable:
+                raise ValueError(
+                    f"migrate='frozen' solves pages through the batched "
+                    f"device freeze; {self.kv_spec.method} has no device "
+                    f"solver, use one of: {', '.join(device_methods())}")
         self.attn_impl = _resolve_attn_impl(
             attn_impl, self.device, head_dim=cfg.head_dim,
             block_size=block_size,
@@ -309,8 +416,9 @@ class DisaggEngine:
         self.prefills = [PrefillWorker(
             params, cfg, device=self.device, worker_id=i,
             block_size=block_size, max_seq_len=max_seq_len, migrate=migrate,
-            num_blocks=prefill_blocks, record_logits=record_logits,
-            metrics=self.metrics, tracer=self.tracer)
+            kv_spec=self.kv_spec, num_blocks=prefill_blocks,
+            record_logits=record_logits, metrics=self.metrics,
+            tracer=self.tracer)
             for i in range(prefill_workers)]
         self.router = DisaggRouter(max_queue=max_queue,
                                    staging_depth=staging_depth,
@@ -320,6 +428,10 @@ class DisaggEngine:
         self.max_seq_len = self.decode[0].max_seq_len
         self.freeze_async = self.decode[0].freeze_async
         self.eos_id = eos_id
+        self.preempt = preempt
+        self.overload = _make_overload(
+            self.metrics, offload_pages=offload_pages, preempt=preempt,
+            admission=admission, itl_slo_s=itl_slo_s, router=self.router)
 
     @property
     def counters(self) -> dict:
@@ -349,6 +461,14 @@ class DisaggEngine:
             self.tracer.instant("router", "reject", rid=req.id,
                                 reason="never_fits")
             return False
+        # the request may land on any decode worker: the policy reads the
+        # least occupied one
+        occ = min(1.0 - d.alloc.num_free / (d.num_blocks - 1)
+                  for d in self.decode)
+        verdict = _slo_door(self.overload, req, occ, self.metrics,
+                            self.router.rejected, now)
+        if verdict is not None:
+            return verdict
         ok = self.router.submit(req)
         if ok:
             self.metrics.arrival(req.id, now, req.prompt_len)
@@ -359,7 +479,8 @@ class DisaggEngine:
     @property
     def _has_work(self) -> bool:
         return (self.router.has_work or any(p.busy for p in self.prefills)
-                or any(d.sched.has_work or d.has_work for d in self.decode))
+                or any(d.sched.has_work or d.has_work for d in self.decode)
+                or (self.overload is not None and self.overload.has_work))
 
     @torch.inference_mode()
     def run(self, requests: list[Request], *, poll_s: float = 0.002) -> dict:
@@ -368,8 +489,11 @@ class DisaggEngine:
         each prefill worker (dispatch or harvest, never waiting for the
         card), place finished prefills onto decode workers, then one
         decode step per decode worker with work. Decode never waits on a
-        prefill."""
+        prefill. With overload on, deferred retries and restores run
+        first (a payload restores onto any decode worker with room), and
+        a preemption check runs before the decode steps."""
         self._launches = _LaunchCounts()
+        om = self.overload
         pending = deque(sorted(requests, key=lambda r: (r.arrival_time, r.id)))
         t0 = time.perf_counter()
         now_fn = lambda: time.perf_counter() - t0
@@ -392,12 +516,20 @@ class DisaggEngine:
                 time.sleep(min(max(nxt - now, 0.0), poll_s) or poll_s)
                 continue
             progressed = False
+            if om is not None:
+                om.retry_deferred(max(self.decode,
+                                      key=lambda d: d.alloc.num_free))
+                for dw in self.decode:
+                    progressed |= bool(om.try_restore(dw, now_fn))
             self.router.route_prefill(self.prefills)
             for pw in self.prefills:
                 for fin in pw.step(now_fn):
                     self.router.stage(fin)
                     progressed = True
             progressed |= bool(self.router.route_decode(self.decode, place))
+            if om is not None and self.preempt:
+                for dw in self.decode:
+                    progressed |= om.maybe_preempt(dw, now_fn)
             for dw in self.decode:
                 if dw.has_work:
                     dw.step(now_fn)
@@ -407,6 +539,7 @@ class DisaggEngine:
                 time.sleep(poll_s / 4)
         for dw in self.decode:
             dw.drain()
+        _retire_demoted(om, self.outputs)
         return self._summary()
 
     def _summary(self) -> dict:
@@ -419,6 +552,8 @@ class DisaggEngine:
             out["draft_layers"] = self.decode[0].draft.cfg.n_layers
         out["prefills_done"] = sum(p.counters["prefills"]
                                    for p in self.prefills)
+        out["migrate_solves"] = sum(p.counters["migrate_solves"]
+                                    for p in self.prefills)
         out["prefill_chunks"] = 0
         self._launches.into(out, self.metrics)
         out["rejected"] = len(self.router.rejected)
@@ -430,7 +565,8 @@ class DisaggEngine:
         out["decode_workers"] = len(self.decode)
         out["per_worker"] = {
             "prefill": [{k: p.counters[k] for k in
-                         ("prefills", "migrated_pages", "migrate_bytes")}
+                         ("prefills", "migrated_pages", "migrate_bytes",
+                          "migrate_solves")}
                         for p in self.prefills],
             "decode": [{k: d.counters[k] for k in
                         ("migrated_seqs", "migrated_pages", "migrate_bytes")}
@@ -440,6 +576,7 @@ class DisaggEngine:
         out["migrate_compression"] = (
             out["migrate_fp_equiv_bytes"] / out["migrate_bytes"]
             if out.get("migrate_bytes") else 1.0)
+        _offload_compression(out)
         return out
 
     def generate(self, prompts: list[list[int]], max_new_tokens: int,

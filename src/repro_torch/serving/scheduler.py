@@ -1,12 +1,13 @@
 """Continuous-batching scheduler: iteration-level batching with admission
 control, and the disaggregated engine's router (port of
-``repro/serving/scheduler.py``; the preemption queue comes with overload
-in a later slice).
+``repro/serving/scheduler.py``).
 
 Pure decision logic over a free-page count: no model, no tensors.
 Admission is conservative: a request is scheduled only when its worst-case
 page need, ceil((prompt + max_new + lookahead) / block_size), fits, so a
-scheduled request can never deadlock the pool mid-decode. ``lookahead``
+scheduled request can never deadlock the pool mid-decode. Requests
+evicted by preemption (``serving.overload``) wait in ``preempted`` and
+re-admit ahead of FCFS on both the scheduler and the router. ``lookahead``
 is the speculative verify window's optimistic rows; a prefix-cache probe
 may discount the pages a prompt will share instead of allocating.
 """
@@ -24,7 +25,10 @@ from repro_torch.obs.trace import NULL_TRACER
 class Request:
     """One generation request. temperature 0 is greedy argmax; a positive
     temperature samples with a per-request numpy Generator seeded from
-    ``seed`` (else the id), so a trace replays token-identically."""
+    ``seed`` (else the id), so a trace replays token-identically.
+    ``priority`` is the SLO tier: "latency" requests are protected by
+    admission control and may preempt; "best_effort" ones are shed or
+    deferred under overload, and are the preemption victims."""
 
     id: int
     prompt: tuple          # token ids
@@ -33,6 +37,7 @@ class Request:
     temperature: float = 0.0
     top_k: int = 0
     seed: int | None = None
+    priority: str = "latency"
 
     @property
     def prompt_len(self) -> int:
@@ -68,6 +73,9 @@ class ContinuousBatchingScheduler:
         # (rolled-back rows are rewritten, never served)
         self.lookahead = lookahead
         self.waiting: deque[Request] = deque()
+        # requests evicted mid-decode by preemption: they waited their turn
+        # once, so they re-admit ahead of every queued arrival
+        self.preempted: deque[Request] = deque()
         self.active: dict[int, SeqState] = {}       # slot -> state
         self._free_slots = list(range(max_slots - 1, -1, -1))
         self.rejected: list[int] = []
@@ -86,20 +94,22 @@ class ContinuousBatchingScheduler:
 
     def schedule(self, free_blocks: int, discount=None) -> list[SeqState]:
         """Admit FCFS from the queue into free slots while pages last
-        (head-of-line blocking keeps the schedule deterministic).
+        (head-of-line blocking keeps the schedule deterministic);
+        preempted requests drain first.
 
         ``discount(req)`` (optional) gives the pages of the request's
         prompt already resident and shareable (the prefix-cache probe):
         admission charges worst case minus those, since its prefill splices
         them instead of allocating."""
         admitted = []
-        while self.waiting and self._free_slots:
-            need = self.blocks_for(self.waiting[0])
+        while (self.preempted or self.waiting) and self._free_slots:
+            q = self.preempted if self.preempted else self.waiting
+            need = self.blocks_for(q[0])
             if discount is not None:
-                need = max(need - discount(self.waiting[0]), 0)
+                need = max(need - discount(q[0]), 0)
             if need > free_blocks:
                 break
-            req = self.waiting.popleft()
+            req = q.popleft()
             slot = self._free_slots.pop()
             st = SeqState(req=req, slot=slot, length=0)
             self.active[slot] = st
@@ -138,7 +148,7 @@ class ContinuousBatchingScheduler:
 
     @property
     def has_work(self) -> bool:
-        return bool(self.waiting or self.active)
+        return bool(self.waiting or self.preempted or self.active)
 
     def active_slots(self) -> list[int]:
         return sorted(self.active)
@@ -166,7 +176,9 @@ class DisaggRouter:
     queue (on a prefill worker or staged): when decode capacity stalls,
     ``route_prefill`` stops feeding the prefill workers instead of growing
     ``staged`` without bound, and the waiting queue's ``max_queue`` door
-    rejects. None is unbounded."""
+    rejects. None is unbounded. ``preempted`` holds requests a
+    recompute-path preemption sends back to re-prefill: they go to a
+    prefill worker ahead of ``waiting``."""
 
     def __init__(self, *, max_queue: int = 256,
                  staging_depth: int | None = None, tracer=None):
@@ -177,6 +189,7 @@ class DisaggRouter:
         self.staging_depth = staging_depth
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.waiting: deque[Request] = deque()
+        self.preempted: deque[Request] = deque()
         self.staged: deque = deque()           # FinishedPrefill artifacts
         self.rejected: list[int] = []
 
@@ -200,7 +213,7 @@ class DisaggRouter:
         out = []
         inflight = (sum(w.load for w in workers) + len(self.staged)
                     if self.staging_depth is not None else 0)
-        while self.waiting:
+        while self.waiting or self.preempted:
             if (self.staging_depth is not None
                     and inflight >= self.staging_depth):
                 break
@@ -208,7 +221,8 @@ class DisaggRouter:
                             key=lambda w: (w.load, w.worker_id))
             if not ranked:
                 break
-            req = self.waiting.popleft()
+            q = self.preempted if self.preempted else self.waiting
+            req = q.popleft()
             ranked[0].submit(req)
             inflight += 1
             self.tracer.instant("router", "route_prefill", rid=req.id,
@@ -246,7 +260,7 @@ class DisaggRouter:
 
     @property
     def has_work(self) -> bool:
-        return bool(self.waiting or self.staged)
+        return bool(self.waiting or self.preempted or self.staged)
 
 
 def derive_seed(seed: int | None, i: int) -> int | None:
@@ -255,21 +269,24 @@ def derive_seed(seed: int | None, i: int) -> int | None:
 
 
 def make_requests(prompts, max_new_tokens: int, *, temperature: float = 0.0,
-                  top_k: int = 0, seed: int | None = None) -> list[Request]:
+                  top_k: int = 0, seed: int | None = None,
+                  priority: str = "latency") -> list[Request]:
     """Requests for a batch of prompts, all arriving at t=0."""
     return [Request(id=i, prompt=tuple(p), max_new_tokens=max_new_tokens,
                     temperature=temperature, top_k=top_k,
-                    seed=derive_seed(seed, i))
+                    seed=derive_seed(seed, i), priority=priority)
             for i, p in enumerate(prompts)]
 
 
 def poisson_trace(n: int, rate: float, *, vocab: int, prompt_len: int,
                   max_new_tokens: int, seed: int = 0,
                   temperature: float = 0.0, top_k: int = 0,
+                  best_effort_frac: float = 0.0,
                   shared_prefix_len: int = 0) -> list[Request]:
     """n requests with exp(1/rate) inter-arrival gaps (rate in req/s);
     the same requests as the reference's trace for one seed.
-    ``shared_prefix_len`` starts every prompt with one seed-derived common
+    ``best_effort_frac`` marks that (seed-derived) fraction of the
+    requests "best_effort". ``shared_prefix_len`` starts every prompt with one seed-derived common
     token run (a shared system prompt): the traffic the prefix cache
     deduplicates."""
     if not 0 <= shared_prefix_len <= prompt_len:
@@ -277,7 +294,7 @@ def poisson_trace(n: int, rate: float, *, vocab: int, prompt_len: int,
                          f"[0, prompt_len {prompt_len}]")
     rng = np.random.default_rng(seed)
     t = np.cumsum(rng.exponential(1.0 / rate, n))
-    rng.random(n)   # the reference draws each request's SLO tier here
+    tiers = rng.random(n) < best_effort_frac
     common = tuple(int(x) for x in rng.integers(0, vocab, shared_prefix_len))
     uniq = prompt_len - shared_prefix_len
     return [Request(id=i,
@@ -286,5 +303,6 @@ def poisson_trace(n: int, rate: float, *, vocab: int, prompt_len: int,
                     max_new_tokens=max_new_tokens,
                     arrival_time=float(t[i]),
                     temperature=temperature, top_k=top_k,
-                    seed=derive_seed(seed, i))
+                    seed=derive_seed(seed, i),
+                    priority="best_effort" if tiers[i] else "latency")
             for i in range(n)]

@@ -6,7 +6,11 @@ batching over its slots, async page freezing (batched kmeans_ls solves,
 rate-limited per decode step) and slot recycling, behind ``step()`` /
 ``attach()``. Sequences enter it only as finished prefills
 (``transfer.FinishedPrefill``): a splice payload's pages already live in
-its pool, a migration payload's pages are spliced in at fresh blocks. With
+its pool, a migration payload's pages are spliced in at fresh blocks
+(frozen ones land installed). Under overload ``preempt`` evicts a live
+sequence at a step boundary, demoting its pages to a host payload or
+dropping them for a recompute, and ``restore`` lands them again
+(``serving.overload``). With
 ``speculate=k`` every decode iteration is a draft propose
 (``speculative.DraftWorker``), one batched (B, k+1) verify window on the
 target, and a per-slot accept/rollback. With ``prefix_cache`` the worker
@@ -17,18 +21,18 @@ prompts splice them at a refcount instead of prefilling them.
 compositions:
 
   owned pool (disaggregated)   ``pool=None``: the worker prefills into its
-      own fp pool, extracts the pages as an fp payload and frees its
-      blocks. ``step()`` dispatches at most one prefill and harvests it on
-      a later call, once the card is done, so the caller's decode loop
-      never waits on a prompt.
+      own pool, extracts the pages as an fp payload, or (``migrate=
+      "frozen"``) solves the full pages on that pool's side stream behind
+      the prefill and ships codes + codebooks, and frees its blocks.
+      ``step()`` dispatches at most one prefill and harvests it on a later
+      call, once the card is done with the prefill and the solve, so the
+      caller's decode loop never waits on a prompt.
 
   borrowed pool (colocated)    ``pool=<DecodeWorker>``: prompts prefill
       straight into the decode worker's pool with blocks from its
       allocator, whole (``run_inline``) or chunk by chunk
       (``start_chunked``/``advance_chunk``), starting past any spliced
       shared pages; the handoff is a "splice" payload of block ids.
-
-Preemption/restore and frozen migration come in later slices.
 """
 from __future__ import annotations
 
@@ -46,10 +50,11 @@ from .kv_cache import (BlockAllocator, PrefixIndex, dispatch_freeze,
                        page_bytes, thaw_blocks, with_prefill_fused,
                        with_tables)
 from .metrics import MetricsCollector
+from .overload import ResumeEntry
 from .scheduler import ContinuousBatchingScheduler, Request, SeqState
 from .speculative import DraftWorker, window_step
-from .transfer import (FinishedPrefill, check_mode, extract_pages,
-                       splice_of, splice_payload)
+from .transfer import (FinishedPrefill, extract_pages,
+                       extract_resident_pages, splice_of, splice_payload)
 
 
 def sample_token(row: np.ndarray, *, temperature: float = 0.0,
@@ -65,6 +70,27 @@ def sample_token(row: np.ndarray, *, temperature: float = 0.0,
         logits = np.where(logits >= kth, logits, -np.inf)
     p = np.exp(logits - logits.max())
     return int(rng.choice(logits.size, p=p / p.sum()))
+
+
+def prefill_chunk(params, cfg, pool, toks: np.ndarray, blocks, off: int, *,
+                  fused: bool):
+    """Prefill the prompt slice ``toks`` (1, C) at token offset ``off``
+    into ``pool`` over ``blocks``: explicit positions, so it computes what
+    the matching rows of a whole-prompt prefill compute; ``fused`` reads
+    earlier pages (frozen ones as packed codes) through the kernel.
+    Returns logits (1, C, V)."""
+    dev = pool.device
+    C = toks.shape[1]
+    pos = torch.arange(off, off + C, dtype=torch.int32, device=dev)[None]
+    views = with_tables(pool, np.asarray([blocks], np.int32),
+                        np.full((1,), off, np.int32))
+    if fused:
+        views = with_prefill_fused(views)
+    logits, _ = models.prefill(
+        params, cfg,
+        # lint: sync(pageable copy of the chunk's ids; ROADMAP A2)
+        {"tokens": torch.as_tensor(toks).to(dev), "positions": pos}, views)
+    return logits
 
 
 class _Slot:
@@ -178,7 +204,14 @@ class DecodeWorker:
                          # prefilling, and write-hot tail pages prefilled
                          # privately instead of shared (copy-on-write)
                          "prefix_hits": 0, "prefix_shared_pages": 0,
-                         "cow_copies": 0}
+                         "cow_copies": 0,
+                         # overload: evictions and the host-tier traffic
+                         # they caused
+                         "preemptions": 0, "preempt_offloads": 0,
+                         "preempt_recomputes": 0, "offloaded_pages": 0,
+                         "offload_bytes": 0, "offload_fp_equiv_bytes": 0,
+                         "restored_seqs": 0, "restored_pages": 0,
+                         "restore_bytes": 0}
         # hash-chain index over installed-frozen (or, unquantized, full
         # prompt) pages; prefills splice published pages at rc + 1
         self.prefix = PrefixIndex(block_size) if prefix_cache else None
@@ -186,6 +219,11 @@ class DecodeWorker:
         self._freeze_bids: list[int] = []   # queued for the next flush
         self._deferred_seen = 0    # queue suffix already counted deferred
         self._frozen_pages: set[int] = set()   # installed (codes serving)
+        # overload: the decode step at which each slot last emitted (the
+        # LRU signal, seeded at attach and restore), and a recompute
+        # requeue's tokens from its first life, merged back at finish
+        self.last_attended: dict[int, int] = {}
+        self._resume_prefix: dict[int, tuple[list, list]] = {}
 
     # ------------------------------------------------------------ intake
 
@@ -229,8 +267,9 @@ class DecodeWorker:
         A "splice" payload (colocated) carries blocks already living in
         this pool; a migration payload allocates the request's worst-case
         blocks here and lands the prompt pages in the first of them (the
-        rest fill during decode). Either way the full pages then queue for
-        freezing, on this pool's own side stream."""
+        rest fill during decode). A frozen payload's full pages land
+        installed; otherwise the full pages then queue for freezing, on
+        this pool's own side stream."""
         req, s = st.req, self.slots[st.slot]
         payload = fin.payload
         if payload.mode == "splice":
@@ -253,12 +292,20 @@ class DecodeWorker:
         self.table[st.slot, :len(s.blocks)] = s.blocks
         self.lens[st.slot] = P
         st.length, st.generated = P, 1
-        # spliced shared pages are installed-frozen: they start the frozen
-        # watermark, so they are never queued for a second solve (an fp
-        # pool shares exact pages and never freezes)
-        s.frozen_upto = (payload.shared_pages if self.kv_spec is not None
-                         else 0)
-        self._queue_freeze(st.slot)
+        # a fresh attach is the coldest preemption candidate at this step
+        self.last_attended[st.slot] = self.counters["decode_steps"]
+        if payload.mode == "frozen" and payload.n_full:
+            # the pages landed as codes + codebooks: never solved again
+            s.frozen_upto = payload.n_full
+            self._frozen_pages.update(int(b)
+                                      for b in blocks[:payload.n_full])
+        else:
+            # spliced shared pages are installed-frozen: they start the
+            # frozen watermark, so they are never queued for a second
+            # solve (an fp pool shares exact pages and never freezes)
+            s.frozen_upto = (payload.shared_pages if self.kv_spec is not None
+                             else 0)
+            self._queue_freeze(st.slot)
         if self.draft is not None:
             # the draft prefills the same prompt on its own pool and
             # mirrors this slot
@@ -357,6 +404,7 @@ class DecodeWorker:
         for i in active:
             st = self.sched.active[i]
             s = self.slots[i]
+            self.last_attended[i] = self.counters["decode_steps"]
             self.lens[i] += 1
             st.length += 1
             st.generated += 1
@@ -428,6 +476,7 @@ class DecodeWorker:
         for i in active:
             st = self.sched.active[i]
             s = self.slots[i]
+            self.last_attended[i] = self.counters["decode_steps"]
             L = int(self.lens[i])
             # optimistic: all W rows written; advance and queue freezes as
             # if every draft were accepted, then roll back to the watermark
@@ -588,14 +637,23 @@ class DecodeWorker:
     # ------------------------------------------------------------ teardown
 
     def _finish(self, st: SeqState, now: float) -> None:
-        slot, s = st.slot, self.slots[st.slot]
-        self.outputs[st.req.id] = list(s.out)
-        if self.record_logits and s.logits:
-            self.request_logits[st.req.id] = np.stack(s.logits)
+        s = self.slots[st.slot]
+        # a recompute requeue carries its first life's tokens as prompt:
+        # stitch them back, so the caller sees one output stream
+        pre_out, pre_logits = self._resume_prefix.pop(st.req.id, ([], []))
+        self.outputs[st.req.id] = pre_out + list(s.out)
+        if self.record_logits and (pre_logits or s.logits):
+            self.request_logits[st.req.id] = np.stack(pre_logits + s.logits)
         self.metrics.finish(st.req.id, now)
-        # drop one reference per page; the teardown (bids, frozen set,
-        # pending solves, thaw, index) covers only the pages actually
-        # released: a shared page another live table holds keeps serving
+        self._release(st)
+
+    def _release(self, st: SeqState) -> None:
+        """Tear a slot down (finish and preempt): drop one reference per
+        page; the bids, frozen set, pending solves, thaw and index cover
+        only the pages actually released (a shared page another live
+        table holds keeps serving), and an in-flight solve drops them, so
+        it is never installed over their next owner."""
+        slot, s = st.slot, self.slots[st.slot]
         released = set(self.alloc.free(s.blocks))
         if self.prefix is not None:
             self.prefix.invalidate(released)
@@ -610,13 +668,148 @@ class DecodeWorker:
             self.draft.release(slot)
         self.table[slot] = 0
         self.lens[slot] = 0
-        s.rid, s.blocks, s.frozen_upto, s.out = None, [], 0, []
+        s.rid, s.blocks, s.frozen_upto, s.out, s.logits = None, [], 0, [], []
         s.rng, s.temperature, s.top_k = None, 0.0, 0
+        self.last_attended.pop(slot, None)
         self.sched.release(st)
-        # the finisher may have been a chain's first publisher: invalidate
+        # the leaver may have been a chain's first publisher: invalidate
         # dropped its keys though a survivor may hold an identical live
         # copy; republish so the next lookup still matches
         self._publish_prefixes()
+
+    # ------------------------------------------------------------ overload
+
+    def preempt(self, st: SeqState, mode: str, now: float) -> ResumeEntry:
+        """Evict a live sequence at a step boundary (overload).
+
+        "restore": its pages demote to a host payload
+        (``extract_resident_pages``: installed-frozen pages as their codes
+        and codebooks, the rest fp), staged at once, for an exact resume.
+        "recompute": the pages are dropped, and the entry's request is the
+        original with everything emitted appended to its prompt (its
+        re-prefill re-derives the KV; value-exact only on fp greedy runs).
+        Pages other live tables share stay, this sequence dropping its
+        reference. The teardown is a finished sequence's, without the
+        output and latency events."""
+        if mode not in ("restore", "recompute"):
+            raise ValueError(f"preempt mode {mode!r}: restore or recompute")
+        slot, s, req = st.slot, self.slots[st.slot], st.req
+        if st.done or not s.out:
+            raise ValueError(f"preempt of request {req.id}: not a live "
+                             f"sequence")
+        n_tok = int(self.lens[slot])
+        self.counters["preemptions"] += 1
+        if mode == "restore":
+            sh = self.shared_prefix_pages(slot)
+            full = n_tok // self.block_size
+            frozen_idx = [j - sh for j in range(sh, full)
+                          if int(self.table[slot, j]) in self._frozen_pages]
+            payload = extract_resident_pages(
+                self.pool, s.blocks[sh:], n_tok - sh * self.block_size,
+                frozen_idx, block_size=self.block_size, tracer=self.tracer)
+            payload.to_host()           # blocks, as the reference's does
+            entry = ResumeEntry(req=req, out=list(s.out),
+                                generated=st.generated, n_tokens=n_tok,
+                                rng=s.rng, logits=list(s.logits),
+                                payload=payload, shared_pages=sh)
+            self.counters["preempt_offloads"] += 1
+            self.counters["offloaded_pages"] += payload.n_pages
+            self.counters["offload_bytes"] += payload.nbytes
+            self.counters["offload_fp_equiv_bytes"] += payload.fp_equiv_bytes
+        else:
+            resume = dataclasses.replace(
+                req, prompt=tuple(req.prompt) + tuple(s.out),
+                max_new_tokens=req.max_new_tokens - st.generated)
+            pre_out, pre_logits = self._resume_prefix.get(req.id, ([], []))
+            self._resume_prefix[req.id] = (pre_out + list(s.out),
+                                           pre_logits + list(s.logits))
+            entry = ResumeEntry(req=resume, out=list(s.out),
+                                generated=st.generated, n_tokens=n_tok)
+            self.counters["preempt_recomputes"] += 1
+        self._release(st)
+        return entry
+
+    def restore(self, st: SeqState, entry: ResumeEntry, now: float) -> None:
+        """Land an offloaded sequence at slot ``st.slot`` and resume it
+        where it stopped. The splice and the install are enqueued on the
+        current stream before the next decode step, which runs behind them
+        on that stream: the resumed sequence reads what it read before
+        eviction (frozen pages bitwise their codes, fp pages verbatim), so
+        its greedy tokens are those of a sequence that never left."""
+        del now
+        req, s = st.req, self.slots[st.slot]
+        m = entry.shared_pages
+        shared: list[int] = []
+        if m:
+            hit = (self.prefix.lookup(req.prompt, m)
+                   if self.prefix is not None else [])
+            if len(hit) == m:
+                # the shared prefix outlived the offload: splice it back
+                # at a reference, the pages decoded against before
+                shared = [int(b) for b in hit]
+                self.alloc.retain(shared)
+                self.counters["prefix_hits"] += 1
+                self.counters["prefix_shared_pages"] += m
+            else:
+                # its last holder retired meanwhile: rebuild it privately
+                shared = self._rebuild_prefix(req, m)
+        blocks = shared + self.alloc.alloc(self.sched.blocks_for(req) - m)
+        splice_payload(self.pool, entry.payload, blocks[m:],
+                       tracer=self.tracer)
+        s.rid, s.blocks = req.id, blocks
+        s.out, s.logits = list(entry.out), list(entry.logits)
+        s.last_token = entry.out[-1]
+        s.rng, s.temperature, s.top_k = entry.rng, req.temperature, req.top_k
+        self.table[st.slot] = 0
+        self.table[st.slot, :len(blocks)] = blocks
+        self.lens[st.slot] = entry.n_tokens
+        st.length, st.generated = entry.n_tokens, entry.generated
+        self.last_attended[st.slot] = self.counters["decode_steps"]
+        frozen_idx = entry.payload.frozen_idx
+        self._frozen_pages.update(int(blocks[m + j]) for j in frozen_idx)
+        # frozen_upto is the longest frozen prefix (installs land in queue
+        # order, so in practice the frozen set is one); a quantized shared
+        # prefix is installed-frozen and starts it. Pages past it queue
+        # for a solve again (their fp rows crossed exact)
+        fset = {m + j for j in frozen_idx}
+        if m and self.kv_spec is not None:
+            fset |= set(range(m))
+        upto = 0
+        while upto in fset:
+            upto += 1
+        s.frozen_upto = upto
+        self._queue_freeze(st.slot)
+        self.counters["restored_seqs"] += 1
+        self.counters["restored_pages"] += entry.payload.n_pages
+        self.counters["restore_bytes"] += entry.payload.nbytes
+        if self.draft is not None:
+            # the draft prefills the accepted context (out[-1] has no KV
+            # row yet, as at attach); plen stays the original prompt's,
+            # since propose reads the pending tokens as out[lens - plen:]
+            self.draft.attach(st.slot,
+                              tuple(req.prompt) + tuple(entry.out[:-1]),
+                              len(blocks))
+            self.draft.plen[st.slot] = req.prompt_len
+        self._publish_prefixes()
+
+    def _rebuild_prefix(self, req: Request, m: int) -> list[int]:
+        """The first ``m`` prompt pages of a restoring sequence whose shared
+        prefix was released while it was offloaded, prefilled and (on a
+        quantized pool) frozen again privately. The prefill and the solver
+        are deterministic, so the pages carry the dead shared pages'
+        values."""
+        bs = self.block_size
+        blocks = self.alloc.alloc(m)
+        toks = np.asarray([req.prompt[:m * bs]], np.int32)
+        prefill_chunk(self.params, self.cfg, self.pool, toks, blocks, 0,
+                      fused=self.attn_impl == "fused")
+        if self.kv_spec is not None:
+            # installed at once: the restored watermark counts these pages
+            # frozen from page 0
+            pending = freeze_blocks(self.pool, blocks, self.kv_spec)
+            self.counters["host_page_solves"] += pending.host_solves
+            self._frozen_pages.update(blocks)
+        return blocks
 
     def drain(self) -> None:
         """Flush every queued freeze and land in-flight solves (end of
@@ -659,39 +852,51 @@ class PrefillWorker:
 
     With ``pool=<DecodeWorker>`` it borrows the decode worker's pool and
     allocator (the colocated composition) and emits "splice" payloads of
-    block ids. With ``pool=None`` it owns an fp pool sized for in-flight
+    block ids. With ``pool=None`` it owns a pool sized for in-flight
     prompts (``2 * max_prompt_blocks + 1`` pages unless ``num_blocks``)
     and emits ``migrate`` payloads through ``step()``, which dispatches at
     most one prefill and harvests it on a later call once the card is
-    done. The owned pool's whole-prompt prefill reads no earlier page, so
-    it takes the gather path and no paged-attention launch."""
+    done. ``migrate="frozen"`` needs ``kv_spec``: the owned pool is then
+    quantized (``dispatch_freeze`` solves only there) and every prompt's
+    full pages are solved on its side stream behind the prefill. The
+    owned pool's whole-prompt prefill reads no earlier page, so it takes
+    the gather path and no paged-attention launch."""
 
     MAX_QUEUE = 64      # prompts routed to one worker and not yet harvested
 
     def __init__(self, params, cfg, *, pool: DecodeWorker | None = None,
                  device=None, worker_id: int = 0, block_size: int = 16,
                  max_seq_len: int = 256, migrate: str = "fp",
-                 num_blocks: int | None = None, record_logits: bool = False,
-                 metrics=None, prefill_chunk: int | None = None,
-                 tracer=None):
+                 kv_spec=None, num_blocks: int | None = None,
+                 record_logits: bool = False, metrics=None,
+                 prefill_chunk: int | None = None, tracer=None):
         if prefill_chunk is not None and (prefill_chunk < 1 or pool is None):
             raise ValueError("prefill_chunk must be >= 1 token and needs a "
                              "colocated pool (pool=<DecodeWorker>)")
-        check_mode(migrate)
+        if migrate not in ("fp", "frozen"):
+            raise ValueError(f"a prefill worker migrates fp or frozen pages, "
+                             f"not {migrate!r}")
+        frozen = migrate == "frozen" and pool is None
+        if frozen and kv_spec is None:
+            raise ValueError("migrate='frozen' ships codes + codebooks and "
+                             "needs a kv_spec (e.g. kmeans_ls@16)")
         self.worker_id = worker_id
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self._trk = f"prefill/w{worker_id}"
         self.params, self.cfg = params, cfg
         self.pool = pool
         self.migrate = migrate
+        self.kv_spec = kv_spec
         self.block_size = pool.block_size if pool is not None else block_size
         self.record_logits = record_logits
         self.prefill_chunk = prefill_chunk
         self.metrics = metrics if metrics is not None else MetricsCollector()
         self.queue: deque[Request] = deque()
         self._inflight = None   # (req, blocks, logits row, payload)
+        # migrate_solves: frozen migration's solves on the owned pool
         self.counters = {"prefills": 0, "prefill_chunks": 0, "queue_peak": 0,
-                         "migrated_pages": 0, "migrate_bytes": 0}
+                         "migrated_pages": 0, "migrate_bytes": 0,
+                         "migrate_solves": 0}
         if pool is None:
             if device is None:
                 raise ValueError("an owned-pool PrefillWorker needs device=")
@@ -701,6 +906,8 @@ class PrefillWorker:
                                else 2 * max_prompt_blocks + 1)
             self.own_pool = init_paged_cache(
                 cfg, num_blocks=self.num_blocks, block_size=block_size,
+                quantized=frozen,
+                num_values=kv_spec.num_values if frozen else 16,
                 device=self.device)
             self.alloc = BlockAllocator(self.num_blocks)
         else:
@@ -790,25 +997,11 @@ class PrefillWorker:
         return logits
 
     def _chunk(self, toks: np.ndarray, blocks, off: int):
-        """Prefill the prompt slice ``toks`` (1, C) at token offset
-        ``off`` over ``blocks``: explicit positions, so it computes what
-        the matching rows of a whole-prompt prefill compute; with the
-        fused impl it reads earlier pages (frozen ones as packed codes)
-        through the kernel. Returns logits (1, C, V)."""
-        dev = self.pool.device
-        C = toks.shape[1]
-        pos = torch.arange(off, off + C, dtype=torch.int32,
-                           device=dev)[None]
-        views = with_tables(self.pool.pool, np.asarray([blocks], np.int32),
-                            np.full((1,), off, np.int32))
-        if self.pool.attn_impl == "fused":
-            views = with_prefill_fused(views)
-        logits, _ = models.prefill(
-            self.params, self.cfg,
-            # lint: sync(pageable copy of the chunk's ids; ROADMAP A2)
-            {"tokens": torch.as_tensor(toks).to(dev), "positions": pos},
-            views)
-        return logits
+        """``prefill_chunk`` into the colocated pool (through the kernel
+        when fused). Returns logits (1, C, V)."""
+        return prefill_chunk(self.params, self.cfg, self.pool.pool, toks,
+                             blocks, off,
+                             fused=self.pool.attn_impl == "fused")
 
     def _finish(self, req: Request, payload, last,
                 now_fn) -> FinishedPrefill:
@@ -847,7 +1040,9 @@ class PrefillWorker:
 
     def _dispatch(self, req: Request, now_fn) -> None:
         """Enqueue one prompt's prefill into the owned pool and the
-        extraction of its pages; returns without waiting for the card."""
+        extraction of its pages (a frozen payload's solve on the pool's
+        side stream, behind the prefill); returns without waiting for the
+        card."""
         tr = self.tracer
         t0 = tr.now()
         self.metrics.prefill_start(req.id, now_fn())
@@ -856,7 +1051,10 @@ class PrefillWorker:
         logits = self._whole(self.own_pool, toks, blocks)
         payload = extract_pages(self.own_pool, blocks, req.prompt_len,
                                 block_size=self.block_size,
-                                mode=self.migrate, tracer=tr)
+                                mode=self.migrate, spec=self.kv_spec,
+                                tracer=tr)
+        if payload.frozen is not None:
+            self.counters["migrate_solves"] += 1
         self._inflight = (req, blocks, logits[0, req.prompt_len - 1],
                           payload)
         tr.complete(self._trk, "dispatch", t0, rid=req.id,
@@ -871,7 +1069,8 @@ class PrefillWorker:
         self._inflight = None
         fin = self._finish(req, payload, last, now_fn)
         payload.to_host()           # gated on is_ready: the card is done
-        self.alloc.free(blocks)     # the pages left as a host payload
+        self.alloc.free(blocks)     # the pages left as a host payload (the
+        #                             solve reading them has ended too)
         self.counters["migrated_pages"] += payload.n_pages
         self.counters["migrate_bytes"] += payload.nbytes
         tr.complete(self._trk, "harvest", t0, rid=req.id,
@@ -889,8 +1088,9 @@ class PrefillWorker:
             nblk = -(-self.queue[0].prompt_len // self.block_size)
             if nblk <= self.alloc.num_free:
                 self._dispatch(self.queue.popleft(), now_fn)
-        # harvest only once the prefill and the gather landed: to_host()
-        # on work still in flight would stall the caller's decode loop
+        # harvest only once the prefill, the gathers and any solve landed:
+        # to_host() on work still in flight would stall the caller's decode
+        # loop
         if self._inflight is not None and self._inflight[3].is_ready():
             return [self._harvest(now_fn)]
         return []

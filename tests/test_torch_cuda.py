@@ -1,5 +1,7 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, at
-small shapes (paged attention at the reduced config's Dh 32, block 8).
+small shapes (paged attention at the reduced config's Dh 32, block 8), and
+the serving paths that feed them on the card (page migration, frozen
+payloads solved on a side stream, overload restores).
 Needs an NVIDIA GPU and nvcc: CUDA kernels have no interpret mode, so
 without a card these tests skip. Run them on the card with ``python -m
 pytest -q -m cuda tests/test_torch_cuda.py`` (this file imports no JAX).
@@ -7,6 +9,7 @@ pytest -q -m cuda tests/test_torch_cuda.py`` (this file imports no JAX).
 Tolerance: paged attention atol 2e-5 / rtol 1e-4 at f32 (the reference's
 kernel bar); quant_matmul and fista_quant below.
 """
+import dataclasses
 import importlib
 
 import pytest
@@ -1309,3 +1312,199 @@ def test_disagg_engine_equals_colocated_on_the_card(gen, arch):
     assert c["migrated_seqs"] == len(prompts)
     assert c["migrate_bytes"] == c["migrate_fp_equiv_bytes"] > 0
     assert dz.decode[0].alloc.num_free == dz.decode[0].num_blocks - 1
+
+
+# ------------------------------- frozen migration and overload on the card
+# A frozen payload's codes come from the source pool's side stream: its
+# readiness must cover the solve, and staging must wait for it. Restores
+# land on the main stream ahead of the decode step that reads them.
+
+
+def _reduced_quantized_pool(gen, cfg, num_blocks, bs):
+    from repro_torch.serving import init_paged_cache
+
+    pool = init_paged_cache(cfg, num_blocks=num_blocks, block_size=bs,
+                            quantized=True, num_values=16, device="cuda")
+    for t in (pool.k_fp, pool.v_fp):
+        t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+    return pool
+
+
+@pytest.mark.parametrize("spec", ["kmeans_ls@16", "iter_l1@16"])
+def test_frozen_payload_staged_at_is_ready_holds_the_synchronous_solve(
+        gen, spec):
+    """extract(frozen) enqueues the solve on the pool's side stream; once
+    is_ready() turns true the staged codes and codebooks equal those a
+    synchronous freeze of the same pages installs, bitwise (iter_l1: one
+    fista_freeze launch for the payload's solve)."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.kernels import fista_freeze
+    from repro_torch.serving import extract_pages, freeze_blocks
+
+    cfg = get_reduced_config("qwen3_0_6b")
+    bs, P = 8, 45
+    src = _reduced_quantized_pool(gen, cfg, 13, bs)
+    sync = dataclasses.replace(src, **{n: getattr(src, n).clone() for n in (
+        "k_fp", "v_fp", "k_codes", "v_codes", "k_cb", "v_cb", "blk_q")},
+        _stream=None)
+    blocks = [9, 2, 11, 4, 7, 1]
+    n_full = P // bs
+    n0 = fista_freeze.launches
+    payload = extract_pages(src, blocks, P, block_size=bs, mode="frozen",
+                            spec=spec)
+    assert payload.solve_event is not None
+    if spec.startswith("iter_l1"):
+        assert fista_freeze.launches - n0 == 1
+    while not payload.is_ready():
+        pass
+    payload.to_host()
+    codes, cb = payload.frozen
+    assert not codes.is_cuda and payload.solve_event is None
+    freeze_blocks(sync, blocks[:n_full], spec)
+    for r, j in enumerate(payload.frozen_idx):
+        b = blocks[j]
+        assert torch.equal(codes[0, :, r], sync.k_codes[:, b].cpu())
+        assert torch.equal(codes[1, :, r], sync.v_codes[:, b].cpu())
+        assert torch.equal(cb[0, :, r], sync.k_cb[:, b].cpu())
+        assert torch.equal(cb[1, :, r], sync.v_cb[:, b].cpu())
+    assert torch.equal(payload.tail[0], src.k_fp[:, blocks[n_full],
+                                                 :P % bs].cpu())
+
+
+def test_resident_payload_lands_bitwise_between_pools_of_other_strides(gen):
+    """A live sequence's pages, half installed-frozen, demoted
+    (extract_resident_pages -> to_host) and restored into a pool of
+    another stride: codes, codebooks, reconstructions, flags, fp pages and
+    tail rows bitwise, and the kernel reads the same attention from
+    both."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.serving import (extract_resident_pages, freeze_blocks,
+                                     splice_payload)
+
+    cfg = get_reduced_config("qwen3_0_6b")
+    bs, P = 8, 45
+    src = _reduced_quantized_pool(gen, cfg, 13, bs)
+    dst = _reduced_quantized_pool(gen, cfg, 29, bs)
+    assert src.k_fp.stride(0) != dst.k_fp.stride(0)
+    blocks = [9, 2, 11, 4, 7, 1]
+    n_full = P // bs
+    frozen_idx = [0, 1, 3]
+    freeze_blocks(src, [blocks[j] for j in frozen_idx], "kmeans_ls@16")
+    new = [20, 3, 17, 8, 25, 12]
+    payload = extract_resident_pages(src, blocks, P, frozen_idx,
+                                     block_size=bs)
+    payload.to_host()
+    splice_payload(dst, payload, new)
+    for j in range(n_full):
+        names = (("k_fp", "v_fp", "k_codes", "v_codes", "k_cb", "v_cb")
+                 if j in frozen_idx else ("k_fp", "v_fp"))
+        for name in names:
+            assert torch.equal(getattr(dst, name)[:, new[j]],
+                               getattr(src, name)[:, blocks[j]]), (name, j)
+        assert bool(dst.blk_q[new[j]]) == (j in frozen_idx)
+    r = P % bs
+    assert torch.equal(dst.k_fp[:, new[n_full], :r],
+                       src.k_fp[:, blocks[n_full], :r])
+    q = torch.randn(1, cfg.n_heads, cfg.head_dim, generator=gen,
+                    device="cuda")
+    valid = torch.tensor([P], dtype=torch.int32, device="cuda")
+
+    def decode(pool, table):
+        bt = torch.tensor([table], dtype=torch.int32, device="cuda")
+        return [paged_decode_attention(
+            q, pool.k_fp[i], pool.v_fp[i], pool.k_codes[i], pool.v_codes[i],
+            pool.k_cb[i], pool.v_cb[i], pool.blk_q, bt, valid,
+            quantized=True, packed=True) for i in range(cfg.n_layers)]
+    for a, b in zip(decode(src, blocks), decode(dst, new)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("speculate", [0, 2])
+def test_fused_forced_restore_tokens_equal_the_uninterrupted_run(gen,
+                                                                 speculate):
+    """Reduced qwen3, fused kernel, kmeans_ls@16, synchronous freezes: the
+    longest sequence demoted at decode steps 3 and 7 and restored at once
+    gives the uninterrupted run's greedy tokens, and its logits within
+    1e-5 of their range (the decode batch keeps its shape, so a row's bits
+    depend on nothing the restore changes)."""
+    from repro_torch import models
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.serving import (ContinuousBatchingEngine, Request,
+                                     derive_draft)
+
+    cfg = get_reduced_config("qwen3_0_6b")
+    params = models.init_params(cfg, gen, "cuda")
+    rng = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(0, cfg.vocab, (12,), generator=rng).tolist()
+               for _ in range(3)]
+    reqs = lambda: [Request(id=i, prompt=tuple(p), max_new_tokens=12)
+                    for i, p in enumerate(prompts)]
+    kw = dict(device="cuda", max_slots=2, block_size=8, max_seq_len=48,
+              kv_quant="kmeans_ls@16", freeze_async=False,
+              attn_impl="fused", record_logits=True, speculate=speculate,
+              draft=derive_draft(params, cfg) if speculate else None)
+    golden = ContinuousBatchingEngine(params, cfg, **kw)
+    golden.run(reqs())
+    eng = ContinuousBatchingEngine(params, cfg, offload_pages=True, **kw)
+    om, w = eng.overload, eng.worker
+    orig_step, fired = w.step, set()
+
+    def step(now_fn):
+        n = w.counters["decode_steps"]
+        if n in (3, 7) and n not in fired and w.sched.active:
+            fired.add(n)
+            slot = max(w.sched.active, key=lambda i: (int(w.lens[i]), i))
+            st = w.sched.active[slot]
+            if not st.done and w.slots[slot].out:
+                entry = w.preempt(st, "restore", now_fn())
+                om.store.put(entry)
+                om.resume.append(entry)
+        orig_step(now_fn)
+
+    w.step = step
+    s = eng.run(reqs())
+    assert fired and s["preempt_offloads"] == s["restored_seqs"] >= 1
+    assert s["offload_bytes"] == s["restore_bytes"] > 0
+    assert dict(eng.outputs) == dict(golden.outputs)
+    scale = max(float(abs(golden.request_logits[i]).max()) for i in range(3))
+    for i in range(3):
+        d = float(abs(eng.request_logits[i] - golden.request_logits[i]).max())
+        assert d <= 1e-5 * scale, (i, d, scale)
+
+
+def test_frozen_migrated_pages_read_through_the_kernel_match_gather(gen):
+    """disagg with frozen migration on the card: the fused engine (kernel
+    1 reading the landed codes) gives the gather engine's greedy tokens
+    and logits within 1e-3; every handoff crossed as codes + codebooks,
+    and the kernel launched once a layer a decode step."""
+    from repro_torch import models
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.serving import DisaggEngine, page_bytes
+
+    cfg = get_reduced_config("qwen3_0_6b")
+    params = models.init_params(cfg, gen, "cuda")
+    rng = torch.Generator().manual_seed(4)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=rng).tolist()
+               for n in (20, 16, 31)]
+    runs = {}
+    for impl in ("gather", "fused"):
+        eng = DisaggEngine(params, cfg, device="cuda", migrate="frozen",
+                           max_slots=2, block_size=8, max_seq_len=48,
+                           kv_quant="kmeans_ls@16", record_logits=True,
+                           attn_impl=impl, freeze_async=False)
+        n0 = paged_decode_attention.launches
+        out = eng.generate(prompts, max_new_tokens=8)
+        runs[impl] = (eng, out, paged_decode_attention.launches - n0)
+    (g, g_out, g_n), (f, f_out, f_n) = runs["gather"], runs["fused"]
+    assert g_n == 0 and f_n == cfg.n_layers * f.counters["decode_steps"]
+    assert f_out == g_out
+    for i in range(len(prompts)):
+        d = abs(f.request_logits[i] - g.request_logits[i]).max()
+        assert float(d) <= 1e-3, (i, float(d))
+    c = f.counters
+    pb = page_bytes(cfg, 8, quantized=True, num_values=16)
+    n_full = sum(n // 8 for n in (20, 16, 31))
+    tails = sum(n % 8 for n in (20, 16, 31))
+    row = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 4
+    assert c["migrate_bytes"] == n_full * pb["frozen"] + tails * row
+    assert f._summary()["migrate_solves"] == len(prompts)

@@ -1,14 +1,17 @@
 """Disaggregated serving (``repro_torch.serving.DisaggEngine``): the
 router's decisions against the reference router on the same fakes, fp
-page migration against the colocated engine and against the reference's
-``DisaggEngine`` on carried weights (reduced qwen3 and glm4, f32), worker
-ratios, sampling determinism, the freeze budget, async freezes outliving
-their sequences, the TTFT split, and what the engine refuses. Mirrors
-``tests/test_disagg.py``.
+and frozen page migration against the colocated engine and against the
+reference's ``DisaggEngine`` on carried weights (reduced qwen3 and glm4,
+f32), worker ratios, sampling determinism, the freeze budget, async
+freezes outliving their sequences, the TTFT split, and what the engine
+refuses. Mirrors ``tests/test_disagg.py``.
 
 Tolerances: disagg fp against colocated, inside the port, equal greedy
 tokens and request logits within atol 1e-4 (the reference test's bar:
 the pages cross unchanged, only the decode batches' composition differs);
+disagg frozen against colocated with synchronous freezing the same (the
+solver sees the same pages on either pool); fused against gather on
+frozen-migrated pages within 1e-3 (the reference test's bar);
 against the reference engine, equal greedy tokens and logits within atol
 1e-3 (the reference's engine bar, as ``tests/test_torch_serving.py``);
 the ``migrate_*`` counters equal the reference's exactly.
@@ -28,7 +31,7 @@ from repro_torch import models
 from repro_torch.configs import get_reduced_config
 from repro_torch.serving import (ContinuousBatchingEngine, DisaggEngine,
                                  DisaggRouter, PrefillWorker, Request,
-                                 sample_token)
+                                 page_bytes, sample_token)
 
 # tiny tensors: one intra-op thread (more make these shapes far slower)
 torch.set_num_threads(1)
@@ -397,6 +400,9 @@ def test_disagg_speculative_tokens_equal_non_speculative(qwen):
 
 
 def test_disagg_rejects_oversized_and_unported_migration(qwen):
+    """Requests no worker can hold are refused at the door, and migration
+    is validated as the reference validates it: frozen needs a kv_quant
+    spec with a device solver; any mode but fp and frozen raises."""
     cfg, params = qwen
     eng = DisaggEngine(params, cfg, device="cpu", max_slots=1, block_size=8,
                        max_seq_len=16)
@@ -410,14 +416,18 @@ def test_disagg_rejects_oversized_and_unported_migration(qwen):
                                     max_new_tokens=2), 0.0)
     assert small.submit(Request(id=2, prompt=(1,) * 16, max_new_tokens=2),
                         0.0)
-    for mode in ("frozen", "resident"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A5c"):
-            DisaggEngine(params, cfg, device="cpu", migrate=mode,
-                         kv_quant="kmeans_ls@16")
-        with pytest.raises(NotImplementedError, match="A5c"):
-            PrefillWorker(params, cfg, device="cpu", migrate=mode)
-    with pytest.raises(ValueError, match="migrate"):
-        DisaggEngine(params, cfg, device="cpu", migrate="codes")
+    with pytest.raises(ValueError, match="kv_quant"):
+        DisaggEngine(params, cfg, device="cpu", migrate="frozen")
+    with pytest.raises(ValueError, match="device"):
+        DisaggEngine(params, cfg, device="cpu", migrate="frozen",
+                     kv_quant="dtc@16")
+    for mode in ("codes", "splice", "resident"):
+        with pytest.raises(ValueError, match="migrate"):
+            DisaggEngine(params, cfg, device="cpu", migrate=mode)
+    with pytest.raises(ValueError, match="kv_spec"):
+        PrefillWorker(params, cfg, device="cpu", migrate="frozen")
+    with pytest.raises(ValueError, match="fp or frozen"):
+        PrefillWorker(params, cfg, device="cpu", migrate="resident")
     with pytest.raises(ValueError, match="workers"):
         DisaggEngine(params, cfg, device="cpu", decode_workers=0)
     with pytest.raises(ValueError, match="colocated"):
@@ -431,3 +441,120 @@ def test_disagg_defaults_to_the_card(qwen):
         pytest.skip("a GPU is visible: the default device is valid")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DisaggEngine(params, cfg)
+
+
+# ------------------------------------------------------- frozen migration
+
+
+def test_frozen_migration_matches_colocated_sync_freeze(reduced):
+    """migrate="frozen" (full pages solved on the prefill worker's pool,
+    crossing as codes + codebooks, landing installed) reproduces the
+    colocated engine with synchronous freezing: tokens equal, logits
+    within 1e-4; the bytes are the frozen pages' (5x and more under fp on
+    qwen3's reduced pool) and no page is solved twice."""
+    _, _, cfg, params = reduced
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, 32).tolist() for _ in range(2)]
+    kw = dict(max_slots=2, block_size=8, max_seq_len=64,
+              kv_quant="kmeans_ls@16", record_logits=True,
+              freeze_async=False, freeze_page_budget=64)
+    co = ContinuousBatchingEngine(params, cfg, device="cpu", **kw)
+    out_co = co.generate(prompts, max_new_tokens=6)
+    dz = DisaggEngine(params, cfg, device="cpu", migrate="frozen", **kw)
+    out_dz = dz.generate(prompts, max_new_tokens=6)
+    assert out_co == out_dz
+    for i in range(len(prompts)):
+        np.testing.assert_allclose(dz.request_logits[i],
+                                   co.request_logits[i], atol=1e-4, rtol=0)
+    c = dz.decode[0].counters
+    pb = page_bytes(cfg, 8, quantized=True, num_values=16)
+    assert c["host_page_solves"] == 0
+    assert c["migrated_pages"] == 2 * (32 // 8)
+    assert c["migrate_bytes"] == c["migrated_pages"] * pb["frozen"]
+    assert c["migrate_fp_equiv_bytes"] == c["migrated_pages"] * pb["fp"]
+    if cfg.name.startswith("qwen3"):
+        assert c["migrate_fp_equiv_bytes"] >= 5 * c["migrate_bytes"] > 0
+    s = dz._summary()
+    assert s["migrate_solves"] == len(prompts)
+    assert s["migrate_compression"] == pb["fp"] / pb["frozen"]
+    # the migrated pages are never queued for a second solve (decode
+    # fills no page here: 32 + 6 tokens)
+    assert c["freeze_dispatches"] == 0 < co.counters["freeze_dispatches"]
+    assert dz.prefills[0].alloc.num_free == dz.prefills[0].num_blocks - 1
+
+
+def _harvest_at_dispatch(ref):
+    """Make the reference's prefill workers harvest in the call that
+    dispatches, as the port's do on the CPU (no event to wait for): the
+    reference polls jax's async dispatch, so its schedule, and the freeze
+    dispatches that follow from it, would depend on timing."""
+    for pw in ref.prefills:
+        pw.step = lambda now_fn, _step=pw.step: _step(now_fn, block=True)
+
+
+def test_disagg_frozen_matches_reference_disagg_engine(reduced):
+    """Carried weights through both packages' DisaggEngine with frozen
+    migration: equal greedy tokens, logits within 1e-3, equal migration
+    counters and compression."""
+    jcfg, jparams, cfg, params = reduced
+    prompts = _prompts(cfg, 1, (20, 13, 16))
+    kw = dict(KW, max_seq_len=48, kv_quant="kmeans_ls@16",
+              freeze_async=False, freeze_page_budget=16)
+    ref = JaxDisaggEngine(jparams, jcfg, migrate="frozen",
+                          attn_impl="gather", **kw)
+    _harvest_at_dispatch(ref)
+    ref_out = ref.generate(prompts, max_new_tokens=6)
+    ours = DisaggEngine(params, cfg, device="cpu", migrate="frozen", **kw)
+    out = ours.generate(prompts, max_new_tokens=6)
+    assert out == ref_out
+    for i in range(len(prompts)):
+        np.testing.assert_allclose(ours.request_logits[i],
+                                   ref.request_logits[i], atol=1e-3, rtol=0)
+    keys = ("migrated_seqs", "migrated_pages", "migrate_bytes",
+            "migrate_fp_equiv_bytes", "migrate_compression",
+            "freeze_dispatches", "host_page_solves")
+    theirs, s = ref._summary(), ours._summary()
+    assert {k: s[k] for k in keys} == {k: theirs[k] for k in keys}
+
+
+def test_disagg_frozen_fused_matches_gather(qwen):
+    """Frozen-migrated pages are servable by the fused read at once: the
+    fused engine (the kernel's plain version on the CPU) gives the gather
+    engine's tokens, logits within 1e-3."""
+    cfg, params = qwen
+    prompts = _prompts(cfg, 4, (10, 10))
+    runs = {}
+    for impl in ("gather", "fused"):
+        eng = DisaggEngine(params, cfg, device="cpu", migrate="frozen",
+                           max_slots=2, block_size=8, max_seq_len=32,
+                           kv_quant="kmeans_ls@16", record_logits=True,
+                           attn_impl=impl, freeze_async=False)
+        runs[impl] = (eng, eng.generate(prompts, max_new_tokens=4))
+    (g_eng, g_out), (f_eng, f_out) = runs["gather"], runs["fused"]
+    assert g_out == f_out
+    for i in range(len(prompts)):
+        np.testing.assert_allclose(f_eng.request_logits[i],
+                                   g_eng.request_logits[i], atol=1e-3,
+                                   rtol=0)
+
+
+def test_frozen_payload_is_harvested_only_once_its_solve_is_ready(qwen):
+    """The prefill worker harvests a frozen payload only when is_ready
+    covers the solve, stages its codes and frees the pool's blocks."""
+    cfg, params = qwen
+    from repro_torch.serving import resolve_kv_spec
+
+    pw = PrefillWorker(params, cfg, device="cpu", block_size=8,
+                       max_seq_len=32, migrate="frozen",
+                       kv_spec=resolve_kv_spec("kmeans_ls@16"))
+    assert pw.own_pool.quantized
+    req = Request(id=0, prompt=tuple(range(1, 21)), max_new_tokens=2)
+    pw.metrics.arrival(0, 0.0, req.prompt_len)
+    pw.submit(req)
+    (fin,) = pw.step(lambda: 0.0)
+    p = fin.payload
+    assert p.mode == "frozen" and p.staged and p.solve_event is None
+    assert (p.n_full, p.tail_rows) == (2, 4)
+    assert p.frozen[0].dtype == torch.uint8 and not p.frozen[0].is_cuda
+    assert pw.counters["migrate_solves"] == 1
+    assert pw.alloc.num_free == pw.num_blocks - 1

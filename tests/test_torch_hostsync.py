@@ -1,6 +1,6 @@
 """The port's host-sync check (``repro_torch.analysis.hostsync``): the hot
 modules make no host sync but those with a pragma (nine read-backs and
-waits, seventeen pageable host-to-device copies), and the check finds each
+waits, sixteen pageable host-to-device copies), and the check finds each
 construct it names, honours a pragma on the call's line or the line
 before, and reports stale pragmas."""
 import subprocess
@@ -38,11 +38,12 @@ def test_hot_modules_sync_only_where_a_pragma_says_why():
     # copies of the window's and the draft prompt's token ids; the
     # per-page host freeze of the count methods without a device solver
     # adds its pages' read-back and the copies of their page ids, codes
-    # and codebooks; fp page migration adds the payload's staging to the
-    # host (gated on its event) and the copies of the source page ids, the
-    # staged pages and the destination page ids
-    assert len(lines) == 26
-    assert len([f for f in findings if "host-to-device" in f.what]) == 17
+    # and codebooks; page migration adds the payload's staging to the host
+    # (gated on its events by the harvest; preempt's demotion blocks on
+    # it), one copy of page ids (source or destination) and the copy of
+    # the staged pages and codes; overload adds no site of its own
+    assert len(lines) == 25
+    assert len([f for f in findings if "host-to-device" in f.what]) == 16
     assert all(f.reason for f in findings)
 
 
@@ -51,6 +52,7 @@ def test_every_hot_module_is_read():
         assert (hostsync.PACKAGE / rel).is_file(), rel
     assert {"serving/workers.py", "serving/kv_cache.py",
             "serving/speculative.py", "serving/transfer.py",
+            "serving/overload.py",
             "kernels/fista_quant.py"} <= set(hostsync.HOT_MODULES)
 
 
