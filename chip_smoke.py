@@ -6,7 +6,11 @@ against the CPU, then serves qwen3-0.6B (full width and depth, bf16,
 seeded random weights) through continuous batching with chunked prefill:
 with kmeans_ls@16 KV pages once from dense weights, and once, the main
 path, from kmeans_ls@16 PTQ'd weights served as codes, with the launcher's
-replay checks; then the stacked qmatmul path over the 28 layers' codes;
+replay checks; then the same weights traced (phase ``trace``: the
+launcher's ``--trace-out`` and ``--metrics-jsonl`` on the main path, and
+the preempt, serve-spec and disagg-frozen flags traced, each trace
+reconciled with the engine's counters); then the stacked qmatmul path
+over the 28 layers' codes;
 then the same PTQ'd weights with iter_l1@16 KV pages (every freeze's
 solve, power iteration and 14-step lambda bisection, one launch of the
 FISTA kernel's freeze entry), with the replay checks; then the same
@@ -53,6 +57,8 @@ Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -67,8 +73,10 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+# the H100 SXM's HBM3 rate, the one constant the port's rooflines share
+from repro_torch.device import HBM_BYTES_PER_S  # noqa: E402
+
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12      # HBM3
 F32_FLOPS = 67e12              # f32 outside the tensor cores
 BF16_FLOPS = 989e12            # bf16 tensor cores, f32 accumulation
 # kernel vs plain version: f32 pools at the reference's bar
@@ -1039,6 +1047,194 @@ def check_serve() -> dict:
     profile_engine(params, cfg, args)
     phase("serve", serve_line(s))
     return dict(launches=launches, params=params, cfg=cfg, summary=s)
+
+
+# the page-freeze lifecycle's terminal states (analysis/spans.py)
+FREEZE_STATES = {"installed", "dropped", "rolled_back", "offloaded"}
+# observability on the main path: the trace, the metrics JSONL every
+# 0.1 s and its Prometheus file, under build/ (git-ignored)
+TRACE_DIR = os.path.join(HERE, "build", "trace")
+METRICS_JSONL = os.path.join(TRACE_DIR, "main.jsonl")
+TRACE_ARGS = QUANT_ARGS + ["--metrics-jsonl", METRICS_JSONL,
+                           "--metrics-interval", "0.1"]
+
+
+def strict_constant(c):
+    raise AssertionError(f"a metrics line holds {c}: not strict JSON")
+
+
+def trace_events(trace: dict, name: str, ph: str) -> list[dict]:
+    from repro_torch.obs import select_events
+
+    return select_events(trace["traceEvents"], name=name, ph=ph)
+
+
+def trace_tracks(trace: dict) -> set[str]:
+    return {e["args"]["name"] for e in trace["traceEvents"]
+            if e["ph"] == "M" and e["name"] == "thread_name"}
+
+
+def span_ms(trace: dict, track: str, name: str) -> list[float]:
+    """Durations (ms, host clock) of the complete spans ``name`` on
+    ``track``."""
+    tid = {e["args"]["name"]: e["tid"] for e in trace["traceEvents"]
+           if e["ph"] == "M" and e["name"] == "thread_name"}[track]
+    return [e["dur"] / 1e3 for e in trace["traceEvents"]
+            if e["ph"] == "X" and e["name"] == name and e["tid"] == tid]
+
+
+def span_breakdown(trace: dict) -> str:
+    """Mean and total host time of the decode step and its phases, the
+    freeze flushes and the prefill chunks."""
+    parts = []
+    for track, name in (("decode/w0", "decode_step"), ("decode/w0",
+                        "dispatch"), ("decode/w0", "sync"),
+                        ("decode/w0", "commit"), ("freeze/w0", "flush"),
+                        ("prefill/w0", "prefill_chunk")):
+        d = span_ms(trace, track, name)
+        if d:
+            parts.append(f"{name} {sum(d) / len(d):.3f} ms x {len(d)} = "
+                         f"{sum(d):.1f} ms")
+    return "; ".join(parts)
+
+
+def serve_traced(argv, params, tag: str) -> tuple:
+    """``serve_once(argv + --trace-out build/trace/<tag>.json, params)``,
+    its output echoed; fails unless the launcher printed "reconciled"
+    (its trace's counts equal the engine's counters). Returns (summary,
+    cfg, args, launches, the trace)."""
+    os.makedirs(TRACE_DIR, exist_ok=True)
+    path = os.path.join(TRACE_DIR, f"{tag}.json")
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            s, _, cfg, args, launches = serve_once(
+                argv + ["--trace-out", path], params)
+    finally:
+        sys.stdout.write(buf.getvalue())
+    if "-> reconciled" not in buf.getvalue():
+        raise AssertionError(f"trace {tag}: the launcher did not print "
+                             f"reconciled")
+    with open(path) as f:
+        return s, cfg, args, launches, json.load(f)
+
+
+def freeze_span_line(trace: dict) -> str:
+    """Every page_freeze span opened ends once, in a declared state."""
+    begins = {e["id"] for e in trace_events(trace, "page_freeze", "b")}
+    ends: dict = {}
+    for e in trace_events(trace, "page_freeze", "e"):
+        if e["id"] in ends:
+            raise AssertionError(f"page_freeze span {e['id']} ended twice")
+        ends[e["id"]] = e["args"]["state"]
+    bad = set(ends.values()) - FREEZE_STATES
+    if set(ends) != begins or bad:
+        raise AssertionError(f"page_freeze spans: {len(begins)} opened, "
+                             f"{len(ends)} ended, states {bad or ''}")
+    counts = {st: list(ends.values()).count(st) for st in sorted(
+        set(ends.values()))}
+    return (f"{len(begins)} page_freeze spans, each ended once ("
+            + ", ".join(f"{k} {v}" for k, v in counts.items()) + ")")
+
+
+def check_trace(params, cfg) -> dict:
+    """The phase ``trace``: the launcher's --trace-out and --metrics-jsonl
+    on the main path's weights at full width and depth. (a) the main
+    path's flags: tracks router, decode/w0 and freeze/w0, every
+    page_freeze span ended once in a declared state, >= 2 strict-JSON
+    metrics lines whose last has 8 completed and 256 tokens and the
+    hbm_bytes_per_token gauge set, the .prom file; TPOT p50 beside an
+    untraced run of the same flags (no gate). (b) the overload phase's
+    preempt trace: page_offload begins == ends == restored ends ==
+    offloaded_pages == restored_pages. (c) serve-spec's flags: accept ==
+    spec_steps, rollback == spec_rollbacks, prefix_match == prefix_hits.
+    (d) disagg with frozen migration: tracks router, prefill/w0,
+    decode/w0, transfer, and every extract frozen. Every run reconciles
+    and keeps its launch gates. Returns (a)'s launches."""
+    name = "trace"
+    t0 = time.perf_counter()
+    # traced first, then untraced: the runs of one call in the other
+    # order read the traced TPOT 5-7% above the untraced one (PERF.md)
+    s, cfg, args, launches, trace = serve_traced(TRACE_ARGS, params, "main")
+    plain, *_ = serve_once(QUANT_ARGS, params)
+    phase(name, "(a) " + check_launches(s, cfg, launches, quantized=True))
+    want = {"router", "decode/w0", "freeze/w0"}
+    if not want <= trace_tracks(trace):
+        raise AssertionError(f"(a) tracks {sorted(trace_tracks(trace))}")
+    spans = freeze_span_line(trace)
+    with open(METRICS_JSONL) as f:
+        rows = [json.loads(ln, parse_constant=strict_constant)
+                for ln in f.read().splitlines()]
+    last = rows[-1] if rows else {}
+    gauge = last.get("hbm_bytes_per_token", {})
+    prom = METRICS_JSONL + ".prom"
+    if len(rows) < 2 or last.get("completed") != args.num_requests \
+            or last.get("gen_tokens") != args.num_requests * args.gen \
+            or not gauge.get("n") or not os.path.isfile(prom):
+        raise AssertionError(f"(a) metrics: {len(rows)} lines, last "
+                             f"completed {last.get('completed')}, gen_tokens "
+                             f"{last.get('gen_tokens')}, hbm gauge {gauge}, "
+                             f".prom {os.path.isfile(prom)}")
+    phase(name, f"(a) reconciled: {len(trace['traceEvents'])} events on "
+          f"tracks {sorted(trace_tracks(trace))}; {spans}; "
+          f"{len(trace_events(trace, 'decode_step', 'X'))} decode_step, "
+          f"{len(trace_events(trace, 'prefill_chunk', 'X'))} prefill_chunk "
+          f"and {len(trace_events(trace, 'flush', 'X'))} flush spans; "
+          f"{len(rows)} strict-JSON metrics lines (last: {last['completed']}"
+          f" completed, {last['gen_tokens']} tokens), hbm_bytes_per_token "
+          f"gauge {gauge['n']} samples, last {gauge['last']:.0f} B "
+          f"(t_memory {last['t_memory_s']['last'] * 1e6:.3f} us at "
+          f"{HBM_BYTES_PER_S:.3g} B/s), {os.path.basename(prom)} written")
+    phase(name, f"(a) host-clock spans (the enqueue on the card; sync "
+          f"absorbs the device time queued before it): "
+          f"{span_breakdown(trace)}; makespan {s['makespan_s'] * 1e3:.1f} ms")
+    phase(name, f"(a) TPOT p50 traced {s['tpot_p50_s'] * 1e3:.2f} ms, "
+          f"untraced {plain['tpot_p50_s'] * 1e3:.2f} ms (one run each, no "
+          f"gate); traced {serve_line(s)}")
+    sb, cfg, _, lb, tb = serve_traced(PREEMPT_ARGS, params, "preempt")
+    check_launches(sb, cfg, lb, quantized=True)
+    ob = len(trace_events(tb, "page_offload", "b"))
+    oe = trace_events(tb, "page_offload", "e")
+    restored = sum(e["args"]["state"] == "restored" for e in oe)
+    if sb["preemptions"] < 1 or not (ob == len(oe) == restored
+                                     == sb["offloaded_pages"]
+                                     == sb["restored_pages"]):
+        raise AssertionError(f"(b) page_offload {ob} begins, {len(oe)} "
+                             f"ends, {restored} restored; counters "
+                             f"{sb['offloaded_pages']} offloaded, "
+                             f"{sb['restored_pages']} restored")
+    phase(name, f"(b) preempt trace reconciled: {sb['preemptions']} "
+          f"preemptions; page_offload {ob} begins == {len(oe)} ends == "
+          f"{restored} restored == offloaded_pages == restored_pages; "
+          f"{freeze_span_line(tb)}")
+    sc, cfg, _, lc, tc = serve_traced(SPEC_ARGS, params, "spec")
+    check_launches(sc, cfg, lc, quantized=True, spec=SPEC_K)
+    n_acc = len(trace_events(tc, "accept", "i"))
+    n_rb = len(trace_events(tc, "rollback", "i"))
+    n_pm = len(trace_events(tc, "prefix_match", "X"))
+    if n_acc != sc["spec_steps"] or n_rb != sc["spec_rollbacks"] \
+            or n_pm != sc["prefix_hits"] or n_pm < 1:
+        raise AssertionError(f"(c) accept {n_acc} / {sc['spec_steps']}, "
+                             f"rollback {n_rb} / {sc['spec_rollbacks']}, "
+                             f"prefix_match {n_pm} / {sc['prefix_hits']}")
+    phase(name, f"(c) serve-spec trace reconciled: accept {n_acc} == "
+          f"spec_steps, rollback {n_rb} == spec_rollbacks, prefix_match "
+          f"{n_pm} == prefix_hits; {freeze_span_line(tc)}")
+    sd, cfg, _, ld, td = serve_traced(DISAGG_FROZEN_ARGS, params, "disagg")
+    check_launches(sd, cfg, ld, quantized=True)
+    want = {"router", "prefill/w0", "decode/w0", "transfer"}
+    ex = trace_events(td, "extract", "X")
+    if not want <= trace_tracks(td) or len(ex) != sd["prefills_done"] \
+            or any(e["args"]["mode"] != "frozen" for e in ex):
+        raise AssertionError(f"(d) tracks {sorted(trace_tracks(td))}, "
+                             f"extract modes "
+                             f"{[e['args']['mode'] for e in ex]}")
+    phase(name, f"(d) disagg frozen trace reconciled: tracks "
+          f"{sorted(trace_tracks(td))}, {len(ex)} extract spans, all "
+          f"frozen; {freeze_span_line(td)}")
+    phase(name, f"{time.perf_counter() - t0:.1f} s")
+    return dict(launches=launches, tpot_p50_ms=s["tpot_p50_s"] * 1e3,
+                untraced_tpot_p50_ms=plain["tpot_p50_s"] * 1e3)
 
 
 def check_stacked_path(params, cfg, gen) -> dict:
@@ -2627,6 +2823,7 @@ def main() -> int:
     check_card_tests()
     check_serve_fp()
     sv = check_serve()
+    tc = check_trace(sv["params"], sv["cfg"])
     st = check_stacked_path(sv["params"], sv["cfg"], gen)
     cfg = sv["cfg"]
     it = check_serve_iter_l1(sv["params"])
@@ -2655,6 +2852,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:242",
          "launches": sv["launches"]["paged_decode_attention"],
+         "trace_launches": tc["launches"]["paged_decode_attention"],
          "serve_spec_launches": sp_launches["paged_decode_attention"],
          "serve_disagg_launches": dz["launches"]["paged_decode_attention"],
          "serve_disagg_frozen_launches": dzf["launches"][
@@ -2672,6 +2870,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul.py:50",
          "launches": sv["launches"]["quant_matmul"],
+         "trace_launches": tc["launches"]["quant_matmul"],
          "serve_spec_launches": sp_launches["quant_matmul"],
          "serve_disagg_launches": dz["launches"]["quant_matmul"],
          "serve_disagg_frozen_launches": dzf["launches"]["quant_matmul"],

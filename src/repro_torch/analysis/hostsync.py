@@ -30,6 +30,19 @@ it::
 A pragma that covers no call is reported as stale.
 
     python -m repro_torch.analysis.hostsync      # exit 1 on any finding
+
+The same check is the ``sync`` pass of the lint framework
+(``python -m repro_torch.analysis``), with these codes:
+
+  SYNC001  .synchronize(): the host waits for the card
+  SYNC002  .cpu() / .numpy() / .tolist(): a device value read back
+  SYNC003  .item(): a device scalar read back
+  SYNC006  a pageable host-to-device copy (.to(<device>), .cuda(),
+           torch.tensor / as_tensor(device=))
+
+There the framework reports a stale pragma (LINT003), once. The
+reference's pass reads only the functions reachable from ``step()``; this
+one reads the hot modules whole.
 """
 from __future__ import annotations
 
@@ -40,6 +53,8 @@ import re
 import sys
 import tokenize
 from pathlib import Path
+
+from . import lint
 
 #: the modules the engine's step, a freeze and the kernel wrappers run
 HOT_MODULES = (
@@ -123,32 +138,48 @@ def _host_names(body) -> set[str]:
 
 
 class _Syncs(ast.NodeVisitor):
-    """(line, what) of each sync call, host tensors tracked per
-    function."""
+    """(line, what, qualified function name) of each sync call, host
+    tensors tracked per function."""
 
     def __init__(self, tree: ast.Module):
         self.names = [_host_names(tree.body)]
-        self.found: list[tuple[int, str]] = []
+        self.scope: list[str] = []
+        self.found: list[tuple[int, str, str]] = []
+
+    def visit_ClassDef(self, node):
+        self.scope.append(node.name)
+        self.generic_visit(node)
+        self.scope.pop()
 
     def visit_FunctionDef(self, node):
         self.names.append(_host_names(node.body))
+        self.scope.append(node.name)
         self.generic_visit(node)
+        self.scope.pop()
         self.names.pop()
 
     visit_AsyncFunctionDef = visit_FunctionDef
 
+    def _add(self, line: int, what: str) -> None:
+        self.found.append((line, what, ".".join(self.scope) or "<module>"))
+
     def visit_Call(self, node):
         f = node.func
         if isinstance(f, ast.Attribute) and f.attr in SYNC_CALLS:
-            self.found.append((f.end_lineno, f".{f.attr}()"))
+            self._add(f.end_lineno, f".{f.attr}()")
         elif (isinstance(f, ast.Attribute) and f.attr in ("to", "cuda")
               and _host_built(f.value, self.names[-1])
               and (f.attr == "cuda" or _to_device(node))):
-            self.found.append((f.end_lineno, f".{f.attr}() host-to-device"))
+            self._add(f.end_lineno, f".{f.attr}() host-to-device")
         elif _torch_call(node, ("tensor", "as_tensor")) and _device_kw(node):
-            self.found.append((node.lineno,
-                               f"torch.{f.attr}(device=) host-to-device"))
+            self._add(node.lineno, f"torch.{f.attr}(device=) host-to-device")
         self.generic_visit(node)
+
+
+def _sync_calls(source: str) -> list[tuple[int, str, str]]:
+    visitor = _Syncs(tree := ast.parse(source))
+    visitor.visit(tree)
+    return visitor.found
 
 
 def scan_source(source: str, path: str = "<source>") -> list[Finding]:
@@ -157,9 +188,7 @@ def scan_source(source: str, path: str = "<source>") -> list[Finding]:
     pragmas = _pragmas(source)
     used = set()
     found = []
-    visitor = _Syncs(tree := ast.parse(source))
-    visitor.visit(tree)
-    for line, what in visitor.found:
+    for line, what, _ in _sync_calls(source):
         at = next((ln for ln in (line, line - 1) if ln in pragmas), None)
         if at is not None:
             used.add(at)
@@ -182,6 +211,32 @@ def violations(findings) -> list[Finding]:
     pragmas."""
     return [f for f in findings
             if f.reason is None or f.what == "stale pragma"]
+
+
+def is_hot_module(relpath: str) -> bool:
+    return relpath.endswith(HOT_MODULES)
+
+
+def _code(what: str) -> str:
+    if "host-to-device" in what:
+        return "SYNC006"
+    return {".synchronize()": "SYNC001", ".item()": "SYNC003"}.get(
+        what, "SYNC002")
+
+
+@lint.register
+class HostSyncPass(lint.LintPass):
+    name = "sync"
+    description = ("no host sync (.item/.cpu/.numpy/.tolist/.synchronize, "
+                   "a pageable host-to-device copy) in the hot modules "
+                   "without a pragma giving its reason")
+
+    def check_module(self, mod: lint.Module):
+        if not is_hot_module(mod.relpath):
+            return ()
+        return [lint.Finding(mod.relpath, line, _code(what), self.name,
+                             f"{what} in {func}")
+                for line, what, func in _sync_calls(mod.source)]
 
 
 def main() -> int:

@@ -8,6 +8,11 @@ from __future__ import annotations
 
 import torch
 
+#: HBM3 bandwidth of the H100 SXM (NVIDIA data sheet), the memory rate of
+#: the port's rooflines: ``obs.export``'s gauges and ``chip_smoke.py``'s
+#: kernel bounds
+HBM_BYTES_PER_S = 3.35e12
+
 
 def resolve_device(device=None) -> torch.device:
     """``None``/"cuda" -> the current CUDA device (raises without a GPU);

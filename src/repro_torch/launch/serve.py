@@ -42,6 +42,23 @@ restore counters.
 ``--prefill-chunk`` and ``--prefix-cache`` serve the colocated pool only,
 as in the reference.
 
+Observability, on the continuous and disagg engines: ``--trace-out PATH``
+writes a Chrome trace-event JSON of the run (load it at
+https://ui.perfetto.dev or ``chrome://tracing``): one track per component
+(the router's admit/defer/reject, the prefill workers' dispatch/harvest,
+each decode step's dispatch/sync/commit, page transfers with their bytes,
+the page-freeze lifecycle queued -> dispatched -> installed | dropped |
+rolled_back | offloaded and the page offload -> restored as async spans,
+speculative propose/verify/accept/rollback, the cache and roofline
+counters), and the run fails unless the trace's counts equal the engine's
+counters (it prints "reconciled"). Every span is on the host clock: on the
+card it times the enqueue, and the step's ``sync`` span absorbs the device
+time queued before it. ``--metrics-jsonl PATH`` writes a strict-JSON
+snapshot of the metrics every ``--metrics-interval`` seconds (histogram
+percentiles windowed over the interval, the modeled HBM bytes a token and
+its time at the H100's 3.35 TB/s) and the final one as Prometheus text at
+``PATH.prom``.
+
 ``--engine static`` runs the reference's default engine: ``--batch B``
 prompts of ``--prompt-len`` tokens prefilled into the model's dense ring
 cache, then ``--gen`` greedy decode steps (``launch/static_steps.py``);
@@ -163,15 +180,17 @@ def _make_draft(params, cfg, args):
 def _make_engine(params, cfg, args, *, kv_quant, record_logits=False,
                  freeze_async=True, attn_impl=None, prefill_chunk=-1,
                  freeze_page_budget=None, speculate=None, prefix_cache=False,
-                 max_slots=None, draft=None, overload=False):
+                 max_slots=None, draft=None, overload=False, tracer=None,
+                 exporter=None):
     """The engine composition ``args`` asks for (``--engine continuous``
     or ``disagg``), so every replay runs the composition served;
     ``speculate`` (default ``--speculate``) drafts with ``draft`` (params,
     cfg), by default built from ``params`` by ``--draft-config``; the
     freeze budget defaults to ``--freeze-page-budget``. ``overload`` turns
     on the overload flags (the served run; the replays probe an
-    uncontended pool). A disagg engine without ``kv_quant`` migrates fp,
-    the only pages that cross without a spec."""
+    uncontended pool), as do ``tracer`` and ``exporter``. A disagg engine
+    without ``kv_quant`` migrates fp, the only pages that cross without a
+    spec."""
     from repro_torch.serving import ContinuousBatchingEngine, DisaggEngine
 
     speculate = args.speculate if speculate is None else speculate
@@ -186,7 +205,7 @@ def _make_engine(params, cfg, args, *, kv_quant, record_logits=False,
                                   else freeze_page_budget),
               speculate=speculate,
               draft=(draft or _make_draft(params, cfg, args)) if speculate
-              else None)
+              else None, tracer=tracer, exporter=exporter)
     if overload:
         kw.update(offload_pages=args.offload_pages, preempt=args.preempt,
                   admission=args.admission, itl_slo_s=args.itl_slo)
@@ -548,6 +567,69 @@ def cut_params(params, n_layers: int):
     return {**params, "layers": params["layers"][:n_layers]}
 
 
+def _trace_reconcile(tracer, s, speculate: int) -> bool:
+    """Hold the trace's event counts to the engine's counters: decode
+    steps, freeze flushes, prefill chunks, page-freeze spans opened and
+    ended, speculative accepts and rollbacks, page-offload spans (each
+    ended "restored", as many as pages offloaded and restored), preempt
+    and restore instants, and prefix matches. A trace is trusted only if
+    its counts are the counters. Prints the reading; True if they agree."""
+    from repro_torch.obs import count_events
+
+    ev = tracer.events
+    n_step = count_events(ev, name="decode_step", ph="X")
+    n_flush = count_events(ev, name="flush", ph="X")
+    nb = count_events(ev, name="page_freeze", ph="b")
+    ne = count_events(ev, name="page_freeze", ph="e")
+    states: dict = {}
+    for e in ev:
+        if e.get("ph") == "e" and e.get("name") == "page_freeze":
+            st = e.get("args", {}).get("state", "?")
+            states[st] = states.get(st, 0) + 1
+    n_pc = count_events(ev, name="prefill_chunk", ph="X")
+    ok = (n_step == s.get("decode_steps", 0)
+          and n_flush == s.get("freeze_dispatches", 0) and nb == ne
+          and n_pc == s.get("prefill_chunks", 0))
+    if speculate:
+        n_acc = count_events(ev, name="accept", ph="i")
+        n_rb = count_events(ev, name="rollback", ph="i")
+        ok = ok and (n_acc == s.get("spec_steps", 0)
+                     and n_rb == s.get("spec_rollbacks", 0))
+    ob = count_events(ev, name="page_offload", ph="b")
+    oe = count_events(ev, name="page_offload", ph="e")
+    o_restored = sum(1 for e in ev if e.get("name") == "page_offload"
+                     and e.get("ph") == "e"
+                     and e.get("args", {}).get("state") == "restored")
+    ok = ok and (ob == oe == o_restored == s.get("offloaded_pages", 0)
+                 == s.get("restored_pages", 0))
+    ok = ok and (count_events(ev, name="preempt", ph="i")
+                 == s.get("preemptions", 0))
+    ok = ok and (count_events(ev, name="restore", ph="i")
+                 == s.get("restored_seqs", 0))
+    # every counted prefix hit has one prefix_match span (a prefill's
+    # splice or a restore's), and no span lacks its hit
+    n_pm = count_events(ev, name="prefix_match", ph="X")
+    ok = ok and n_pm == s.get("prefix_hits", 0)
+    state_txt = (", ".join(f"{k}={v}" for k, v in sorted(states.items()))
+                 or "none")
+    more = f", page-offload spans {ob} -> {oe} restored" if ob else ""
+    if n_pm or s.get("prefix_hits"):
+        more += (f", prefix_match spans {n_pm} "
+                 f"(counter {s.get('prefix_hits', 0)})")
+    if n_pc or s.get("prefill_chunks"):
+        more += (f", prefill_chunk spans {n_pc} "
+                 f"(counter {s.get('prefill_chunks', 0)})")
+    if speculate:
+        more += (f", accept {n_acc} (counter {s.get('spec_steps', 0)}), "
+                 f"rollback {n_rb} (counter {s.get('spec_rollbacks', 0)})")
+    print(f"[serve] trace: {len(ev)} events | decode_step spans {n_step} "
+          f"(counter {s.get('decode_steps', 0)}), freeze flushes {n_flush} "
+          f"(counter {s.get('freeze_dispatches', 0)}), page-freeze spans "
+          f"{nb} opened -> {ne} terminal ({state_txt}){more} "
+          f"-> {'reconciled' if ok else 'MISMATCH'}")
+    return ok
+
+
 def serve(args, params=None):
     """Serve a Poisson trace and print the summary. Returns (summary,
     params, cfg). The weights are ``params`` if given (for ``--arch``'s
@@ -569,8 +651,18 @@ def serve(args, params=None):
             cfg, torch.Generator(device=dev).manual_seed(0), dev)
         if args.quantize:
             params, ptq = quantize_params(params, args, dev)
+    tracer = exporter = None
+    if args.trace_out or args.metrics_jsonl:
+        from repro_torch.obs import MetricsExporter, Tracer
+
+        if args.trace_out:
+            tracer = Tracer()
+        if args.metrics_jsonl:
+            exporter = MetricsExporter(args.metrics_jsonl,
+                                       interval_s=args.metrics_interval)
     eng = _make_engine(params, cfg, args, kv_quant=args.kv_quant,
-                       prefix_cache=args.prefix_cache, overload=True)
+                       prefix_cache=args.prefix_cache, overload=True,
+                       tracer=tracer, exporter=exporter)
     trace = poisson_trace(args.num_requests, args.request_rate,
                           vocab=cfg.vocab, prompt_len=args.prompt_len,
                           max_new_tokens=args.gen, seed=args.seed,
@@ -606,9 +698,28 @@ def serve(args, params=None):
              f"tokens)" if args.prefix_cache else "")
           + (f", overload ({', '.join(over)})" if over else "")
           + (f", {n_be} best_effort requests" if n_be else ""))
-    s = eng.run(trace)
+    try:
+        s = eng.run(trace)
+    finally:
+        if exporter is not None:
+            exporter.close(eng.metrics)       # the final snapshot
     if ptq is not None:
         s["ptq"] = ptq
+    if exporter is not None:
+        from repro_torch.obs import prometheus_text
+
+        prom_path = args.metrics_jsonl + ".prom"
+        with open(prom_path, "w") as f:
+            f.write(prometheus_text(eng.metrics.snapshot()))
+        print(f"[serve] metrics: {len(exporter.lines)} snapshots -> "
+              f"{args.metrics_jsonl} (+ {prom_path})")
+    if tracer is not None:
+        tracer.write(args.trace_out)
+        print(f"[serve] trace -> {args.trace_out} (load at "
+              f"https://ui.perfetto.dev or chrome://tracing; host-clock "
+              f"spans, not a device profile)")
+        if not _trace_reconcile(tracer, s, args.speculate):
+            raise SystemExit("[serve] trace/counter reconciliation failed")
     if not s["completed"]:
         raise SystemExit(f"[serve] no requests completed ({s['rejected']} "
                          f"rejected: prompt+gen must fit --max-seq-len "
@@ -890,9 +1001,26 @@ def parse_args(argv=None):
                     help="mark this seed-derived fraction of the trace "
                          "best_effort: the tier --admission slo sheds and "
                          "--preempt evicts")
+    ap.add_argument("--trace-out", default=None,
+                    help="write a Perfetto-loadable Chrome trace-event "
+                         "JSON of the run (one track per component; host "
+                         "clock) and fail unless its span counts equal the "
+                         "engine's counters")
+    ap.add_argument("--metrics-jsonl", default=None,
+                    help="write a JSON metrics snapshot here every "
+                         "--metrics-interval seconds (percentiles windowed "
+                         "per interval, modeled HBM bytes/token gauges); "
+                         "the final Prometheus text lands at PATH + "
+                         "'.prom'")
+    ap.add_argument("--metrics-interval", type=float, default=1.0,
+                    help="seconds between --metrics-jsonl snapshots")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     serving = args.engine != "static"
+    if (args.trace_out or args.metrics_jsonl) and not serving:
+        ap.error("--trace-out/--metrics-jsonl instrument the continuous "
+                 "and disagg engines")
+
     if args.prompt_len is None:
         args.prompt_len = 64 if serving else 16
     if args.gen is None:

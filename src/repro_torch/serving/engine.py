@@ -50,6 +50,15 @@ Each run's summary reports ``paged_attention_launches`` and
 quantized projections (0 certifies that every PTQ'd matmul served from
 codes).
 
+``tracer=`` (an ``obs.Tracer``; ``NullTracer`` by default) records the
+run on one track per component: the router's admit/defer/reject, the
+prefill workers' dispatch/harvest, the decode steps' dispatch/sync/commit,
+page transfers, the page-freeze and page-offload lifecycles as async spans
+and the cache and roofline counters. ``exporter=`` (an
+``obs.MetricsExporter``) snapshots the metrics every iteration its
+interval allows and once at the end, and turns on the workers' modeled
+HBM gauges (``hbm_bytes_per_token``, ``t_memory_s``).
+
 The engine runs on the card by default (``device="cuda"``, which raises
 without a GPU); ``device="cpu"`` runs it on the host.
 """
@@ -90,21 +99,25 @@ def _make_overload(metrics, *, offload_pages: bool, preempt: bool,
 
 
 def _slo_door(om, req, occupancy: float, metrics, rejected: list,
-              now: float) -> bool | None:
+              now: float, tracer) -> bool | None:
     """The SLO policy's verdict on an arrival that passed the never-fits
     door: False if shed (counted, rejected), True if deferred (arrival
-    metered, parked in ``om.deferred``), None to admit as usual."""
+    metered, parked in ``om.deferred``), None to admit as usual. Each
+    verdict is an instant on the "router" track."""
     if om is None or om.policy is None:
         return None
     verdict = om.policy.decide(req, occupancy=occupancy)
     if verdict == "shed":
         rejected.append(req.id)
         metrics.admission("shed_slo")
+        tracer.instant("router", "reject", rid=req.id, reason="shed_slo")
         return False
     if verdict == "defer":
         om.deferred.append(req)
         metrics.arrival(req.id, now, req.prompt_len)
         metrics.admission("deferred")
+        tracer.instant("router", "defer", rid=req.id,
+                       deferred=len(om.deferred))
         return True
     return None
 
@@ -120,11 +133,11 @@ def _retire_demoted(om, outputs: dict) -> None:
         outputs.setdefault(entry.req.id, list(entry.out))
 
 
-def _offload_compression(out: dict) -> None:
+def _offload_compression(summary: dict) -> None:
     """What the host tier saved against demoting at fp width."""
-    if out.get("offload_bytes"):
-        out["offload_compression"] = (out["offload_fp_equiv_bytes"]
-                                      / out["offload_bytes"])
+    if summary.get("offload_bytes"):
+        summary["offload_compression"] = (summary["offload_fp_equiv_bytes"]
+                                          / summary["offload_bytes"])
 
 
 def _resolve_attn_impl(attn_impl: str, device: torch.device, *,
@@ -157,22 +170,22 @@ class _LaunchCounts:
         self.attn0 = paged_decode_attention.launches
         self.qmm0, self.fb0 = quant_matmul.launches, fallback_count()
 
-    def into(self, out: dict, metrics) -> None:
-        out["paged_attention_launches"] = (paged_decode_attention.launches
-                                           - self.attn0)
-        out["quant_matmul_launches"] = quant_matmul.launches - self.qmm0
+    def into(self, summary: dict, metrics) -> None:
+        summary["paged_attention_launches"] = (
+            paged_decode_attention.launches - self.attn0)
+        summary["quant_matmul_launches"] = quant_matmul.launches - self.qmm0
         fallbacks = fallback_count() - self.fb0
-        out["qmatmul_dequant_fallback"] = fallbacks
+        summary["qmatmul_dequant_fallback"] = fallbacks
         metrics.stats.counter("qmatmul_dequant_fallback").inc(fallbacks)
 
 
-def _tokens_per_step(out: dict) -> None:
+def _tokens_per_step(summary: dict) -> None:
     """Decode-generated tokens per sequence decode step: 1.0 without
     speculation, more when verify windows accept drafts."""
-    if out.get("seq_decode_steps"):
-        out["tokens_per_step"] = ((out.get("gen_tokens", 0)
-                                   - out.get("completed", 0))
-                                  / out["seq_decode_steps"])
+    if summary.get("seq_decode_steps"):
+        summary["tokens_per_step"] = ((summary.get("gen_tokens", 0)
+                                       - summary.get("completed", 0))
+                                      / summary["seq_decode_steps"])
 
 
 class ContinuousBatchingEngine:
@@ -187,13 +200,14 @@ class ContinuousBatchingEngine:
                  freeze_page_budget: int = 4, speculate: int = 0,
                  draft: tuple | None = None,
                  prefill_chunk: int | None = None,
-                 prefix_cache: bool = False, tracer=None,
+                 prefix_cache: bool = False, tracer=None, exporter=None,
                  offload_pages: bool = False, preempt: bool = False,
                  admission: str = "fcfs", itl_slo_s: float | None = None):
         if cfg.family != "lm":
             raise ValueError("paged serving drives decoder-only LMs")
         self.device = resolve_device(device)
         self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.exporter = exporter
         # fail fast: an unfreezable spec raises here, naming the methods
         # that can freeze pages
         self.kv_spec = (None if kv_quant is None else
@@ -218,7 +232,7 @@ class ContinuousBatchingEngine:
             eos_id=eos_id, record_logits=record_logits, speculate=speculate,
             draft=draft, prefix_cache=prefix_cache, metrics=self.metrics,
             outputs=self.outputs, request_logits=self.request_logits,
-            tracer=self.tracer)
+            tracer=self.tracer, roofline_gauges=exporter is not None)
         self.prefill = PrefillWorker(
             params, cfg, pool=self.worker, record_logits=record_logits,
             metrics=self.metrics, prefill_chunk=prefill_chunk,
@@ -252,10 +266,15 @@ class ContinuousBatchingEngine:
             # pool could hold is a rejection, not a shed
             occ = 1.0 - w.alloc.num_free / (w.num_blocks - 1)
             verdict = _slo_door(self.overload, req, occ, self.metrics,
-                                w.sched.rejected, now)
+                                w.sched.rejected, now, self.tracer)
             if verdict is not None:
                 return verdict
-        return w.submit(req, now)
+        ok = w.submit(req, now)
+        # the colocated scheduler's admission is the routing decision: it
+        # lands on the "router" track, as the disaggregated router's does
+        self.tracer.instant("router", "admit" if ok else "reject",
+                            rid=req.id)
+        return ok
 
     @torch.inference_mode()
     def run(self, requests: list[Request], *, poll_s: float = 0.002) -> dict:
@@ -310,8 +329,12 @@ class ContinuousBatchingEngine:
             if om is not None and self.preempt:
                 om.maybe_preempt(w, now_fn)
             w.step(now_fn)
+            if self.exporter is not None:
+                self.exporter.maybe_emit(self.metrics)
         w.drain()
         _retire_demoted(om, self.outputs)
+        if self.exporter is not None:
+            self.exporter.maybe_emit(self.metrics, force=True)
         out = self.metrics.summary()
         out["page_compression"] = w._pb["fp"] / w._pb["frozen"]
         out["rejected"] = len(w.sched.rejected)
@@ -363,7 +386,7 @@ class DisaggEngine:
                  record_logits: bool = False, attn_impl: str = "auto",
                  freeze_async: bool = True, freeze_page_budget: int = 4,
                  speculate: int = 0, draft: tuple | None = None,
-                 tracer=None, offload_pages: bool = False,
+                 tracer=None, exporter=None, offload_pages: bool = False,
                  preempt: bool = False, admission: str = "fcfs",
                  itl_slo_s: float | None = None):
         if cfg.family != "lm":
@@ -378,6 +401,7 @@ class DisaggEngine:
                              f"composition, resident the host tier's)")
         self.device = resolve_device(device)
         self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.exporter = exporter
         self.kv_spec = (None if kv_quant is None else
                         resolve_kv_spec(kv_quant, num_values=kv_num_values))
         if migrate == "frozen":
@@ -411,7 +435,8 @@ class DisaggEngine:
             freeze_page_budget=freeze_page_budget, max_queue=max_queue,
             eos_id=eos_id, record_logits=record_logits, speculate=speculate,
             draft=draft, metrics=self.metrics, outputs=self.outputs,
-            request_logits=self.request_logits, tracer=self.tracer)
+            request_logits=self.request_logits, tracer=self.tracer,
+            roofline_gauges=exporter is not None)
             for i in range(decode_workers)]
         self.prefills = [PrefillWorker(
             params, cfg, device=self.device, worker_id=i,
@@ -466,7 +491,7 @@ class DisaggEngine:
         occ = min(1.0 - d.alloc.num_free / (d.num_blocks - 1)
                   for d in self.decode)
         verdict = _slo_door(self.overload, req, occ, self.metrics,
-                            self.router.rejected, now)
+                            self.router.rejected, now, self.tracer)
         if verdict is not None:
             return verdict
         ok = self.router.submit(req)
@@ -534,12 +559,16 @@ class DisaggEngine:
                 if dw.has_work:
                     dw.step(now_fn)
                     progressed = progressed or bool(dw.sched.active)
+            if self.exporter is not None:
+                self.exporter.maybe_emit(self.metrics)
             if not progressed:
                 # only in-flight prefills to wait on: let the card work
                 time.sleep(poll_s / 4)
         for dw in self.decode:
             dw.drain()
         _retire_demoted(om, self.outputs)
+        if self.exporter is not None:
+            self.exporter.maybe_emit(self.metrics, force=True)
         return self._summary()
 
     def _summary(self) -> dict:

@@ -175,21 +175,24 @@ class MetricsCollector:
                "gen_tokens": self._gen_tokens_done,
                "steps": self.steps,
                "in_flight": len(self.traces) - self._completed}
-        out.update(self._spec_counts())
+        self._add_spec_counts(out)
         for k, v in self._admission.items():
             if v:
                 out[k] = v
         out.update(self.stats.snapshot())
         return out
 
-    def _spec_counts(self) -> dict:
-        """The speculative counters, only on runs that speculated."""
+    def _add_spec_counts(self, summary: dict) -> bool:
+        """Store the speculative counters into ``summary``, only on runs
+        that speculated (one literal store a key, which the counter lint
+        pass reads as its registration). True if it stored them."""
         if not self.spec_steps:
-            return {}
-        return {"spec_steps": self.spec_steps,
-                "spec_proposed": self.spec_proposed,
-                "spec_accepted": self.spec_accepted,
-                "spec_rollbacks": self.spec_rollbacks}
+            return False
+        summary["spec_steps"] = self.spec_steps
+        summary["spec_proposed"] = self.spec_proposed
+        summary["spec_accepted"] = self.spec_accepted
+        summary["spec_rollbacks"] = self.spec_rollbacks
+        return True
 
     def summary(self) -> dict:
         done = [t for t in self.traces.values() if t.finish_t is not None]
@@ -245,10 +248,9 @@ class MetricsCollector:
             out["itl_p50_s"] = percentile(gaps, 50)
             out["itl_p99_s"] = percentile(gaps, 99)
             out["itl_max_s"] = float(np.max(gaps))
-        spec = self._spec_counts()
-        if spec:
-            out.update(spec, spec_acceptance_rate=(
-                self.spec_accepted / max(self.spec_proposed, 1)))
+        if self._add_spec_counts(out):
+            out["spec_acceptance_rate"] = (self.spec_accepted
+                                           / max(self.spec_proposed, 1))
         if "cache_occupancy" in self.stats:
             occ = self.stats.gauge("cache_occupancy")
             out["cache_occupancy_mean"] = occ.mean

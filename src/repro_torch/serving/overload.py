@@ -62,6 +62,9 @@ class ResumeEntry:
     logits: list = dataclasses.field(default_factory=list)
     payload: PagePayload | None = None         # None: the recompute path
     shared_pages: int = 0
+    # page position in the payload -> its open ``page_offload`` span id
+    # (traced runs), closed "restored" by the restore
+    span_ids: dict = dataclasses.field(default_factory=dict)
 
 
 class HostPageStore:

@@ -84,10 +84,11 @@ class DraftWorker:
     attach, k windows a propose."""
 
     def __init__(self, params, cfg, *, device, max_slots: int,
-                 block_size: int, max_blocks: int, tracer=None):
+                 block_size: int, max_blocks: int, worker_id: int = 0,
+                 tracer=None):
         self.params, self.cfg = params, cfg
         self.tracer = tracer if tracer is not None else NULL_TRACER
-        self._trk = "draft/w0"
+        self._trk = f"draft/w{worker_id}"
         self.device = torch.device(device)
         self.block_size = block_size
         self.max_blocks = max_blocks

@@ -43,6 +43,8 @@ import numpy as np
 import torch
 
 from repro_torch import models
+from repro_torch.obs.export import (modeled_decode_hbm_bytes,
+                                    modeled_prefill_hbm_bytes)
 from repro_torch.obs.trace import NULL_TRACER
 
 from .kv_cache import (BlockAllocator, PrefixIndex, dispatch_freeze,
@@ -121,7 +123,8 @@ class DecodeWorker:
                  eos_id: int | None = None, record_logits: bool = False,
                  speculate: int = 0, draft: tuple | None = None,
                  prefix_cache: bool = False, metrics=None, outputs=None,
-                 request_logits=None, tracer=None):
+                 request_logits=None, tracer=None,
+                 roofline_gauges: bool = False):
         if freeze_page_budget < 1:
             raise ValueError("freeze budget must cover >= 1 page")
         if speculate < 0:
@@ -142,6 +145,9 @@ class DecodeWorker:
         self.speculate = speculate
         self.worker_id = worker_id
         self.tracer = tracer if tracer is not None else NULL_TRACER
+        # the modeled HBM gauges each step, also untraced (a metrics
+        # exporter reads them); a run with neither skips the host walk
+        self.roofline_gauges = roofline_gauges
         self._trk_decode = f"decode/w{worker_id}"
         self._trk_freeze = f"freeze/w{worker_id}"
         self._trk_spec = f"spec/w{worker_id}"
@@ -176,7 +182,7 @@ class DecodeWorker:
         self.draft = None if not speculate else DraftWorker(
             draft[0], draft[1], device=self.device, max_slots=max_slots,
             block_size=block_size, max_blocks=self.max_blocks,
-            tracer=self.tracer)
+            worker_id=worker_id, tracer=self.tracer)
         self.metrics = metrics if metrics is not None else MetricsCollector()
         self.table = np.zeros((max_slots, self.max_blocks), np.int32)
         self.lens = np.zeros((max_slots,), np.int32)
@@ -219,6 +225,13 @@ class DecodeWorker:
         self._freeze_bids: list[int] = []   # queued for the next flush
         self._deferred_seen = 0    # queue suffix already counted deferred
         self._frozen_pages: set[int] = set()   # installed (codes serving)
+        # freeze-lifecycle async spans: page id -> open span id. A span
+        # opens when a bid is queued and ends in exactly one terminal
+        # state: installed, dropped (its sequence left first), rolled_back
+        # (a rejected speculative suffix) or offloaded (its sequence was
+        # demoted to the host tier)
+        self._page_spans: dict[int, int] = {}
+        self._span_seq = 0
         # overload: the decode step at which each slot last emitted (the
         # LRU signal, seeded at attach and restore), and a recompute
         # requeue's tokens from its first life, merged back at finish
@@ -399,6 +412,7 @@ class DecodeWorker:
         rows = (last.cpu().numpy() if self.record_logits or sampling
                 else None)
         tr.complete(self._trk_decode, "sync", t0)
+        t0 = tr.now()
         now = now_fn()
         finished = []
         for i in active:
@@ -420,6 +434,7 @@ class DecodeWorker:
                 finished.append(st)
         for st in finished:
             self._finish(st, now)
+        tr.complete(self._trk_decode, "commit", t0, finished=len(finished))
         tr.complete(self._trk_decode, "decode_step", t_step,
                     step=self.counters["decode_steps"], active=len(active))
 
@@ -496,6 +511,11 @@ class DecodeWorker:
                 emitted = emitted[:emitted.index(self.eos_id) + 1]
             a = len(emitted)
             self.metrics.spec_step(k, min(n_acc, a), a < W)
+            tr.instant(self._trk_spec, "accept", slot=i, rid=st.req.id,
+                       proposed=k, accepted=min(n_acc, a), emitted=a)
+            if a < W:
+                tr.instant(self._trk_spec, "rollback", slot=i,
+                           rid=st.req.id, to_len=L + a)
             self._rollback_slot(i, L + a)
             st.length = L + a
             st.generated += a
@@ -545,6 +565,13 @@ class DecodeWorker:
         if s.frozen_upto > full:
             stale = {int(self.table[slot, j])
                      for j in range(full, s.frozen_upto)}
+            tr = self.tracer
+            if tr.enabled:
+                for b in sorted(stale):
+                    sid = self._page_spans.pop(b, None)
+                    if sid is not None:
+                        tr.async_end(self._trk_freeze, "page_freeze", sid,
+                                     state="rolled_back", page=b)
             self._freeze_bids = [b for b in self._freeze_bids
                                  if b not in stale]
             self._deferred_seen = min(self._deferred_seen,
@@ -566,11 +593,22 @@ class DecodeWorker:
                 pending.wait()
             if pending.is_ready():
                 install_freeze(self.pool, pending)
-                self._frozen_pages.update(pending.kept_pages())
+                kept = pending.kept_pages()
+                self._frozen_pages.update(kept)
                 installed = True
                 self.counters["freeze_installs"] += 1
                 self.counters["freeze_overlap_steps"] += (
                     self.counters["decode_steps"] - step0)
+                tr = self.tracer
+                if tr.enabled:
+                    tr.instant(self._trk_freeze, "install", pages=len(kept),
+                               wait_steps=self.counters["decode_steps"]
+                               - step0)
+                    for b in kept:
+                        sid = self._page_spans.pop(b, None)
+                        if sid is not None:
+                            tr.async_end(self._trk_freeze, "page_freeze",
+                                         sid, state="installed", page=b)
             else:
                 self.counters["freeze_inflight_steps"] += 1
                 still.append((step0, pending))
@@ -585,12 +623,19 @@ class DecodeWorker:
             return
         s = self.slots[slot]
         full = int(self.lens[slot]) // self.block_size
+        tr = self.tracer
         for j in range(s.frozen_upto, full):
             b = int(self.table[slot, j])
             # a shared page is already installed, or bid by the sequence
             # that owns its solve: bids dedupe on block id
-            if b not in self._frozen_pages and b not in self._freeze_bids:
-                self._freeze_bids.append(b)
+            if b in self._frozen_pages or b in self._freeze_bids:
+                continue
+            self._freeze_bids.append(b)
+            if tr.enabled:
+                self._span_seq += 1
+                self._page_spans[b] = self._span_seq
+                tr.async_begin(self._trk_freeze, "page_freeze",
+                               self._span_seq, page=b, slot=slot)
         s.frozen_upto = max(s.frozen_upto, full)
 
     def _flush_freezes(self) -> None:
@@ -605,6 +650,12 @@ class DecodeWorker:
         take = min(len(self._freeze_bids), self.freeze_page_budget)
         bids, self._freeze_bids = (self._freeze_bids[:take],
                                    self._freeze_bids[take:])
+        if tr.enabled:
+            for b in bids:
+                sid = self._page_spans.get(b)
+                if sid is not None:
+                    tr.async_instant(self._trk_freeze, "page_freeze", sid,
+                                     state="dispatched")
         # count each page's deferral once
         self._deferred_seen = max(self._deferred_seen - take, 0)
         newly = len(self._freeze_bids) - self._deferred_seen
@@ -629,6 +680,13 @@ class DecodeWorker:
             self._frozen_pages.update(bids)
             self.counters["freeze_installs"] += 1
             self._publish_prefixes()    # synchronous install: shareable now
+            if tr.enabled:
+                # a synchronous install ends the lifecycle here
+                for b in sorted(set(bids)):
+                    sid = self._page_spans.pop(b, None)
+                    if sid is not None:
+                        tr.async_end(self._trk_freeze, "page_freeze", sid,
+                                     state="installed", page=b)
         self.counters["host_page_solves"] += pending.host_solves
         self.counters["freeze_dispatches"] += 1
         tr.complete(self._trk_freeze, "flush", t0, pages=take,
@@ -645,18 +703,32 @@ class DecodeWorker:
         if self.record_logits and (pre_logits or s.logits):
             self.request_logits[st.req.id] = np.stack(pre_logits + s.logits)
         self.metrics.finish(st.req.id, now)
-        self._release(st)
+        released = self._free_pages(st)
+        tr = self.tracer
+        if tr.enabled:
+            tr.instant(self._trk_decode, "finish", rid=st.req.id,
+                       tokens=len(s.out))
+            for b in sorted(released):
+                sid = self._page_spans.pop(b, None)
+                if sid is not None:
+                    tr.async_end(self._trk_freeze, "page_freeze", sid,
+                                 state="dropped", page=b)
+        self._release(st, released)
 
-    def _release(self, st: SeqState) -> None:
-        """Tear a slot down (finish and preempt): drop one reference per
-        page; the bids, frozen set, pending solves, thaw and index cover
-        only the pages actually released (a shared page another live
-        table holds keeps serving), and an in-flight solve drops them, so
-        it is never installed over their next owner."""
-        slot, s = st.slot, self.slots[st.slot]
-        released = set(self.alloc.free(s.blocks))
+    def _free_pages(self, st: SeqState) -> set[int]:
+        """Drop the slot's reference to each of its pages; returns the
+        pages released (a shared page another live table holds stays)."""
+        released = set(self.alloc.free(self.slots[st.slot].blocks))
         if self.prefix is not None:
             self.prefix.invalidate(released)
+        return released
+
+    def _release(self, st: SeqState, released: set[int]) -> None:
+        """Tear a slot down (finish and preempt) after ``_free_pages``:
+        the bids, frozen set, pending solves and thaw cover only the pages
+        released, and an in-flight solve drops them, so it is never
+        installed over their next owner."""
+        slot, s = st.slot, self.slots[st.slot]
         self._freeze_bids = [b for b in self._freeze_bids
                              if b not in released]
         self._deferred_seen = min(self._deferred_seen, len(self._freeze_bids))
@@ -698,6 +770,7 @@ class DecodeWorker:
             raise ValueError(f"preempt of request {req.id}: not a live "
                              f"sequence")
         n_tok = int(self.lens[slot])
+        tr = self.tracer
         self.counters["preemptions"] += 1
         if mode == "restore":
             sh = self.shared_prefix_pages(slot)
@@ -706,8 +779,13 @@ class DecodeWorker:
                           if int(self.table[slot, j]) in self._frozen_pages]
             payload = extract_resident_pages(
                 self.pool, s.blocks[sh:], n_tok - sh * self.block_size,
-                frozen_idx, block_size=self.block_size, tracer=self.tracer)
+                frozen_idx, block_size=self.block_size, tracer=tr)
+            t_host = tr.now()
             payload.to_host()           # blocks, as the reference's does
+            tr.complete("transfer", "to_host", t_host, rid=req.id,
+                        mode=payload.mode, bytes=payload.nbytes,
+                        fp_equiv_bytes=payload.fp_equiv_bytes,
+                        pages=payload.n_pages)
             entry = ResumeEntry(req=req, out=list(s.out),
                                 generated=st.generated, n_tokens=n_tok,
                                 rng=s.rng, logits=list(s.logits),
@@ -716,6 +794,12 @@ class DecodeWorker:
             self.counters["offloaded_pages"] += payload.n_pages
             self.counters["offload_bytes"] += payload.nbytes
             self.counters["offload_fp_equiv_bytes"] += payload.fp_equiv_bytes
+            if tr.enabled:
+                for j in range(payload.n_pages):
+                    self._span_seq += 1
+                    entry.span_ids[j] = self._span_seq
+                    tr.async_begin(self._trk_freeze, "page_offload",
+                                   self._span_seq, rid=req.id, page_pos=j)
         else:
             resume = dataclasses.replace(
                 req, prompt=tuple(req.prompt) + tuple(s.out),
@@ -726,7 +810,23 @@ class DecodeWorker:
             entry = ResumeEntry(req=resume, out=list(s.out),
                                 generated=st.generated, n_tokens=n_tok)
             self.counters["preempt_recomputes"] += 1
-        self._release(st)
+        tr.instant(self._trk_decode, "preempt", rid=req.id, slot=slot,
+                   mode=mode, tokens=n_tok, pages=len(s.blocks))
+        released = self._free_pages(st)
+        if tr.enabled:
+            # a literal state on each branch keeps the page_freeze
+            # lifecycle statically checkable (the span lint pass)
+            for b in sorted(released):
+                sid = self._page_spans.pop(b, None)
+                if sid is None:
+                    continue
+                if mode == "restore":
+                    tr.async_end(self._trk_freeze, "page_freeze", sid,
+                                 state="offloaded", page=b)
+                else:
+                    tr.async_end(self._trk_freeze, "page_freeze", sid,
+                                 state="dropped", page=b)
+        self._release(st, released)
         return entry
 
     def restore(self, st: SeqState, entry: ResumeEntry, now: float) -> None:
@@ -738,9 +838,11 @@ class DecodeWorker:
         its greedy tokens are those of a sequence that never left."""
         del now
         req, s = st.req, self.slots[st.slot]
+        tr = self.tracer
         m = entry.shared_pages
         shared: list[int] = []
         if m:
+            t0 = tr.now()
             hit = (self.prefix.lookup(req.prompt, m)
                    if self.prefix is not None else [])
             if len(hit) == m:
@@ -750,12 +852,13 @@ class DecodeWorker:
                 self.alloc.retain(shared)
                 self.counters["prefix_hits"] += 1
                 self.counters["prefix_shared_pages"] += m
+                tr.complete(self._trk_decode, "prefix_match", t0,
+                            rid=req.id, pages=m, cow=False)
             else:
                 # its last holder retired meanwhile: rebuild it privately
                 shared = self._rebuild_prefix(req, m)
         blocks = shared + self.alloc.alloc(self.sched.blocks_for(req) - m)
-        splice_payload(self.pool, entry.payload, blocks[m:],
-                       tracer=self.tracer)
+        splice_payload(self.pool, entry.payload, blocks[m:], tracer=tr)
         s.rid, s.blocks = req.id, blocks
         s.out, s.logits = list(entry.out), list(entry.logits)
         s.last_token = entry.out[-1]
@@ -782,6 +885,12 @@ class DecodeWorker:
         self.counters["restored_seqs"] += 1
         self.counters["restored_pages"] += entry.payload.n_pages
         self.counters["restore_bytes"] += entry.payload.nbytes
+        tr.instant(self._trk_decode, "restore", rid=req.id, slot=st.slot,
+                   pages=entry.payload.n_pages, tokens=entry.n_tokens)
+        if tr.enabled:
+            for j, sid in sorted(entry.span_ids.items()):
+                tr.async_end(self._trk_freeze, "page_offload", sid,
+                             state="restored", rid=req.id, page_pos=j)
         if self.draft is not None:
             # the draft prefills the accepted context (out[-1] has no KV
             # row yet, as at attach); plen stays the original prompt's,
@@ -826,6 +935,25 @@ class DecodeWorker:
                   + (allocated - frozen) * self._pb["fp"])
         occ = allocated / (self.num_blocks - 1)
         self.metrics.sample_cache(occ, actual, allocated * self._pb["fp"])
+        tr = self.tracer
+        if tr.enabled or self.roofline_gauges:
+            extra = {}
+            if self.prefix is not None:
+                # pages sharing saves now: each reference past a page's
+                # first is a page not allocated
+                extra["shared_saved_pages"] = sum(
+                    rc - 1 for rc in self.alloc._rc.values() if rc > 1)
+            tr.counter(self._trk_decode, "cache", occupancy=round(occ, 6),
+                       frozen_pages=frozen, **extra)
+            m = modeled_decode_hbm_bytes(self)
+            if m is not None:
+                self.metrics.stats.gauge("hbm_bytes_per_token").set(
+                    m["hbm_bytes_per_token"])
+                self.metrics.stats.gauge("t_memory_s").set(m["t_memory_s"])
+                tr.counter(self._trk_decode, "roofline",
+                           hbm_bytes_per_token=round(
+                               m["hbm_bytes_per_token"], 3),
+                           t_memory_us=round(m["t_memory_s"] * 1e6, 6))
 
 
 @dataclasses.dataclass
@@ -1024,17 +1152,23 @@ class PrefillWorker:
         kernel when fused)."""
         tr = self.tracer
         t0 = tr.now()
+        tr.async_begin(self._trk, "prefill", req.id, rid=req.id,
+                       prompt_len=req.prompt_len)
         blocks, toks, nblk, shared = self._alloc(req, now_fn)
         off = shared * self.block_size
         if off:
             logits = self._chunk(toks[:, off:], blocks[:nblk], off)
         else:
             logits = self._whole(self.pool.pool, toks, blocks[:nblk])
-        tr.complete(self._trk, "prefill", t0, rid=req.id,
-                    prompt_len=req.prompt_len, shared=shared)
-        return self._finish(
+        tr.complete(self._trk, "dispatch", t0, rid=req.id,
+                    prompt_len=req.prompt_len, pages=nblk, shared=shared)
+        t0 = tr.now()
+        fin = self._finish(
             req, splice_of(blocks, req.prompt_len, self.block_size, shared),
             logits[0, req.prompt_len - 1 - off], now_fn)
+        tr.complete(self._trk, "harvest", t0, rid=req.id)
+        tr.async_end(self._trk, "prefill", req.id, rid=req.id)
+        return fin
 
     # ------------------------------------------------ owned pool (async)
 
@@ -1046,6 +1180,10 @@ class PrefillWorker:
         tr = self.tracer
         t0 = tr.now()
         self.metrics.prefill_start(req.id, now_fn())
+        # the async span from dispatch to harvest: the card's lifetime of
+        # this prompt's prefill (and any solve behind it)
+        tr.async_begin(self._trk, "prefill", req.id, rid=req.id,
+                       prompt_len=req.prompt_len)
         toks = self._prompt(req)
         blocks = self.alloc.alloc(toks.shape[1] // self.block_size)
         logits = self._whole(self.own_pool, toks, blocks)
@@ -1068,13 +1206,19 @@ class PrefillWorker:
         req, blocks, last, payload = self._inflight
         self._inflight = None
         fin = self._finish(req, payload, last, now_fn)
+        t_host = tr.now()
         payload.to_host()           # gated on is_ready: the card is done
+        tr.complete("transfer", "to_host", t_host, rid=req.id,
+                    mode=payload.mode, bytes=payload.nbytes,
+                    fp_equiv_bytes=payload.fp_equiv_bytes,
+                    pages=payload.n_pages)
         self.alloc.free(blocks)     # the pages left as a host payload (the
         #                             solve reading them has ended too)
         self.counters["migrated_pages"] += payload.n_pages
         self.counters["migrate_bytes"] += payload.nbytes
         tr.complete(self._trk, "harvest", t0, rid=req.id,
                     bytes=payload.nbytes)
+        tr.async_end(self._trk, "prefill", req.id, rid=req.id)
         return fin
 
     def step(self, now_fn) -> list[FinishedPrefill]:
@@ -1103,6 +1247,8 @@ class PrefillWorker:
         ``advance_chunk`` once per iteration, between decode steps."""
         if not self.prefill_chunk:
             raise ValueError("start_chunked needs prefill_chunk")
+        self.tracer.async_begin(self._trk, "prefill", req.id, rid=req.id,
+                                prompt_len=req.prompt_len)
         blocks, toks, nblk, shared = self._alloc(req, now_fn)
         # a matched prefix starts the chunk cursor past the spliced pages:
         # those tokens are already in cache
@@ -1128,10 +1274,23 @@ class PrefillWorker:
             state.last_row = logits[0, P - 1 - off]
         state.off = off + C
         self.counters["prefill_chunks"] += 1
+        pool = self.pool
+        if tr.enabled or pool.roofline_gauges:
+            m = modeled_prefill_hbm_bytes(
+                pool._pb, state.blocks, pool._frozen_pages,
+                block_size=self.block_size, off=off, chunk=C,
+                fused=pool.attn_impl == "fused")
+            self.metrics.stats.gauge("prefill_hbm_bytes_per_token").set(
+                m["hbm_bytes_per_token"])
+            tr.counter(self._trk, "roofline",
+                       prefill_hbm_bytes_per_token=round(
+                           m["hbm_bytes_per_token"], 3))
         tr.complete(self._trk, "prefill_chunk", t0, rid=req.id, off=off,
                     chunk=C)
         if not state.done:
             return None
-        return self._finish(
+        fin = self._finish(
             req, splice_of(state.blocks, P, self.block_size, state.shared),
             state.last_row, now_fn)
+        tr.async_end(self._trk, "prefill", req.id, rid=req.id)
+        return fin

@@ -1508,3 +1508,56 @@ def test_frozen_migrated_pages_read_through_the_kernel_match_gather(gen):
     row = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 4
     assert c["migrate_bytes"] == n_full * pb["frozen"] + tails * row
     assert f._summary()["migrate_solves"] == len(prompts)
+
+
+def test_tracing_adds_no_host_sync_on_the_card(gen):
+    """Tracing and the metrics exporter read host state only: under
+    ``torch.cuda.set_sync_debug_mode("warn")`` a traced and exported
+    ``generate()`` of the reduced engine on the card (fused kernel,
+    kmeans_ls@16 pages, chunked prefill) raises exactly as many
+    synchronizing-call warnings as an untraced one, and gives the same
+    tokens. Freezes are synchronous: with asynchronous ones the end-of-run
+    drain waits on each solve still in flight, and how many are depends
+    on the card's timing, not on tracing."""
+    import warnings
+
+    from repro_torch import models
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.obs import MetricsExporter, Tracer, count_events
+    from repro_torch.serving import ContinuousBatchingEngine
+
+    cfg = get_reduced_config("qwen3_0_6b")
+    params = models.init_params(cfg, gen, "cuda")
+    rng = torch.Generator().manual_seed(4)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=rng).tolist()
+               for n in (20, 16, 31)]
+
+    def run(tracer=None, exporter=None):
+        eng = ContinuousBatchingEngine(
+            params, cfg, device="cuda", max_slots=2, block_size=8,
+            max_seq_len=64, kv_quant="kmeans_ls@16", attn_impl="fused",
+            freeze_async=False, prefill_chunk=5, tracer=tracer,
+            exporter=exporter)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = eng.generate(prompts, max_new_tokens=12)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        return syncs, out, eng
+
+    run()                       # first calls: builds, allocator growth
+    n_plain, out_plain, _ = run()
+    tr, exp = Tracer(), MetricsExporter(None, interval_s=0.0)
+    n_traced, out_traced, eng = run(tr, exp)
+    assert n_plain > 0
+    assert n_traced == n_plain
+    assert out_traced == out_plain
+    assert count_events(tr.events, name="decode_step", ph="X") \
+        == eng.counters["decode_steps"]
+    assert count_events(tr.events, name="roofline", ph="C") > 0
+    assert eng.metrics.stats.gauge("hbm_bytes_per_token").n > 0
+    assert len(exp.lines) > 2
