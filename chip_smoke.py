@@ -37,7 +37,15 @@ Then the other configs: glm4-9b at full width and depth from kmeans_ls@16
 codes (its f32 replays on its first 8 layers), yi-34b and gemma2-27b at
 full width with their depth cut to 4 layers; last, each count method
 without a device solver (dp, tv_iter, mog, dtc, l0) as ``--kv-quant``
-through the per-page host freeze, on full-width qwen3-0.6B pages.
+through the per-page host freeze, on full-width qwen3-0.6B pages. Then
+the model families: granite-moe-3b-a800m (attention + MoE, 40 experts
+top-8) at full width and depth through the continuous engine and the
+attention kernel, on fp and on kmeans_ls@16 pages (phase
+``serve-granite``), and phase ``static-families``: deepseek-v2-lite-16b
+(MLA + MoE) at full width and depth and whisper-tiny (encoder-decoder)
+on the static engine, qwen2-vl-72b (M-RoPE, the int8 ring cache) at full
+width on 2 layers through the model facade, and the three reduced
+configs on the card against the CPU.
 The kernel phase also holds the attention kernel against its plain
 version over head dims 8-256 and blocks of 1-128 keys, and times it at
 glm4-9b's decode shape.
@@ -58,6 +66,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -931,7 +940,7 @@ def serve_once(argv, params=None) -> tuple:
 
 def check_launches(s, cfg, launches, quantized: bool, *, fista: bool = False,
                    requests: int = 8, spec: int = 0,
-                   host: bool = False) -> str:
+                   host: bool = False, frozen: bool = True) -> str:
     """Paged attention: full-context layers x (decode steps + prefill
     chunks) (a local-window layer reads by gather); the dequant matmul: 7
     projections x layers x that from codes, 0 from dense weights. On the
@@ -949,7 +958,7 @@ def check_launches(s, cfg, launches, quantized: bool, *, fista: bool = False,
     attach and k per decode step, each 7 dequant launches a draft layer
     from the target's codes. The per-page host freeze solves rows only on
     a ``host`` method's pool (``host_page_solves`` > 0 there, 0 on every
-    device method's)."""
+    device method's). An fp pool (``frozen=False``) freezes nothing."""
     from repro_torch.launch.serve import full_context_layers
 
     steps = s["decode_steps"] + s["prefill_chunks"]
@@ -974,8 +983,9 @@ def check_launches(s, cfg, launches, quantized: bool, *, fista: bool = False,
               "fista_freeze": (s["freeze_dispatches"]
                                + s.get("migrate_solves", 0)) if fista else 0,
               "fallbacks": 0}
-    if s["completed"] != requests or s["freeze_installs"] <= 0 \
-            or s["freeze_dispatches"] <= 0 \
+    if s["completed"] != requests \
+            or (s["freeze_installs"] > 0) != frozen \
+            or (s["freeze_dispatches"] > 0) != frozen \
             or (s["host_page_solves"] > 0) != host:
         raise AssertionError(f"serve: completed {s['completed']}/{requests}"
                              f", {s['freeze_dispatches']} freeze dispatches"
@@ -2442,6 +2452,313 @@ def check_kv_host() -> dict:
     return out
 
 
+# granite-moe-3b-a800m at full width and depth (32 layers, 40 experts
+# top-8, Hq 24 over Hkv 8, Dh 64): the serve phases' trace through the
+# continuous engine with whole-prompt prefills (a prefill reads the pool by
+# gather: MoE capacity is per call, so a chunked prefill routes differently
+# from a whole one, in both packages), dense bf16 weights (--quantize is
+# refused with an MoE FFN on a paged engine, as the reference fails there)
+GRANITE_ARGS = ["--arch", "granite_moe_3b_a800m", "--engine", "continuous",
+                "--num-requests", "8", "--prompt-len", "256", "--gen", "32",
+                "--max-slots", "4", "--block-size", "16", "--max-seq-len",
+                "512", "--request-rate", "8", "--attn-impl", "auto",
+                "--seed", "0"]
+GRANITE_KV_ARGS = GRANITE_ARGS + ["--kv-quant", "kmeans_ls@16"]
+# MoE decode: S = 1, top-8 of 40 at capacity factor 1.25 gives C = 1 and
+# eight distinct experts a token, so nothing drops and a row's output is
+# the same alone or among 8. f32 on the card with TF32 off: the expert
+# products of 1 and 8 rows may take other cuBLAS kernels, so the rows are
+# held at the f32 model tests' bar rather than bitwise
+MOE_ROW_TOL = dict(atol=1e-4, rtol=1e-4)
+# the static families: deepseek-v2-lite-16b at full width and depth (MLA +
+# MoE; ~31 GB of bf16 weights) and whisper-tiny at full size on the
+# static engine, qwen2-vl-72b at full width on its first 2 layers through
+# the facade (embeds, 3-stream M-RoPE positions, the int8 ring cache)
+DEEPSEEK_ARGS = ["--arch", "deepseek_v2_lite_16b", "--engine", "static",
+                 "--batch", "4", "--prompt-len", "16", "--gen", "16",
+                 "--seed", "0"]
+WHISPER_ARGS = DEEPSEEK_ARGS[:1] + ["whisper_tiny"] + DEEPSEEK_ARGS[2:]
+VL_LAYERS = 2
+# card vs CPU on the reduced configs, f32: the CPU model tests' bar. The
+# int8 ring cache's path takes its own: a K/V value whose t / s lies at a
+# rounding tie in one package's matmul order and not the other's takes
+# codes one apart (one step is max|t| / 127 of its head), which moved
+# reduced qwen2-vl's prefill/decode logits by 1.26e-3 on the H100 (NVIDIA
+# H100 80GB HBM3, 700 W) while its forward agreed within 1e-4; the codes
+# are held within one step, and the logits at 1% of the largest |logit|
+FAMILY_TOL = dict(atol=1e-4, rtol=1e-4)
+INT8_REL_TOL = 0.01
+
+
+def logits_finite(params, cfg, args) -> int:
+    """The replay prompts through the engine ``args`` asks for (fp pool,
+    8 new tokens, logits recorded): raises unless every logit is finite;
+    returns the count of logit rows read."""
+    from repro_torch.launch import serve
+
+    eng = serve._make_engine(params, cfg, args, kv_quant=None,
+                             record_logits=True, speculate=0,
+                             freeze_async=False)
+    eng.generate(serve._replay_prompts(cfg, args), max_new_tokens=8)
+    rows = [np.asarray(v) for v in eng.request_logits.values()]
+    if not all(np.isfinite(r).all() for r in rows):
+        raise AssertionError(f"{cfg.name}: non-finite logits")
+    return sum(len(r) for r in rows)
+
+
+def moe_row_alone_vs_among(params, cfg) -> dict:
+    """Layer 0's MoE FFN (f32 copies) on 8 decode rows (S = 1) against
+    row 0 alone: no assignment drops, and row 0 agrees at MOE_ROW_TOL."""
+    from repro_torch.models import moe
+
+    p = {k: v.float() for k, v in params["layers"][0]["ffn"].items()}
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((8, 1, cfg.d_model), generator=g, device="cuda")
+    C = moe.capacity(cfg, 1)
+    _, top_i = moe.route(p, cfg, x)
+    _, _, pos = moe._row_dispatch(top_i.reshape(8, -1), cfg.n_experts, C)
+    drops = int((pos >= C).sum())
+    both = moe.moe_ffn(p, cfg, x)
+    alone = moe.moe_ffn(p, cfg, x[:1])
+    err = float((both[:1] - alone).abs().max())
+    if drops or not torch.allclose(both[:1], alone, **MOE_ROW_TOL):
+        raise AssertionError(f"MoE decode rows: {drops} drops at C={C}, "
+                             f"alone vs among 8 max|err| {err:.3g}")
+    return dict(C=C, drops=drops, err=err)
+
+
+def check_serve_granite() -> dict:
+    """granite-moe-3b-a800m at full width and depth through the continuous
+    engine and kernel 1: fp pages, then kmeans_ls@16 pages with the
+    launcher's serving check. Gates: kernel 1 at 32 x (decode steps +
+    prefill chunks; whole-prompt prefills read by gather, so 0 chunks),
+    no other kernel and no dense fallback, no host page solve, finite
+    logits; MoE decode rows alone == among 8."""
+    from repro_torch.launch import serve
+
+    name = "serve-granite"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    s, params, cfg, args, launches = serve_once(GRANITE_ARGS)
+    peak = gib(torch.cuda.max_memory_allocated())
+    phase(name, f"{cfg.name} at full width and depth ({cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.n_heads} query heads over "
+          f"{cfg.n_kv_heads} kv heads, Dh {cfg.head_dim}, {cfg.n_experts} "
+          f"experts top-{cfg.top_k} of width {cfg.expert_ff}, bf16, seeded "
+          f"random weights); peak memory {peak:.1f} GiB")
+    phase(name, "fp pages: " + check_launches(s, cfg, launches,
+                                              quantized=False, frozen=False))
+    phase(name, f"fp pages: {serve_line(s)}")
+    n = logits_finite(params, cfg, args)
+    m = moe_row_alone_vs_among(params, cfg)
+    phase(name, f"{n} logit rows of the replay prompts finite; MoE decode "
+          f"(layer 0, f32, C={m['C']}): {m['drops']} drops, row 0 alone vs "
+          f"among 8 max|err| {m['err']:.3g}")
+    out = dict(launches=launches, fp=s)
+    s, _, cfg, args, launches = serve_once(GRANITE_KV_ARGS, params)
+    phase(name, "kmeans_ls@16 pages: " + check_launches(
+        s, cfg, launches, quantized=False))
+    if not serve._verify_serving(params, cfg, args):
+        raise AssertionError("granite: the quantized-KV serving check "
+                             "failed")
+    phase(name, f"kmeans_ls@16 pages: {serve_line(s)}")
+    out.update(kv_launches=launches, kv=s)
+    return out
+
+
+def static_family(argv) -> dict:
+    """One static run (``serve.run_static``) at full size: no kernel
+    launch, finite logits (the launcher checks), the tokens' shape."""
+    from repro_torch.launch import serve
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = serve.parse_args(argv)
+    r, launches = counting_launches(lambda: serve.run_static(args))
+    cfg = r["cfg"]
+    if any(launches.values()) or tuple(r["tokens"].shape) != (args.batch,
+                                                               args.gen):
+        raise AssertionError(f"static {cfg.name}: launches {launches}, "
+                             f"tokens {tuple(r['tokens'].shape)}")
+    peak = gib(torch.cuda.max_memory_allocated())
+    n = sum(t.numel() * t.element_size() for t in _leaves(r["params"]))
+    from repro_torch.configs import get_config
+
+    phase("static-families", f"{cfg.name} ({cfg.n_layers} layers of "
+          f"{get_config(args.arch).n_layers}, d_model {cfg.d_model}, "
+          f"{gib(n):.1f} GiB of {cfg.param_dtype} weights; peak "
+          f"{peak:.1f} GiB): {args.batch} x ({args.prompt_len}"
+          f" + {args.gen}) tokens in {r['seconds']:.2f} s, first call "
+          f"included, finite logits, no kernel launch")
+    return dict(seconds=r["seconds"], peak_gib=peak)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def vl_run(params, cfg, dev, *, B=2, S=32) -> dict:
+    """qwen2-vl through the facade on seeded embeds with 3-stream M-RoPE
+    positions: the forward's logits, then a prefill of the first S - 1
+    embeds into the config's ring cache and one decode step of a token
+    whose embedding is the forward's last input. Returns the logits."""
+    from repro_torch import models
+
+    g = torch.Generator().manual_seed(3)
+    emb = torch.randn((B, S, cfg.d_model), generator=g)
+    tok = torch.randint(0, cfg.vocab, (B, 1), generator=g).to(dev)
+    emb = emb.to(dev).to(cfg.dtype("compute"))
+    emb[:, -1] = params["embed"][tok[:, 0]].to(emb.dtype)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None, None].expand(
+        3, B, S)
+    full = models.forward(params, cfg, {"embeds": emb, "positions": pos})
+    cache = models.init_cache(cfg, B, S, dev)
+    pre, cache = models.prefill(params, cfg, {"embeds": emb[:, :-1],
+                                              "positions": pos[:, :, :-1]},
+                                cache)
+    step, _ = models.decode_step(params, cfg, tok, cache, S - 1)
+    return dict(forward=full, prefill=pre, step=step, cache=cache)
+
+
+def check_vl_full() -> dict:
+    """qwen2-vl-72b at full width on its first VL_LAYERS layers (bf16,
+    int8 ring cache as its config sets): finite logits of the expected
+    shapes; the decode step's deviation from the forward (the int8 cache's
+    error) is read, not bounded."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    torch.cuda.empty_cache()
+    cfg = serve.cut_depth(get_config("qwen2_vl_72b"), VL_LAYERS)
+    params = models.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    t0 = time.perf_counter()
+    r = vl_run(params, cfg, "cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    B, S = r["forward"].shape[:2]
+    ok = (tuple(r["forward"].shape) == (B, S, cfg.vocab)
+          and tuple(r["step"].shape) == (B, 1, cfg.vocab)
+          and r["cache"][0]["k"].dtype == torch.int8
+          and all(bool(torch.isfinite(r[k]).all())
+                  for k in ("forward", "prefill", "step")))
+    if not ok:
+        raise AssertionError(f"qwen2-vl: shapes {tuple(r['forward'].shape)} "
+                             f"/ {tuple(r['step'].shape)}, cache "
+                             f"{r['cache'][0]['k'].dtype}, or non-finite")
+    last = r["forward"][:, -1]
+    rel = float((r["step"][:, 0] - last).abs().max() / last.abs().max())
+    phase("static-families", f"{cfg.name} at full width (d_model "
+          f"{cfg.d_model}, {cfg.n_heads} query heads over {cfg.n_kv_heads}, "
+          f"M-RoPE sections {tuple(cfg.mrope_sections)}), first {VL_LAYERS} "
+          f"of 80 layers, bf16: forward ({B}, {S}) on embeds + prefill "
+          f"{S - 1} + 1 decode step on the int8 ring cache in {dt:.2f} s, "
+          f"finite; decode vs forward (the int8 cache's error) "
+          f"{rel:.3%} of the largest |logit|")
+    return dict(rel=rel, seconds=dt)
+
+
+def check_families_card_vs_cpu() -> dict:
+    """The reduced deepseek and whisper (static engine) in f32, one set of
+    weights made on the CPU, on the card and on the CPU: equal greedy
+    tokens and logits within FAMILY_TOL; then qwen2-vl
+    (``check_vl_card_vs_cpu``)."""
+    from repro_torch import models
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.static_steps import static_generate
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, dev) for v in tree]
+        return tree.to(dev)
+
+    out = {}
+    for arch in ("deepseek_v2_lite_16b", "whisper_tiny"):
+        cfg = get_reduced_config(arch)
+        params = models.init_params(cfg, torch.Generator().manual_seed(0),
+                                    "cpu")
+        runs = []
+        for dev in ("cpu", "cuda"):
+            p = to(params, dev)
+            args = serve.parse_args(["--arch", arch, "--reduced",
+                                     "--engine", "static", "--device", dev])
+            tokens = serve.static_prompts(cfg, args, "cpu").to(dev)
+            enc = serve.static_encoder_input(cfg, args, "cpu")
+            enc = None if enc is None else enc.to(dev)
+            toks, logits = static_generate(p, cfg, tokens, args.gen, enc)
+            runs.append((toks.cpu(), logits.cpu()))
+        (t_cpu, l_cpu), (t_gpu, l_gpu) = runs
+        err = float((l_cpu - l_gpu).abs().max())
+        same = torch.equal(t_cpu, t_gpu)
+        if not same or not torch.allclose(l_gpu, l_cpu, **FAMILY_TOL):
+            raise AssertionError(f"{arch} reduced: card vs CPU tokens "
+                                 f"{'equal' if same else 'DIFFER'}, "
+                                 f"max|dlogit| {err:.3g}")
+        out[arch] = err
+    vl = check_vl_card_vs_cpu(to)
+    phase("static-families", "reduced configs, f32, card vs CPU (atol "
+          f"{FAMILY_TOL['atol']:g}, rtol {FAMILY_TOL['rtol']:g}): " + "; ".join(
+              f"{a} max|dlogit| {e:.3g}" for a, e in out.items())
+          + f", greedy tokens equal; qwen2_vl_72b forward max|dlogit| "
+          f"{vl['forward']:.3g}, on the int8 ring {vl['int8']:.3g} "
+          f"({vl['int8_rel']:.3%} of the largest |logit|, limit "
+          f"{INT8_REL_TOL:.0%}), {vl['flips']} of {vl['codes']} codes one "
+          f"step apart")
+    return dict(out, qwen2_vl_72b=vl)
+
+
+def check_vl_card_vs_cpu(to) -> dict:
+    """The reduced qwen2-vl with the int8 ring cache, weights made on the
+    CPU, through ``vl_run`` on the card and the CPU: the forward within
+    FAMILY_TOL; the cache codes at most one step apart and the prefill and
+    decode logits within INT8_REL_TOL of the largest |logit|."""
+    from repro_torch import models
+    from repro_torch.configs import get_reduced_config
+
+    cfg = dataclasses.replace(get_reduced_config("qwen2_vl_72b"),
+                              kv_cache_dtype="int8")
+    params = models.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    cpu, gpu = (vl_run(to(params, dev), cfg, dev) for dev in ("cpu", "cuda"))
+    fwd = float((cpu["forward"] - gpu["forward"].cpu()).abs().max())
+    got = torch.cat([gpu["prefill"], gpu["step"]], 1).cpu()
+    want = torch.cat([cpu["prefill"], cpu["step"]], 1)
+    err = float((got - want).abs().max())
+    rel = err / float(want.abs().max())
+    steps = [(a[k].cpu().int() - b[k].int()).abs()
+             for a, b in zip(gpu["cache"], cpu["cache"]) for k in ("k", "v")]
+    flips = sum(int((d > 0).sum()) for d in steps)
+    ok = (torch.allclose(gpu["forward"].cpu(), cpu["forward"], **FAMILY_TOL)
+          and rel <= INT8_REL_TOL and max(int(d.max()) for d in steps) <= 1)
+    if not ok:
+        raise AssertionError(f"qwen2_vl_72b reduced, card vs CPU: forward "
+                             f"{fwd:.3g}, int8 path {err:.3g} ({rel:.3%}), "
+                             f"codes apart by up to "
+                             f"{max(int(d.max()) for d in steps)}")
+    return dict(forward=fwd, int8=err, int8_rel=rel, flips=flips,
+                codes=sum(d.numel() for d in steps))
+
+
+def check_static_families() -> dict:
+    t0 = time.perf_counter()
+    out = {"deepseek": static_family(DEEPSEEK_ARGS),
+           "whisper": static_family(WHISPER_ARGS),
+           "qwen2_vl": check_vl_full(),
+           "card_vs_cpu": check_families_card_vs_cpu()}
+    phase("static-families", f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def synthetic_distributions(n: int = 500, seed: int = 0) -> dict:
     """MoG / uniform / single Gaussian, 500 samples in [0, 100] (the
     paper's fig. 7)."""
@@ -2847,6 +3164,10 @@ def main() -> int:
     t0 = time.perf_counter()
     kh = check_kv_host()
     phase("kv-host", f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    gr = check_serve_granite()
+    phase("serve-granite", f"{time.perf_counter() - t0:.1f} s")
+    check_static_families()
     record = {"kernels": [
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -2865,6 +3186,9 @@ def main() -> int:
              "paged_decode_attention"],
          "kv_host_launches": sum(r["paged_attention_launches"]
                                  for r in kh.values()),
+         "serve_granite_launches": gr["launches"]["paged_decode_attention"],
+         "serve_granite_kv_launches": gr["kv_launches"][
+             "paged_decode_attention"],
          **k},
         {"name": "quant_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",

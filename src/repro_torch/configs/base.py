@@ -1,7 +1,10 @@
 """Model configuration (port of ``repro/configs/base.py``).
 
 A copy rather than an import: the reference module imports ``jax.numpy``
-for dtypes. ``ModelConfig.dtype`` returns torch dtypes here.
+for dtypes. ``ModelConfig.dtype`` returns torch dtypes here. The fields
+of families and paths the port does not run yet (the SSM scans' widths
+and ``scan_chunk``, the optimizer and remat settings, ``quant_skip``) are
+left out, and so are the configs' settings of them.
 """
 from __future__ import annotations
 
@@ -19,16 +22,16 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 class LayerSpec:
     """One layer: a sequence mixer plus a feed-forward block."""
 
-    mixer: str = "attn"          # "attn" (other mixers come in later slices)
-    ffn: str = "dense"           # "dense" | "none"
+    mixer: str = "attn"          # "attn" | "mla" (mamba, rwkv6: next slice)
+    ffn: str = "dense"           # "dense" | "moe" | "none"
     window: int | None = None    # local attention window
-    cross_attn: bool = False
+    cross_attn: bool = False     # decoder cross-attention (whisper)
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # "lm"
+    family: str                   # "lm" | "encdec"
     n_layers: int = 12
     d_model: int = 1024
     n_heads: int = 8
@@ -45,9 +48,26 @@ class ModelConfig:
     qk_norm: bool = False
     attn_softcap: float | None = None
     final_softcap: float | None = None
+    mrope_sections: Sequence[int] | None = None   # qwen2-vl M-RoPE
     post_block_norm: bool = False  # gemma2: norms on the mixer and FFN outputs
     attn_q_chunk: int = 512
-    input_kind: str = "tokens"
+    kv_cache_dtype: str = "compute"   # "compute" | "int8" (quantized ring)
+    # MLA (deepseek)
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    # MoE
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    top_k: int = 2
+    expert_ff: int = 0
+    capacity_factor: float = 1.25
+    router_dtype: str = "float32"
+    # enc-dec
+    n_enc_layers: int = 0
+    enc_bidirectional: bool = True
+    input_kind: str = "tokens"    # "tokens" | "embeds" (stub frontends)
     tie_embeddings: bool = False
     embed_scale: bool = False
     act: str = "silu"             # "silu" (swiglu) | "gelu" (geglu)
@@ -71,10 +91,15 @@ class ModelConfig:
         if (self.n_layers - len(self.head_layers)) % len(self.group):
             raise ValueError(f"{self.name}: {self.n_layers} layers do not "
                              f"tile groups of {len(self.group)}")
+        if self.family == "encdec" and self.n_enc_layers <= 0:
+            raise ValueError(f"{self.name}: an encdec config needs "
+                             f"n_enc_layers > 0")
         return self
 
 
-ARCHS = ["qwen3_0_6b", "glm4_9b", "yi_34b", "gemma2_27b"]
+ARCHS = ["qwen3_0_6b", "glm4_9b", "yi_34b", "gemma2_27b",
+         "deepseek_v2_lite_16b", "granite_moe_3b_a800m", "qwen2_vl_72b",
+         "whisper_tiny"]
 
 
 def _module(arch: str):

@@ -6,8 +6,9 @@ pages freeze to 16-value codebooks (``--kv-quant kmeans_ls@16``, the exact
 k-means DP, or ``iter_l1@16``, batched FISTA under a per-row lambda
 bisection, both solved on the device; or any other count method, such as
 ``dp@16``, frozen page by page on the host as the reference does), with
-chunked prefill, optionally from PTQ'd weights, for any ``--arch`` the
-port has (qwen3_0_6b, glm4_9b, yi_34b, gemma2_27b):
+chunked prefill, optionally from PTQ'd weights, for the decoder-only
+attention archs the port has (qwen3_0_6b, glm4_9b, yi_34b, gemma2_27b and
+the MoE granite_moe_3b_a800m):
 
     python -m repro_torch.launch.serve --engine continuous \\
         --kv-quant kmeans_ls@16 --quantize kmeans_ls@16 --prefill-chunk 64
@@ -63,7 +64,16 @@ its time at the H100's 3.35 TB/s) and the final one as Prometheus text at
 prompts of ``--prompt-len`` tokens prefilled into the model's dense ring
 cache, then ``--gen`` greedy decode steps (``launch/static_steps.py``);
 ``--quantize`` weights are dequantized first, as the reference does. The
-port's default engine stays ``continuous``.
+port's default engine stays ``continuous``. The static engine also serves
+deepseek_v2_lite_16b (MLA + MoE) and whisper_tiny (encoder-decoder; its
+encoder input is seeded normal frame embeddings of ``--prompt-len``
+frames, as the reference's).
+
+Where the reference launcher fails, this one refuses with a SystemExit
+that names the reason (``family_refusal``): an MLA mixer or an
+encoder-decoder model on a paged engine, ``--quantize`` with an MoE FFN
+on a paged engine (the expert products take dense weights), and
+qwen2_vl_72b on any engine (no frontend makes its embeddings).
 
 It runs on the card (``--device cuda``, the default, which fails without
 a GPU); ``--device cpu --reduced`` runs the reduced config on the host.
@@ -548,6 +558,46 @@ def quantize_params(params, args, dev):
     return params, info
 
 
+def family_refusal(cfg, args) -> str | None:
+    """Why the launcher refuses to serve ``cfg`` with ``args``, or None.
+    Each refusal is a configuration the reference launcher fails on."""
+    if cfg.input_kind == "embeds" and cfg.family == "lm":
+        return (f"{cfg.name} takes precomputed embeddings and M-RoPE "
+                f"positions from a vision frontend that neither package "
+                f"has, so no engine can make its inputs (drive it through "
+                f"repro_torch.models with embeds)")
+    if args.engine == "static":
+        return None
+    if cfg.family != "lm":
+        return (f"{cfg.name} is an encoder-decoder model; the paged engines "
+                f"serve decoder-only LMs (use --engine static)")
+    mixers = sorted({sp.mixer for sp in cfg.layer_specs()} - {"attn"})
+    if mixers:
+        return (f"{cfg.name} has {'/'.join(mixers)} layers; the paged "
+                f"engines serve attention mixers only (use --engine "
+                f"static)")
+    if args.quantize and any(sp.ffn == "moe" for sp in cfg.layer_specs()):
+        return (f"--quantize on a paged engine serves weights as codes, and "
+                f"{cfg.name}'s MoE expert products take dense weights only "
+                f"(use --engine static, which dequantizes)")
+    return None
+
+
+def load_config(args):
+    """``--arch``'s config (reduced, depth-cut by ``--layers``), its full
+    depth, and a SystemExit when ``family_refusal`` refuses it."""
+    from repro_torch.configs import get_config, get_reduced_config
+
+    cfg = (get_reduced_config if args.reduced else get_config)(args.arch)
+    reason = family_refusal(cfg, args)
+    if reason:
+        raise SystemExit(f"[serve] refused: {reason}")
+    full = cfg.n_layers
+    if args.layers:
+        cfg = cut_depth(cfg, args.layers)
+    return cfg, full
+
+
 def full_context_layers(cfg) -> int:
     """Layers whose attention reads the paged pool through the kernel (a
     local-window layer reads by gather, as in the reference)."""
@@ -636,15 +686,11 @@ def serve(args, params=None):
     config: already PTQ'd weights are served as they are), else seeded
     random ones, PTQ'd with --quantize."""
     from repro_torch import models
-    from repro_torch.configs import get_config, get_reduced_config
     from repro_torch.device import resolve_device
     from repro_torch.serving import poisson_trace
 
+    cfg, full = load_config(args)
     dev = resolve_device(args.device)
-    cfg = (get_reduced_config if args.reduced else get_config)(args.arch)
-    full = cfg.n_layers
-    if args.layers:
-        cfg = cut_depth(cfg, args.layers)
     ptq = None
     if params is None:
         params = models.init_params(
@@ -821,6 +867,17 @@ def static_prompts(cfg, args, dev) -> torch.Tensor:
                          generator=gen, device=dev)
 
 
+def static_encoder_input(cfg, args, dev) -> torch.Tensor | None:
+    """An encoder-decoder model's encoder input: seeded normal frame
+    embeddings (``--batch``, ``--prompt-len``, d_model) f32 on ``dev``
+    (the stub frontend's place), or None for an LM."""
+    if cfg.family != "encdec":
+        return None
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    return torch.randn((args.batch, args.prompt_len, cfg.d_model),
+                       generator=gen, dtype=torch.float32, device=dev)
+
+
 def run_static(args, params=None) -> dict:
     """The static engine: ``--batch`` prompts through one prefill into the
     dense ring cache and ``--gen`` greedy decode steps. The weights are
@@ -828,16 +885,12 @@ def run_static(args, params=None) -> dict:
     quantized leaves are dequantized first, as in the reference. Returns
     {tokens (B, gen), logits (B, gen, V), seconds, params, cfg}."""
     from repro_torch import models
-    from repro_torch.configs import get_config, get_reduced_config
     from repro_torch.device import resolve_device
     from repro_torch.launch.static_steps import static_generate
     from repro_torch.quant import dequantize_tree
 
+    cfg, full = load_config(args)
     dev = resolve_device(args.device)
-    cfg = (get_reduced_config if args.reduced else get_config)(args.arch)
-    full = cfg.n_layers
-    if args.layers:
-        cfg = cut_depth(cfg, args.layers)
     if params is None:
         params = models.init_params(
             cfg, torch.Generator(device=dev).manual_seed(0), dev)
@@ -848,8 +901,9 @@ def run_static(args, params=None) -> dict:
               "the reference's static path serves them")
     params = dequantize_tree(params)
     tokens = static_prompts(cfg, args, dev)
+    enc = static_encoder_input(cfg, args, dev)
     t0 = time.perf_counter()
-    out, logits = static_generate(params, cfg, tokens, args.gen)
+    out, logits = static_generate(params, cfg, tokens, args.gen, enc)
     out = out.cpu()
     dt = time.perf_counter() - t0
     B, G = args.batch, args.gen

@@ -1,49 +1,60 @@
-"""Model facade (port of ``repro/models/__init__.py``, LM family)."""
+"""Model facade (port of ``repro/models/__init__.py``): one interface over
+the decoder-only LM family and the encoder-decoder one (whisper)."""
 from __future__ import annotations
 
 import torch
 
+from . import encdec as _ed
 from . import transformer as _tf
 from .convert import params_from_reference
 
 
-def _check_lm(cfg) -> None:
-    if cfg.family != "lm":
-        raise ValueError(f"the port serves decoder-only LMs, got "
-                         f"{cfg.family!r}")
-
-
 def init_params(cfg, gen: torch.Generator, device) -> dict:
-    _check_lm(cfg)
+    if cfg.family == "encdec":
+        return _ed.init_encdec(cfg, gen, device)
     return _tf.init_lm(cfg, gen, device)
 
 
 def forward(params, cfg, batch, *, return_hidden=False):
-    _check_lm(cfg)
+    if cfg.family == "encdec":
+        return _ed.encdec_forward(params, cfg, batch,
+                                  return_hidden=return_hidden)
     return _tf.lm_forward(params, cfg, batch, return_hidden=return_hidden)
 
 
-def init_cache(cfg, batch_size: int, max_len: int, device):
-    _check_lm(cfg)
+def lm_head(params, cfg, hidden):
+    return _tf._lm_head(params, cfg, hidden)
+
+
+def init_cache(cfg, batch_size: int, max_len: int, device, *,
+               enc_len: int | None = None):
+    if cfg.family == "encdec":
+        return _ed.init_encdec_cache(cfg, batch_size, max_len,
+                                     enc_len or max_len, device)
     return _tf.init_lm_cache(cfg, batch_size, max_len, device)
 
 
 def prefill(params, cfg, batch, cache):
-    _check_lm(cfg)
+    if cfg.family == "encdec":
+        return _ed.encdec_prefill(params, cfg, batch, cache)
     return _tf.lm_prefill(params, cfg, batch, cache)
 
 
 def decode_step(params, cfg, tokens, cache, cache_index):
-    _check_lm(cfg)
+    if cfg.family == "encdec":
+        return _ed.encdec_decode_step(params, cfg, tokens, cache,
+                                      cache_index)
     return _tf.lm_decode_step(params, cfg, tokens, cache, cache_index)
 
 
 def decode_window(params, cfg, tokens, cache, cache_index):
     """Multi-token decode window (B, W) at per-sequence offsets: the
-    speculative verify pass."""
-    _check_lm(cfg)
+    speculative verify pass (LM family only)."""
+    if cfg.family != "lm":
+        raise ValueError(f"decode_window drives decoder-only LMs, got "
+                         f"{cfg.family!r}")
     return _tf.lm_decode_window(params, cfg, tokens, cache, cache_index)
 
 
-__all__ = ["init_params", "forward", "init_cache", "prefill", "decode_step",
-           "decode_window", "params_from_reference"]
+__all__ = ["init_params", "forward", "lm_head", "init_cache", "prefill",
+           "decode_step", "decode_window", "params_from_reference"]

@@ -1,6 +1,7 @@
-"""GQA self-attention with RoPE / qk-norm / softcap (port of
-``repro/models/attention.py``: ``attention``, ``sdpa``, ``_pos_mask``,
-``_sdpa_block``; MLA and cross-attention come with their model families).
+"""Attention mixers (port of ``repro/models/attention.py``): GQA
+self-attention with RoPE or M-RoPE, qk-norm, softcap and a local window;
+whisper's appended cross-attention; deepseek's multi-head latent
+attention (MLA).
 
 Projections go through ``quant.serve.qmatmul``: dense weights are a plain
 matmul, PTQ'd QuantizedTensor weights the codebook-dequant kernel.
@@ -21,7 +22,7 @@ from repro_torch.quant.serve import qmatmul
 from .cache import as_adapter, supports_fused_decode, supports_fused_prefill
 from .ffn import _dense
 from .norms import init_rms, rms_norm
-from .rope import apply_rope
+from .rope import apply_mrope, apply_rope
 
 BIG_NEG = -2.3819763e38
 
@@ -37,6 +38,11 @@ def init_attention(cfg, spec, gen: torch.Generator, dtype, device) -> dict:
     if cfg.qk_norm:
         p["q_norm"] = init_rms(Dh, dtype, device)
         p["k_norm"] = init_rms(Dh, dtype, device)
+    if spec.cross_attn:
+        p["c_wq"] = _dense(gen, D, H * Dh, dtype, device)
+        p["c_wk"] = _dense(gen, D, Hkv * Dh, dtype, device)
+        p["c_wv"] = _dense(gen, D, Hkv * Dh, dtype, device)
+        p["c_wo"] = _dense(gen, H * Dh, D, dtype, device)
     return p
 
 
@@ -98,8 +104,9 @@ def sdpa(q, k, v, *, causal, window=None, softcap=None, q_offset=0,
     """Grouped SDPA, chunked over the query axis to bound the live logits
     buffer at (B, H, q_chunk, Skv). K/V repeat across the GQA group for
     multi-token queries only (a decode step would re-read the cache G
-    times). The reference's online-softmax kv-chunk schedule for very long
-    KV is not ported: every length runs the block form here."""
+    times). v's head dim may differ from q's and k's (MLA). The
+    reference's online-softmax kv-chunk schedule for very long KV is not
+    ported: every length runs the block form here."""
     B, Sq, Hq, Dh = q.shape
     rep = Sq > 1
 
@@ -115,9 +122,18 @@ def sdpa(q, k, v, *, causal, window=None, softcap=None, q_offset=0,
     return torch.cat(outs, dim=1)
 
 
+def _rope(cfg, x, positions):
+    if cfg.mrope_sections is not None:
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
+    return apply_rope(x, positions, cfg.rope_theta)
+
+
 def attention(params, cfg, spec, x, positions, *, cache=None,
-              cache_index=None, causal=True):
-    """Self-attention. Returns (out, new_cache)."""
+              cache_index=None, causal=True, cross_kv=None):
+    """Self-attention, plus the appended cross-attention of a
+    ``spec.cross_attn`` layer: ``cross_kv`` is {"enc_out": (B, Se, D)}
+    (projected here) or the precomputed {"k", "v"} of ``init_cross_kv``.
+    Returns (out, new_cache)."""
     B, S, _ = x.shape
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = qmatmul(x, params["wq"]).reshape(B, S, H, Dh)
@@ -127,8 +143,8 @@ def attention(params, cfg, spec, x, positions, *, cache=None,
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
     if positions is not None:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        q = _rope(cfg, q, positions)
+        k = _rope(cfg, k, positions)
 
     new_cache = None
     if cache is not None:
@@ -152,4 +168,81 @@ def attention(params, cfg, spec, x, positions, *, cache=None,
         out = sdpa(q, k, v, causal=causal, window=spec.window,
                    softcap=cfg.attn_softcap, q_chunk=cfg.attn_q_chunk)
     y = qmatmul(out.reshape(B, S, H * Dh), params["wo"])
+
+    if spec.cross_attn:
+        if cross_kv is None:
+            raise ValueError("cross-attention needs the encoder's K/V")
+        ckv = (init_cross_kv(params, cfg, cross_kv["enc_out"])
+               if "enc_out" in cross_kv else cross_kv)
+        cq = (x @ params["c_wq"]).reshape(B, S, H, Dh)
+        co = sdpa(cq, ckv["k"], ckv["v"], causal=False,
+                  q_chunk=cfg.attn_q_chunk)
+        y = y + co.reshape(B, S, H * Dh) @ params["c_wo"]
     return y, new_cache
+
+
+def init_cross_kv(params, cfg, enc_out) -> dict:
+    """The encoder's K/V for one decoder layer, computed once (prefill)
+    and reused every decode step."""
+    B, Se, _ = enc_out.shape
+    Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
+    return {"k": (enc_out @ params["c_wk"]).reshape(B, Se, Hkv, Dh),
+            "v": (enc_out @ params["c_wv"]).reshape(B, Se, Hkv, Dh)}
+
+
+# ------------------------------------------------------------------ MLA
+
+def init_mla(cfg, spec, gen: torch.Generator, dtype, device) -> dict:
+    D, H = cfg.d_model, cfg.n_heads
+    r, nope, ropd, dv = (cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                         cfg.v_head_dim)
+    return {
+        "wq": _dense(gen, D, H * (nope + ropd), dtype, device),
+        "wdkv": _dense(gen, D, r, dtype, device),
+        "wkr": _dense(gen, D, ropd, dtype, device),
+        "wukv": _dense(gen, r, H * (nope + dv), dtype, device),
+        "wo": _dense(gen, H * dv, D, dtype, device),
+    }
+
+
+def mla_attention(params, cfg, spec, x, positions, *, cache=None,
+                  cache_index=None, causal=True, cross_kv=None):
+    """Multi-head latent attention (deepseek-v2). The cache holds only the
+    latent {"ckv": (B, L, r)} and the shared rope key {"krope": (B, L,
+    ropd)}, written in place at ``cache_index``; K and V are re-expanded
+    from the whole latent on every call, as in the reference. q/k are
+    ``nope + ropd`` wide, v ``v_head_dim``. Returns (out, new_cache)."""
+    del cross_kv
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    r, nope, ropd, dv = (cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                         cfg.v_head_dim)
+    q = (x @ params["wq"]).reshape(B, S, H, nope + ropd)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    ckv = x @ params["wdkv"]                                  # (B, S, r)
+    krope = (x @ params["wkr"]).reshape(B, S, 1, ropd)
+    if positions is not None:
+        q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+        krope = apply_rope(krope, positions, cfg.rope_theta)
+
+    new_cache = None
+    if cache is not None:
+        sl = slice(cache_index, cache_index + S)
+        cache["ckv"][:, sl] = ckv.to(cache["ckv"].dtype)
+        cache["krope"][:, sl] = krope[:, :, 0].to(cache["krope"].dtype)
+        new_cache = cache
+        ckv_use, kr_use = cache["ckv"], cache["krope"][:, :, None]
+        q_off, valid = cache_index, cache_index + S
+    else:
+        ckv_use, kr_use, q_off, valid = ckv, krope, 0, None
+
+    L = ckv_use.shape[1]
+    kv = (ckv_use @ params["wukv"]).reshape(B, L, H, nope + dv)
+    k_nope, vv = kv[..., :nope], kv[..., nope:]
+    k = torch.cat([k_nope, kr_use.expand(B, L, H, ropd).to(k_nope.dtype)],
+                  dim=-1)
+    qq = torch.cat([q_nope, q_rope], dim=-1)
+    out = sdpa(qq, k, vv, causal=causal, window=spec.window,
+               softcap=cfg.attn_softcap, q_offset=q_off, kv_valid_len=valid,
+               q_chunk=cfg.attn_q_chunk)
+    return out.reshape(B, S, H * dv) @ params["wo"], new_cache

@@ -16,6 +16,8 @@ through duck typing, so model code never imports serving code.
 """
 from __future__ import annotations
 
+import torch
+
 
 def supports_fused_decode(adapter, seq_len: int, window) -> bool:
     """Full-context attention, the adapter opted in via
@@ -52,11 +54,43 @@ class DenseRingCache:
         return c, c["k"], c["v"], cache_index, cache_index + S
 
 
+class Int8RingCache:
+    """Scalar-quantized ring buffer: int8 codes + one f32 scale per
+    (token, head), {"k", "v"} int8 (B, L, Hkv, Dh) and {"k_s", "v_s"} f32
+    (B, L, Hkv, 1). Reads dequantize the whole buffer, as in the
+    reference; writes land in place, as ``DenseRingCache``'s do."""
+
+    def __init__(self, cache: dict):
+        self.cache = cache
+
+    @staticmethod
+    def _q8(t: torch.Tensor):
+        """Codes clip(round(t / s), -127, 127) with s = max(max|t| / 127,
+        1e-8) over the head dim; the division in f32, rounding half to
+        even (``jnp.round`` and ``torch.round`` agree)."""
+        s = t.abs().amax(dim=-1, keepdim=True).float() / 127.0
+        s = torch.clamp(s, min=1e-8)
+        codes = torch.clamp(torch.round(t.float() / s), -127, 127)
+        return codes.to(torch.int8), s
+
+    def update(self, k, v, cache_index: int):
+        c = self.cache
+        S = k.shape[1]
+        sl = slice(cache_index, cache_index + S)
+        c["k"][:, sl], c["k_s"][:, sl] = self._q8(k)
+        c["v"][:, sl], c["v_s"][:, sl] = self._q8(v)
+        k_all = c["k"].to(k.dtype) * c["k_s"].to(k.dtype)
+        v_all = c["v"].to(v.dtype) * c["v_s"].to(v.dtype)
+        return c, k_all, v_all, cache_index, cache_index + S
+
+
 def as_adapter(cache):
     """Dispatch a cache to its adapter (objects with ``update`` pass
-    through; dicts are dense ring buffers)."""
+    through; a dict with scales is the int8 ring, any other dict the
+    dense ring)."""
     if isinstance(cache, dict):
-        return DenseRingCache(cache)
+        return Int8RingCache(cache) if "k_s" in cache else DenseRingCache(
+            cache)
     if hasattr(cache, "update"):
         return cache
     raise TypeError(f"no KV-cache adapter for {type(cache)!r}")

@@ -4,14 +4,21 @@
 (``jax.tree.map(np.asarray, params)``) and unstacks its scanned ``groups``
 axis into the port's per-layer list, so both packages compute the same
 function. Every leaf crosses by name, gemma2's ``post_ln1``/``post_ln2``
-and an untied ``lm_head`` among them. The paged-cache converter lives beside the cache
+and an untied ``lm_head`` among them, and so do the families' own: MoE's
+``router``, expert stacks ``w_gate``/``w_up``/``w_down`` (E, D, F) and
+``shared`` FFN, MLA's ``wq``/``wdkv``/``wkr``/``wukv``/``wo``, the
+cross-attention ``c_*`` projections, and the encoder's stacked
+``enc_groups`` (unstacked into ``enc_layers``) and ``enc_norm``. The paged-cache converter lives beside the cache
 (``serving.kv_cache.paged_layer_from_reference``).
 
 A PTQ'd reference tree carries QuantizedTensor leaves (numpy codebook and
 indices under ``jax.tree.map``). They cross as the port's QuantizedTensor,
 codes unchanged; a stacked leaf (codebook (G, L), indices (G, n)) becomes
 layer g's flat ``QuantizedTensor(codebook[g], indices[g])``, its padded
-codebook entries kept (no code references them).
+codebook entries kept (no code references them). An expert stack's
+stacked leaf is quantized per group as one (E, D, F) tensor
+(``quant/ptq.py``), so layer g's slice is one flat QuantizedTensor of
+shape (E, D, F).
 """
 from __future__ import annotations
 
@@ -49,14 +56,20 @@ def _tree(tree, device, index=None):
     return _t(a if index is None else a[index], device)
 
 
+def _unstack(groups: dict, n_groups: int, group_len: int, device) -> list:
+    return [_tree(groups[f"l{i}"], device, index=g)
+            for g in range(n_groups) for i in range(group_len)]
+
+
 def params_from_reference(tree: dict, cfg, device) -> dict:
-    """Reference LM params (numpy leaves) -> the port's params."""
-    out = {k: _t(tree[k], device) for k in ("embed", "final_norm",
-                                             "lm_head") if k in tree}
-    layers = [_tree(tree[f"head_{i}"], device)
-              for i in range(len(cfg.head_layers))]
-    for g in range(cfg.n_groups):
-        for i in range(len(cfg.group)):
-            layers.append(_tree(tree["groups"][f"l{i}"], device, index=g))
-    out["layers"] = layers
+    """Reference params (numpy leaves; LM or encdec) -> the port's."""
+    out = {k: _tree(tree[k], device) for k in ("embed", "final_norm",
+                                                "lm_head", "enc_norm")
+           if k in tree}
+    out["layers"] = [_tree(tree[f"head_{i}"], device)
+                     for i in range(len(cfg.head_layers))] + _unstack(
+        tree["groups"], cfg.n_groups, len(cfg.group), device)
+    if "enc_groups" in tree:          # the encoder: one layer a group
+        out["enc_layers"] = _unstack(tree["enc_groups"], cfg.n_enc_layers,
+                                     1, device)
     return out

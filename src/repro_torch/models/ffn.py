@@ -20,11 +20,15 @@ def _dense(gen: torch.Generator, d_in: int, d_out: int, dtype,
     return (w / math.sqrt(d_in)).to(dtype)
 
 
-def init_ffn(cfg, gen: torch.Generator, dtype, device) -> dict:
+def init_ffn(cfg, gen: torch.Generator, dtype, device, *,
+             d_ff: int | None = None) -> dict:
+    """Gate, up and down projections of width ``d_ff`` (default
+    ``cfg.d_ff``; MoE's shared experts pass theirs)."""
+    F = d_ff or cfg.d_ff
     return {
-        "w_gate": _dense(gen, cfg.d_model, cfg.d_ff, dtype, device),
-        "w_up": _dense(gen, cfg.d_model, cfg.d_ff, dtype, device),
-        "w_down": _dense(gen, cfg.d_ff, cfg.d_model, dtype, device),
+        "w_gate": _dense(gen, cfg.d_model, F, dtype, device),
+        "w_up": _dense(gen, cfg.d_model, F, dtype, device),
+        "w_down": _dense(gen, F, cfg.d_model, dtype, device),
     }
 
 

@@ -3,8 +3,13 @@
 Params are plain nested dicts of tensors. The reference stacks identical
 layer groups and runs ``lax.scan`` over them; here ``params["layers"]`` is
 a list in execution order (``cfg.layer_specs()``) and the scan is a Python
-loop. A cache is a list with one entry per layer (a dense ring dict, or a
-paged-cache view from ``serving.kv_cache``).
+loop. A cache is a list with one entry per layer (a dense or int8 ring
+dict, an MLA latent dict, or a paged-cache view from
+``serving.kv_cache``).
+
+Mixers: attention (GQA, M-RoPE, cross-attention) and MLA; FFNs: dense and
+MoE. The state-space mixers (mamba, rwkv6 and its channel mix) are the
+next slice of the port and raise here.
 """
 from __future__ import annotations
 
@@ -14,38 +19,79 @@ import torch
 
 from . import attention as attn_lib
 from .ffn import ffn, init_ffn
+from .moe import init_moe, moe_ffn
 from .norms import init_rms, rms_norm
+
+_MIXERS = {"attn": (attn_lib.init_attention, attn_lib.attention),
+           "mla": (attn_lib.init_mla, attn_lib.mla_attention)}
+_NEXT_SLICE = ("mamba", "rwkv6", "cmix")
+
+
+def _refuse(kind: str, name: str):
+    if name in _NEXT_SLICE:
+        raise ValueError(f"{kind} {name!r} belongs to the state-space "
+                         f"family (models/ssm.py), not ported yet")
+    raise ValueError(f"unknown {kind} {name!r}")
 
 
 def init_layer(cfg, spec, gen: torch.Generator, dtype, device) -> dict:
-    if spec.mixer != "attn":
-        raise ValueError(f"the port serves attention mixers only, got "
-                         f"{spec.mixer!r}")
+    if spec.mixer not in _MIXERS:
+        _refuse("mixer", spec.mixer)
     p = {"ln1": init_rms(cfg.d_model, dtype, device),
-         "mixer": attn_lib.init_attention(cfg, spec, gen, dtype, device)}
+         "mixer": _MIXERS[spec.mixer][0](cfg, spec, gen, dtype, device)}
     if cfg.post_block_norm:
         p["post_ln1"] = init_rms(cfg.d_model, dtype, device)
     if spec.ffn == "dense":
         p["ln2"] = init_rms(cfg.d_model, dtype, device)
         p["ffn"] = init_ffn(cfg, gen, dtype, device)
-        if cfg.post_block_norm:
-            p["post_ln2"] = init_rms(cfg.d_model, dtype, device)
+    elif spec.ffn == "moe":
+        p["ln2"] = init_rms(cfg.d_model, dtype, device)
+        p["ffn"] = init_moe(cfg, gen, dtype, device)
     elif spec.ffn != "none":
-        raise ValueError(f"the port serves dense FFNs only, got {spec.ffn!r}")
+        _refuse("ffn", spec.ffn)
+    if cfg.post_block_norm and spec.ffn != "none":
+        p["post_ln2"] = init_rms(cfg.d_model, dtype, device)
     return p
 
 
+def init_layer_cache(cfg, spec, batch: int, max_len: int, dtype,
+                     device) -> dict:
+    """One layer's ring cache: {"k", "v"} (B, L, Hkv, Dh) in the compute
+    dtype, or int8 codes plus {"k_s", "v_s"} f32 scales (B, L, Hkv, 1)
+    when ``cfg.kv_cache_dtype == "int8"``; MLA's latent {"ckv": (B, L, r),
+    "krope": (B, L, ropd)}."""
+    def zeros(shape, dt):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    if spec.mixer == "attn":
+        kv = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        if cfg.kv_cache_dtype == "int8":
+            sc = (batch, max_len, cfg.n_kv_heads, 1)
+            return {"k": zeros(kv, torch.int8), "v": zeros(kv, torch.int8),
+                    "k_s": zeros(sc, torch.float32),
+                    "v_s": zeros(sc, torch.float32)}
+        return {"k": zeros(kv, dtype), "v": zeros(kv, dtype)}
+    if spec.mixer == "mla":
+        return {"ckv": zeros((batch, max_len, cfg.kv_lora_rank), dtype),
+                "krope": zeros((batch, max_len, cfg.qk_rope_dim), dtype)}
+    _refuse("mixer", spec.mixer)
+
+
 def apply_layer(p, cfg, spec, x, positions, *, cache=None, cache_index=None,
-                causal=True):
+                causal=True, cross_kv=None):
     h = rms_norm(x, p["ln1"])
-    out, new_c = attn_lib.attention(p["mixer"], cfg, spec, h, positions,
-                                    cache=cache, cache_index=cache_index,
-                                    causal=causal)
+    if spec.mixer not in _MIXERS:
+        _refuse("mixer", spec.mixer)
+    out, new_c = _MIXERS[spec.mixer][1](
+        p["mixer"], cfg, spec, h, positions, cache=cache,
+        cache_index=cache_index, causal=causal, cross_kv=cross_kv)
     if cfg.post_block_norm:
         out = rms_norm(out, p["post_ln1"])
     x = x + out
     if spec.ffn != "none":
-        f = ffn(p["ffn"], cfg, rms_norm(x, p["ln2"]))
+        h2 = rms_norm(x, p["ln2"])
+        f = moe_ffn(p["ffn"], cfg, h2) if spec.ffn == "moe" else ffn(
+            p["ffn"], cfg, h2)
         if cfg.post_block_norm:
             f = rms_norm(f, p["post_ln2"])
         x = x + f
@@ -72,16 +118,19 @@ def init_lm(cfg, gen: torch.Generator, device) -> dict:
 
 
 def init_lm_cache(cfg, batch: int, max_len: int, device) -> list[dict]:
-    """Dense ring-buffer caches, one per layer."""
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    """Ring-buffer caches, one per layer (``init_layer_cache``)."""
     dtype = cfg.dtype("compute")
-    return [{"k": torch.zeros(shape, dtype=dtype, device=device),
-             "v": torch.zeros(shape, dtype=dtype, device=device)}
-            for _ in cfg.layer_specs()]
+    return [init_layer_cache(cfg, spec, batch, max_len, dtype, device)
+            for spec in cfg.layer_specs()]
 
 
 def _embed_in(params, cfg, batch) -> torch.Tensor:
-    x = params["embed"][batch["tokens"].long()].to(cfg.dtype("compute"))
+    """Token embeddings, or the stub frontend's precomputed ``embeds``
+    (B, S, D) (qwen2-vl)."""
+    if "embeds" in batch:
+        x = batch["embeds"].to(cfg.dtype("compute"))
+    else:
+        x = params["embed"][batch["tokens"].long()].to(cfg.dtype("compute"))
     if cfg.embed_scale:
         x = x * math.sqrt(cfg.d_model)
     return x
@@ -99,14 +148,20 @@ def _lm_head(params, cfg, x) -> torch.Tensor:
 
 
 def _scan_groups(params, cfg, x, positions, *, cache=None, cache_index=None,
-                 causal=True):
-    """Every layer in order (the reference's head layers + scanned groups).
-    Returns (x, new_cache)."""
+                 causal=True, cross=None, layers_key="layers"):
+    """Every layer of ``params[layers_key]`` in order (the reference's head
+    layers + scanned groups). ``cross`` feeds the cross-attention layers:
+    {"enc_out": (B, Se, D)} (projected in each layer) or a list of one
+    precomputed {"k", "v"} per layer. Returns (x, new_cache)."""
     new_cache = [] if cache is not None else None
     for i, spec in enumerate(cfg.layer_specs()):
         c = None if cache is None else cache[i]
-        x, nc = apply_layer(params["layers"][i], cfg, spec, x, positions,
-                            cache=c, cache_index=cache_index, causal=causal)
+        ckv = None
+        if spec.cross_attn and cross is not None:
+            ckv = cross if isinstance(cross, dict) else cross[i]
+        x, nc = apply_layer(params[layers_key][i], cfg, spec, x, positions,
+                            cache=c, cache_index=cache_index, causal=causal,
+                            cross_kv=ckv)
         if cache is not None:
             new_cache.append(nc)
     return x, new_cache
@@ -166,6 +221,8 @@ def lm_decode_window(params, cfg, tokens, cache, cache_index):
         base = torch.full((B, 1), int(cache_index), dtype=torch.int32,
                           device=x.device)
     positions = base + torch.arange(W, dtype=torch.int32, device=x.device)
+    if cfg.mrope_sections is not None:      # text: one index, three streams
+        positions = positions[None].expand(3, B, W)
     x, new_cache = _scan_groups(params, cfg, x, positions, cache=cache,
                                 cache_index=cache_index)
     return _lm_head(params, cfg, x), new_cache

@@ -1177,6 +1177,44 @@ def test_fused_engine_equals_gather_engine_on_the_reduced_configs(
             torch.from_numpy(gather.request_logits[i]), atol=1e-3, rtol=0)
 
 
+@pytest.mark.parametrize("kv_quant", [None, "kmeans_ls@16"])
+def test_fused_granite_engine_equals_gather_engine(gen, kv_quant):
+    """The reduced granite (attention + MoE, Hq 4 over Hkv 2, Dh 16) on
+    the continuous engine with whole-prompt prefills, fused against
+    gather, on fp and on kmeans_ls@16 pages: equal greedy tokens, request
+    logits within 1e-3 (the engine bar); the kernel launched once per
+    layer per decode step, and never by a whole-prompt prefill."""
+    from repro_torch import models
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.serving import ContinuousBatchingEngine
+
+    cfg = get_reduced_config("granite_moe_3b_a800m")
+    params = models.init_params(cfg, gen, "cuda")
+    rng = torch.Generator().manual_seed(4)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=rng).tolist()
+               for n in (20, 13, 31)]
+    runs = []
+    for impl in ("fused", "gather"):
+        eng = ContinuousBatchingEngine(
+            params, cfg, device="cuda", max_slots=2, block_size=8,
+            max_seq_len=48, attn_impl=impl, record_logits=True,
+            kv_quant=kv_quant, freeze_async=False)
+        n0 = paged_decode_attention.launches
+        out = eng.generate(prompts, max_new_tokens=10)
+        launches = paged_decode_attention.launches - n0
+        assert eng.prefill.counters["prefill_chunks"] == 0
+        assert launches == (cfg.n_layers * eng.counters["decode_steps"]
+                            if impl == "fused" else 0)
+        assert (eng.counters["freeze_installs"] > 0) == bool(kv_quant)
+        runs.append((eng, out))
+    (fused, out_f), (gather, out_g) = runs
+    assert out_f == out_g
+    for i in range(len(prompts)):
+        torch.testing.assert_close(
+            torch.from_numpy(fused.request_logits[i]),
+            torch.from_numpy(gather.request_logits[i]), atol=1e-3, rtol=0)
+
+
 @pytest.mark.parametrize("method", ["dp", "tv_iter"])
 def test_host_freeze_of_card_pages_equals_the_cpu(gen, method):
     """The per-page host freeze of a card pool gives the codes and
