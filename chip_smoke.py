@@ -44,8 +44,12 @@ attention kernel, on fp and on kmeans_ls@16 pages (phase
 ``serve-granite``), and phase ``static-families``: deepseek-v2-lite-16b
 (MLA + MoE) at full width and depth and whisper-tiny (encoder-decoder)
 on the static engine, qwen2-vl-72b (M-RoPE, the int8 ring cache) at full
-width on 2 layers through the model facade, and the three reduced
-configs on the card against the CPU.
+width on 2 layers through the model facade, and the reduced configs
+(those three, rwkv6 and jamba) on the card against the CPU. Last, phase
+``static-ssm``: the state-space family on the static engine, rwkv6-3b at
+full width and depth and jamba-1.5-large at full width on its first five
+layers (every layer kind it has), and decode against forward in f32 at
+full width (rwkv6-3b whole, jamba's first layer).
 The kernel phase also holds the attention kernel against its plain
 version over head dims 8-256 and blocks of 1-128 keys, and times it at
 glm4-9b's decode shape.
@@ -57,6 +61,7 @@ Before serving it runs the card tests (``pytest -m cuda
 tests/test_torch_cuda.py``) in a child process.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ssm-readings   # static-ssm's readings alone
 
 Every phase prints its own line; any failure exits non-zero. The last line
 is ``{"ok": true, "device": {...}}``; the line before it holds the card's
@@ -2566,7 +2571,7 @@ def check_serve_granite() -> dict:
     return out
 
 
-def static_family(argv) -> dict:
+def static_family(argv, name: str = "static-families") -> dict:
     """One static run (``serve.run_static``) at full size: no kernel
     launch, finite logits (the launcher checks), the tokens' shape."""
     from repro_torch.launch import serve
@@ -2584,13 +2589,13 @@ def static_family(argv) -> dict:
     n = sum(t.numel() * t.element_size() for t in _leaves(r["params"]))
     from repro_torch.configs import get_config
 
-    phase("static-families", f"{cfg.name} ({cfg.n_layers} layers of "
+    phase(name, f"{cfg.name} ({cfg.n_layers} layers of "
           f"{get_config(args.arch).n_layers}, d_model {cfg.d_model}, "
           f"{gib(n):.1f} GiB of {cfg.param_dtype} weights; peak "
           f"{peak:.1f} GiB): {args.batch} x ({args.prompt_len}"
           f" + {args.gen}) tokens in {r['seconds']:.2f} s, first call "
           f"included, finite logits, no kernel launch")
-    return dict(seconds=r["seconds"], peak_gib=peak)
+    return dict(seconds=r["seconds"], peak_gib=peak, launches=launches)
 
 
 def _leaves(tree):
@@ -2667,9 +2672,9 @@ def check_vl_full() -> dict:
 
 
 def check_families_card_vs_cpu() -> dict:
-    """The reduced deepseek and whisper (static engine) in f32, one set of
-    weights made on the CPU, on the card and on the CPU: equal greedy
-    tokens and logits within FAMILY_TOL; then qwen2-vl
+    """The reduced deepseek, whisper, rwkv6 and jamba (static engine) in
+    f32, one set of weights made on the CPU, on the card and on the CPU:
+    equal greedy tokens and logits within FAMILY_TOL; then qwen2-vl
     (``check_vl_card_vs_cpu``)."""
     from repro_torch import models
     from repro_torch.configs import get_reduced_config
@@ -2684,7 +2689,8 @@ def check_families_card_vs_cpu() -> dict:
         return tree.to(dev)
 
     out = {}
-    for arch in ("deepseek_v2_lite_16b", "whisper_tiny"):
+    for arch in ("deepseek_v2_lite_16b", "whisper_tiny", "rwkv6_3b",
+                 "jamba_1_5_large_398b"):
         cfg = get_reduced_config(arch)
         params = models.init_params(cfg, torch.Generator().manual_seed(0),
                                     "cpu")
@@ -2756,6 +2762,143 @@ def check_static_families() -> dict:
            "qwen2_vl": check_vl_full(),
            "card_vs_cpu": check_families_card_vs_cpu()}
     phase("static-families", f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ------------------------------------------------------------ state-space
+# rwkv6-3b at full width and depth (32 layers, 3.07 B params) and
+# jamba-1.5-large at full width on its first five layers (mamba/dense,
+# mamba/moe, mamba/dense, mamba/moe, attn/dense: every layer kind of the
+# model; 24.1 B params, ~48 GB bf16) on the static engine: 4 prompts of
+# 200 tokens (past rwkv's 64-token chunk and into jamba's second 128-token
+# one, the last chunk padded in both) + 16 new tokens
+SSM_STATIC = ["--engine", "static", "--batch", "4", "--prompt-len", "200",
+              "--gen", "16"]
+RWKV_ARGS = SSM_STATIC + ["--arch", "rwkv6_3b"]
+JAMBA_ARGS = SSM_STATIC + ["--arch", "jamba_1_5_large_398b", "--layers",
+                           "5"]
+# decode vs forward, f32, at full width: rwkv6-3b at full depth (12.3 GB)
+# and jamba's first layer (mamba + dense, 8.4 GB). A prefill of
+# SSM_PREFILL tokens (the chunked scans, padded), then SSM_STEPS
+# teacher-forced decode steps (the O(1) updates), each step's logits held
+# against the forward's over all SSM_PREFILL + SSM_STEPS tokens at its
+# position, relative to the forward's logit range. Readings (``python3
+# chip_smoke.py --ssm-readings``; PERF.md; NVIDIA H100 80GB HBM3, 700 W):
+# rwkv6-3b 2.68e-6, 2.88e-6, 2.44e-6 and jamba 1.41e-6, 1.06e-6, 1.20e-6
+# on seeds 0-2; Mamba's dt padded before its softplus (the pads decay
+# the state) 5.50e-3 on jamba, the u bonus dropped from the sequential
+# WKV 6.19e-3 on rwkv6 (seed 0). 1e-4 lies between.
+SSM_F32 = (("rwkv6_3b", None), ("jamba_1_5_large_398b", 1))
+SSM_PREFILL, SSM_STEPS = 200, 8
+SSM_DECODE_REL_TOL = 1e-4
+
+
+def ssm_f32_model(arch: str, layers: int | None) -> tuple:
+    """``arch`` at full width in f32 (its first ``layers`` layers, or all),
+    seeded random weights on the card; returns (params, cfg)."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    cfg = dataclasses.replace(get_config(arch), param_dtype="float32",
+                              compute_dtype="float32")
+    if layers:
+        cfg = serve.cut_depth(cfg, layers)
+    params = models.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    return params, cfg
+
+
+@torch.inference_mode()
+def ssm_decode_vs_forward(params, cfg, *, seed: int = 0, B: int = 4) -> dict:
+    """Prefill SSM_PREFILL seeded tokens into ``models.init_cache``, then
+    SSM_STEPS decode steps on the next tokens; returns max|dlogit| of the
+    steps against ``models.forward`` over all the tokens at the same
+    positions, the forward's logit range over them, and their ratio."""
+    from repro_torch import models
+
+    T = SSM_PREFILL + SSM_STEPS
+    dev = params["embed"].device
+    g = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab, (B, T), generator=g).to(dev)
+    full = models.forward(params, cfg, {"tokens": toks})[:, SSM_PREFILL:]
+    cache = models.init_cache(cfg, B, T, dev)
+    _, cache = models.prefill(params, cfg,
+                              {"tokens": toks[:, :SSM_PREFILL]}, cache)
+    steps = []
+    for i in range(SSM_PREFILL, T):
+        logits, cache = models.decode_step(params, cfg, toks[:, i:i + 1],
+                                           cache, i)
+        steps.append(logits[:, 0])
+    dmax = float((torch.stack(steps, 1) - full).abs().max())
+    span = float(full.max() - full.min())
+    return dict(dmax=dmax, range=span, rel=dmax / span)
+
+
+def ssm_readings(seeds=(0, 1, 2)) -> int:
+    """``--ssm-readings``: the decode-vs-forward readings of SSM_F32 for
+    several prompt seeds, printed without a bound (run it from a copy of
+    the repository with one line of ``src/`` changed to read a planted
+    fault)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(card_line())
+    for arch, layers in SSM_F32:
+        params, cfg = ssm_f32_model(arch, layers)
+        for seed in seeds:
+            r = ssm_decode_vs_forward(params, cfg, seed=seed)
+            print(f"seed {seed} decode vs forward (f32) {cfg.name} "
+                  f"{cfg.n_layers} layers: rel {r['rel']:.4e} max|dlogit| "
+                  f"{r['dmax']:.4g} range {r['range']:.4g}", flush=True)
+        del params
+        torch.cuda.empty_cache()
+    return 0
+
+
+def check_static_ssm() -> dict:
+    """The state-space family on the card: (a) rwkv6-3b at full width and
+    depth and (b) jamba-1.5-large at full width on 5 layers through the
+    static engine (no kernel launch, finite logits, the tokens' shape; the
+    earlier phases' weights freed first, the peak printed); (c) decode vs
+    forward in f32 at full width under SSM_DECODE_REL_TOL. (d), the
+    reduced configs card vs CPU, runs in ``check_families_card_vs_cpu``."""
+    import gc
+
+    from repro_torch.configs import get_config
+
+    name = "static-ssm"
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase(name, f"held on the card before the phase: "
+          f"{gib(torch.cuda.memory_allocated()):.2f} GiB")
+    out = {"rwkv6_3b": static_family(RWKV_ARGS, name)}
+    out["jamba_1_5_large_398b"] = static_family(JAMBA_ARGS, name)
+    for arch, layers in SSM_F32:
+        t1 = time.perf_counter()
+        torch.cuda.empty_cache()
+        params, cfg = ssm_f32_model(arch, layers)
+        r = ssm_decode_vs_forward(params, cfg)
+        del params
+        ok = r["rel"] <= SSM_DECODE_REL_TOL
+        phase(name, f"decode vs forward, f32, {cfg.name} ({cfg.n_layers} "
+              f"of {get_config(arch).n_layers} layers, d_model "
+              f"{cfg.d_model}): prefill {SSM_PREFILL} + {SSM_STEPS} steps, "
+              f"max|dlogit| {r['dmax']:.4g} of range {r['range']:.4g}, rel "
+              f"{r['rel']:.3e} (limit {SSM_DECODE_REL_TOL:g}) -> "
+              f"{'OK' if ok else 'EXCEEDED'}; "
+              f"{time.perf_counter() - t1:.1f} s")
+        if not ok:
+            raise AssertionError(f"{arch}: decode vs forward rel "
+                                 f"{r['rel']:.3e}")
+        out[f"{arch}_f32"] = r
+    torch.cuda.empty_cache()
+    out["launches"] = {k: sum(out[a]["launches"][k] for a in (
+        "rwkv6_3b", "jamba_1_5_large_398b"))
+        for k in out["rwkv6_3b"]["launches"]}
+    phase(name, f"{time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -3168,6 +3311,7 @@ def main() -> int:
     gr = check_serve_granite()
     phase("serve-granite", f"{time.perf_counter() - t0:.1f} s")
     check_static_families()
+    ssm = check_static_ssm()["launches"]
     record = {"kernels": [
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -3189,6 +3333,7 @@ def main() -> int:
          "serve_granite_launches": gr["launches"]["paged_decode_attention"],
          "serve_granite_kv_launches": gr["kv_launches"][
              "paged_decode_attention"],
+         "static_ssm_launches": ssm["paged_decode_attention"],
          **k},
         {"name": "quant_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
@@ -3200,15 +3345,18 @@ def main() -> int:
          "serve_disagg_frozen_launches": dzf["launches"]["quant_matmul"],
          "overload_launches": ov["launches"]["quant_matmul"],
          "serve_glm4_launches": g4["launches"]["quant_matmul"],
+         "static_ssm_launches": ssm["quant_matmul"],
          "solvers_launches": so["quant_matmul"], **q},
         {"name": "quant_matmul_stacked", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
-         "replaces": "src/repro/kernels/quant_matmul.py:105", **st},
+         "replaces": "src/repro/kernels/quant_matmul.py:105",
+         "static_ssm_launches": ssm["quant_matmul_stacked"], **st},
         {"name": "fista_quant", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fista_quant.cu",
          "replaces": "src/repro/kernels/fista_quant.py:79",
          "launches": pb.pop("ptq_launches"),
-         "solvers_launches": so["fista_quant"], **f["quant"], **pb},
+         "solvers_launches": so["fista_quant"],
+         "static_ssm_launches": ssm["fista_quant"], **f["quant"], **pb},
         {"name": "fista_freeze", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fista_quant.cu",
          "replaces": "src/repro/kernels/fista_quant.py:79",
@@ -3217,7 +3365,8 @@ def main() -> int:
          "solvers_launches": so["fista_freeze"],
          "serve_disagg_frozen_launches": dzf["iter_launches"][
              "fista_freeze"],
-         "serve_iter_l1_tpot_p50_ms": it["tpot_p50_ms"], **f["freeze"]},
+         "serve_iter_l1_tpot_p50_ms": it["tpot_p50_ms"],
+         "static_ssm_launches": ssm["fista_freeze"], **f["freeze"]},
     ]}
     phase("done", f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
@@ -3229,4 +3378,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(ssm_readings() if sys.argv[1:] == ["--ssm-readings"]
+             else main())

@@ -2,9 +2,8 @@
 
 A copy rather than an import: the reference module imports ``jax.numpy``
 for dtypes. ``ModelConfig.dtype`` returns torch dtypes here. The fields
-of families and paths the port does not run yet (the SSM scans' widths
-and ``scan_chunk``, the optimizer and remat settings, ``quant_skip``) are
-left out, and so are the configs' settings of them.
+of paths the port does not run yet (the optimizer and remat settings,
+``quant_skip``) are left out, and so are the configs' settings of them.
 """
 from __future__ import annotations
 
@@ -22,8 +21,8 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 class LayerSpec:
     """One layer: a sequence mixer plus a feed-forward block."""
 
-    mixer: str = "attn"          # "attn" | "mla" (mamba, rwkv6: next slice)
-    ffn: str = "dense"           # "dense" | "moe" | "none"
+    mixer: str = "attn"          # "attn" | "mla" | "mamba" | "rwkv6"
+    ffn: str = "dense"           # "dense" | "moe" | "cmix" | "none"
     window: int | None = None    # local attention window
     cross_attn: bool = False     # decoder cross-attention (whisper)
 
@@ -64,6 +63,13 @@ class ModelConfig:
     expert_ff: int = 0
     capacity_factor: float = 1.25
     router_dtype: str = "float32"
+    # SSM / RWKV
+    ssm_d_state: int = 16
+    ssm_d_conv: int = 4
+    ssm_expand: int = 2
+    ssm_dt_rank: int = 0          # 0 -> d_model/16
+    rwkv_head_dim: int = 64
+    scan_chunk: int = 128         # sequence chunking for SSM/RWKV scans
     # enc-dec
     n_enc_layers: int = 0
     enc_bidirectional: bool = True
@@ -73,11 +79,21 @@ class ModelConfig:
     act: str = "silu"             # "silu" (swiglu) | "gelu" (geglu)
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
+    # sub-quadratic in context (O(1) decode state): the SSM archs
+    subquadratic: bool = False
     notes: str = ""
 
     @property
     def n_groups(self) -> int:
         return (self.n_layers - len(self.head_layers)) // len(self.group)
+
+    @property
+    def dt_rank(self) -> int:
+        return self.ssm_dt_rank or max(self.d_model // 16, 8)
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
 
     def layer_specs(self) -> list[LayerSpec]:
         """Every layer in execution order (head layers, then the groups
@@ -99,7 +115,7 @@ class ModelConfig:
 
 ARCHS = ["qwen3_0_6b", "glm4_9b", "yi_34b", "gemma2_27b",
          "deepseek_v2_lite_16b", "granite_moe_3b_a800m", "qwen2_vl_72b",
-         "whisper_tiny"]
+         "whisper_tiny", "rwkv6_3b", "jamba_1_5_large_398b"]
 
 
 def _module(arch: str):

@@ -27,5 +27,5 @@ def reduced() -> ModelConfig:
         group=(LayerSpec(mixer="mla", ffn="moe"),),
         kv_lora_rank=32, qk_nope_dim=16, qk_rope_dim=8, v_head_dim=16,
         n_experts=8, n_shared_experts=2, top_k=3, expert_ff=32,
-        param_dtype="float32", compute_dtype="float32",
+        param_dtype="float32", compute_dtype="float32", scan_chunk=8,
     )

@@ -28,5 +28,5 @@ def reduced() -> ModelConfig:
                LayerSpec(mixer="attn", ffn="dense")),
         attn_softcap=50.0, final_softcap=30.0, post_block_norm=True,
         act="gelu", tie_embeddings=True, embed_scale=True,
-        param_dtype="float32", compute_dtype="float32",
+        param_dtype="float32", compute_dtype="float32", scan_chunk=8,
     )

@@ -18,5 +18,5 @@ def reduced() -> ModelConfig:
         name="glm4-reduced", family="lm",
         n_layers=4, d_model=64, n_heads=8, n_kv_heads=2, head_dim=8,
         d_ff=160, vocab=307, group=(LayerSpec(),),
-        param_dtype="float32", compute_dtype="float32",
+        param_dtype="float32", compute_dtype="float32", scan_chunk=8,
     )

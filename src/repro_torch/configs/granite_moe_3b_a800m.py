@@ -23,5 +23,5 @@ def reduced() -> ModelConfig:
         group=(LayerSpec(mixer="attn", ffn="moe"),),
         n_experts=10, top_k=4, expert_ff=48,
         tie_embeddings=True,
-        param_dtype="float32", compute_dtype="float32",
+        param_dtype="float32", compute_dtype="float32", scan_chunk=8,
     )

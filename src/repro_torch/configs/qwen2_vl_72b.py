@@ -23,5 +23,5 @@ def reduced() -> ModelConfig:
         d_ff=192, vocab=311, group=(LayerSpec(),),
         mrope_sections=(2, 3, 3), rope_theta=1_000_000.0,
         input_kind="embeds",
-        param_dtype="float32", compute_dtype="float32",
+        param_dtype="float32", compute_dtype="float32", scan_chunk=8,
     )

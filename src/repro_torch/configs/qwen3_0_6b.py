@@ -18,5 +18,5 @@ def reduced() -> ModelConfig:
         n_layers=4, d_model=64, n_heads=4, n_kv_heads=2, head_dim=32,
         d_ff=128, vocab=499, group=(LayerSpec(),),
         qk_norm=True, rope_theta=1_000_000.0, tie_embeddings=True,
-        param_dtype="float32", compute_dtype="float32",
+        param_dtype="float32", compute_dtype="float32", scan_chunk=8,
     )

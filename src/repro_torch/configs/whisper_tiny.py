@@ -23,5 +23,5 @@ def reduced() -> ModelConfig:
         head_dim=16, d_ff=128, vocab=269,
         group=(LayerSpec(mixer="attn", ffn="dense", cross_attn=True),),
         act="gelu", input_kind="embeds",
-        param_dtype="float32", compute_dtype="float32",
+        param_dtype="float32", compute_dtype="float32", scan_chunk=8,
     )

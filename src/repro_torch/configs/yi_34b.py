@@ -19,5 +19,5 @@ def reduced() -> ModelConfig:
         n_layers=3, d_model=64, n_heads=8, n_kv_heads=2, head_dim=8,
         d_ff=160, vocab=257, group=(LayerSpec(),),
         rope_theta=5_000_000.0,
-        param_dtype="float32", compute_dtype="float32",
+        param_dtype="float32", compute_dtype="float32", scan_chunk=8,
     )

@@ -65,13 +65,15 @@ prompts of ``--prompt-len`` tokens prefilled into the model's dense ring
 cache, then ``--gen`` greedy decode steps (``launch/static_steps.py``);
 ``--quantize`` weights are dequantized first, as the reference does. The
 port's default engine stays ``continuous``. The static engine also serves
-deepseek_v2_lite_16b (MLA + MoE) and whisper_tiny (encoder-decoder; its
+deepseek_v2_lite_16b (MLA + MoE), whisper_tiny (encoder-decoder; its
 encoder input is seeded normal frame embeddings of ``--prompt-len``
-frames, as the reference's).
+frames, as the reference's) and the state-space archs rwkv6_3b (RWKV-6)
+and jamba_1_5_large_398b (Mamba + attention + MoE; on the card
+``--layers 5``).
 
 Where the reference launcher fails, this one refuses with a SystemExit
-that names the reason (``family_refusal``): an MLA mixer or an
-encoder-decoder model on a paged engine, ``--quantize`` with an MoE FFN
+that names the reason (``family_refusal``): an MLA or state-space mixer
+or an encoder-decoder model on a paged engine, ``--quantize`` with an MoE FFN
 on a paged engine (the expert products take dense weights), and
 qwen2_vl_72b on any engine (no frontend makes its embeddings).
 
@@ -82,7 +84,8 @@ each request's seed derives from ``--seed``), and
 ``--freeze-page-budget`` caps the pages frozen a decode step.
 Weights are seeded random (``--arch``'s full width and depth unless
 ``--reduced``; ``--layers N`` keeps the first N layers, for a config
-whose full depth does not fit the card).
+whose full depth does not fit the card, cutting inside a layer group
+where N asks for it).
 
 ``--quantize SPEC`` post-training quantizes every projection on the
 serving device (embed and lm_head stay dense), one leaf at a time with the
@@ -605,11 +608,18 @@ def full_context_layers(cfg) -> int:
 
 
 def cut_depth(cfg, n_layers: int):
-    """``cfg`` with its first ``n_layers`` layers (its layer pattern kept:
-    a whole number of groups after the head layers)."""
+    """``cfg`` with its first ``n_layers`` layers. A whole number of groups
+    after the head layers keeps the pattern; a cut inside a group (jamba's
+    8-layer group at ``--layers 5``) makes those layers head layers with
+    no group after them."""
     if not 0 < n_layers <= cfg.n_layers:
         raise ValueError(f"--layers {n_layers}: want 1..{cfg.n_layers}")
-    return dataclasses.replace(cfg, n_layers=n_layers).validate()
+    rest = n_layers - len(cfg.head_layers)
+    if rest >= 0 and rest % len(cfg.group) == 0:
+        return dataclasses.replace(cfg, n_layers=n_layers).validate()
+    return dataclasses.replace(
+        cfg, n_layers=n_layers,
+        head_layers=tuple(cfg.layer_specs()[:n_layers])).validate()
 
 
 def cut_params(params, n_layers: int):
@@ -949,8 +959,8 @@ def parse_args(argv=None):
                          "its full width and depth unless --reduced)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--layers", type=int, default=None,
-                    help="serve the first N layers of --arch (a depth cut "
-                         "keeping its layer pattern)")
+                    help="serve the first N layers of --arch (a depth cut; "
+                         "inside a layer group where N asks for it)")
     ap.add_argument("--engine", choices=("static", "continuous", "disagg"),
                     default="continuous",
                     help="continuous (default here; the reference launcher "

@@ -7,8 +7,14 @@ function. Every leaf crosses by name, gemma2's ``post_ln1``/``post_ln2``
 and an untied ``lm_head`` among them, and so do the families' own: MoE's
 ``router``, expert stacks ``w_gate``/``w_up``/``w_down`` (E, D, F) and
 ``shared`` FFN, MLA's ``wq``/``wdkv``/``wkr``/``wukv``/``wo``, the
-cross-attention ``c_*`` projections, and the encoder's stacked
-``enc_groups`` (unstacked into ``enc_layers``) and ``enc_norm``. The paged-cache converter lives beside the cache
+cross-attention ``c_*`` projections, the encoder's stacked
+``enc_groups`` (unstacked into ``enc_layers``) and ``enc_norm``, and the
+state-space mixers' leaves (Mamba's ``w_in``, ``conv_w``, ``w_bcdt``,
+``w_dt``, ``dt_bias``, ``A_log``, ``D_skip``, ``w_out``; RWKV-6's time
+and channel mix, ``w0`` and ``u`` among them), each in its own dtype (f32
+``A_log``, ``D_skip``, ``w0`` and ``u`` in a bf16 model). jamba's
+heterogeneous 8-layer group unstacks like any other: layer i of group g
+is list entry ``8 g + i``. The paged-cache converter lives beside the cache
 (``serving.kv_cache.paged_layer_from_reference``).
 
 A PTQ'd reference tree carries QuantizedTensor leaves (numpy codebook and

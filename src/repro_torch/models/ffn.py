@@ -17,7 +17,7 @@ def _dense(gen: torch.Generator, d_in: int, d_out: int, dtype,
            device) -> torch.Tensor:
     w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
                     device=device)
-    return (w / math.sqrt(d_in)).to(dtype)
+    return w.div_(math.sqrt(d_in)).to(dtype)     # in place: one f32 copy
 
 
 def init_ffn(cfg, gen: torch.Generator, dtype, device, *,

@@ -7,9 +7,10 @@ loop. A cache is a list with one entry per layer (a dense or int8 ring
 dict, an MLA latent dict, or a paged-cache view from
 ``serving.kv_cache``).
 
-Mixers: attention (GQA, M-RoPE, cross-attention) and MLA; FFNs: dense and
-MoE. The state-space mixers (mamba, rwkv6 and its channel mix) are the
-next slice of the port and raise here.
+Mixers: attention (GQA, M-RoPE, cross-attention), MLA and the state-space
+mixers (``ssm.py``: mamba, rwkv6); FFNs: dense, MoE and rwkv6's channel
+mix, whose parameters live in the rwkv6 mixer dict. A mamba layer's cache
+is {"h", "conv"}, an rwkv6 layer's {"shift_t", "shift_c", "s"}.
 """
 from __future__ import annotations
 
@@ -18,37 +19,34 @@ import math
 import torch
 
 from . import attention as attn_lib
+from . import ssm as ssm_lib
 from .ffn import ffn, init_ffn
 from .moe import init_moe, moe_ffn
 from .norms import init_rms, rms_norm
 
-_MIXERS = {"attn": (attn_lib.init_attention, attn_lib.attention),
-           "mla": (attn_lib.init_mla, attn_lib.mla_attention)}
-_NEXT_SLICE = ("mamba", "rwkv6", "cmix")
-
-
-def _refuse(kind: str, name: str):
-    if name in _NEXT_SLICE:
-        raise ValueError(f"{kind} {name!r} belongs to the state-space "
-                         f"family (models/ssm.py), not ported yet")
-    raise ValueError(f"unknown {kind} {name!r}")
+_ATTN = {"attn": (attn_lib.init_attention, attn_lib.attention),
+         "mla": (attn_lib.init_mla, attn_lib.mla_attention)}
+_SSM_INIT = {"mamba": ssm_lib.init_mamba, "rwkv6": ssm_lib.init_rwkv6}
 
 
 def init_layer(cfg, spec, gen: torch.Generator, dtype, device) -> dict:
-    if spec.mixer not in _MIXERS:
-        _refuse("mixer", spec.mixer)
-    p = {"ln1": init_rms(cfg.d_model, dtype, device),
-         "mixer": _MIXERS[spec.mixer][0](cfg, spec, gen, dtype, device)}
+    p = {"ln1": init_rms(cfg.d_model, dtype, device)}
+    if spec.mixer in _ATTN:
+        p["mixer"] = _ATTN[spec.mixer][0](cfg, spec, gen, dtype, device)
+    elif spec.mixer in _SSM_INIT:
+        p["mixer"] = _SSM_INIT[spec.mixer](cfg, gen, dtype, device)
+    else:
+        raise ValueError(f"unknown mixer {spec.mixer!r}")
     if cfg.post_block_norm:
         p["post_ln1"] = init_rms(cfg.d_model, dtype, device)
-    if spec.ffn == "dense":
+    if spec.ffn != "none":
         p["ln2"] = init_rms(cfg.d_model, dtype, device)
+    if spec.ffn == "dense":
         p["ffn"] = init_ffn(cfg, gen, dtype, device)
     elif spec.ffn == "moe":
-        p["ln2"] = init_rms(cfg.d_model, dtype, device)
         p["ffn"] = init_moe(cfg, gen, dtype, device)
-    elif spec.ffn != "none":
-        _refuse("ffn", spec.ffn)
+    elif spec.ffn not in ("cmix", "none"):
+        raise ValueError(f"unknown ffn {spec.ffn!r}")
     if cfg.post_block_norm and spec.ffn != "none":
         p["post_ln2"] = init_rms(cfg.d_model, dtype, device)
     return p
@@ -59,7 +57,8 @@ def init_layer_cache(cfg, spec, batch: int, max_len: int, dtype,
     """One layer's ring cache: {"k", "v"} (B, L, Hkv, Dh) in the compute
     dtype, or int8 codes plus {"k_s", "v_s"} f32 scales (B, L, Hkv, 1)
     when ``cfg.kv_cache_dtype == "int8"``; MLA's latent {"ckv": (B, L, r),
-    "krope": (B, L, ropd)}."""
+    "krope": (B, L, ropd)}; the state-space mixers' states, which do not
+    grow with L (``ssm.init_mamba_cache``, ``ssm.init_rwkv_cache``)."""
     def zeros(shape, dt):
         return torch.zeros(shape, dtype=dt, device=device)
 
@@ -74,24 +73,49 @@ def init_layer_cache(cfg, spec, batch: int, max_len: int, dtype,
     if spec.mixer == "mla":
         return {"ckv": zeros((batch, max_len, cfg.kv_lora_rank), dtype),
                 "krope": zeros((batch, max_len, cfg.qk_rope_dim), dtype)}
-    _refuse("mixer", spec.mixer)
+    if spec.mixer == "mamba":
+        return ssm_lib.init_mamba_cache(cfg, batch, dtype, device)
+    if spec.mixer == "rwkv6":
+        return ssm_lib.init_rwkv_cache(cfg, batch, dtype, device)
+    raise ValueError(f"unknown mixer {spec.mixer!r}")
 
 
 def apply_layer(p, cfg, spec, x, positions, *, cache=None, cache_index=None,
                 causal=True, cross_kv=None):
     h = rms_norm(x, p["ln1"])
-    if spec.mixer not in _MIXERS:
-        _refuse("mixer", spec.mixer)
-    out, new_c = _MIXERS[spec.mixer][1](
-        p["mixer"], cfg, spec, h, positions, cache=cache,
-        cache_index=cache_index, causal=causal, cross_kv=cross_kv)
+    if spec.mixer in _ATTN:
+        out, new_c = _ATTN[spec.mixer][1](
+            p["mixer"], cfg, spec, h, positions, cache=cache,
+            cache_index=cache_index, causal=causal, cross_kv=cross_kv)
+    elif spec.mixer == "mamba":
+        out, new_c = ssm_lib.mamba(p["mixer"], cfg, h, cache=cache)
+    elif spec.mixer == "rwkv6":
+        shift = (cache["shift_t"] if cache is not None
+                 else torch.zeros_like(h[:, 0]))
+        state = (cache["s"] if cache is not None
+                 else ssm_lib.wkv_state(cfg, h.shape[0], h.device))
+        out, new_shift, new_state = ssm_lib.rwkv6_time_mix(
+            p["mixer"], cfg, h, shift_state=shift, wkv_state=state)
+        new_c = (None if cache is None
+                 else dict(cache, shift_t=new_shift, s=new_state))
+    else:
+        raise ValueError(f"unknown mixer {spec.mixer!r}")
     if cfg.post_block_norm:
         out = rms_norm(out, p["post_ln1"])
     x = x + out
     if spec.ffn != "none":
         h2 = rms_norm(x, p["ln2"])
-        f = moe_ffn(p["ffn"], cfg, h2) if spec.ffn == "moe" else ffn(
-            p["ffn"], cfg, h2)
+        if spec.ffn == "cmix":
+            shift_c = (cache["shift_c"] if cache is not None
+                       else torch.zeros_like(h2[:, 0]))
+            f, new_shift_c = ssm_lib.rwkv6_channel_mix(
+                p["mixer"], cfg, h2, shift_state=shift_c)
+            if new_c is not None:
+                new_c = dict(new_c, shift_c=new_shift_c)
+        elif spec.ffn == "moe":
+            f = moe_ffn(p["ffn"], cfg, h2)
+        else:
+            f = ffn(p["ffn"], cfg, h2)
         if cfg.post_block_norm:
             f = rms_norm(f, p["post_ln2"])
         x = x + f
@@ -118,7 +142,8 @@ def init_lm(cfg, gen: torch.Generator, device) -> dict:
 
 
 def init_lm_cache(cfg, batch: int, max_len: int, device) -> list[dict]:
-    """Ring-buffer caches, one per layer (``init_layer_cache``)."""
+    """Ring-buffer caches or SSM states, one per layer
+    (``init_layer_cache``)."""
     dtype = cfg.dtype("compute")
     return [init_layer_cache(cfg, spec, batch, max_len, dtype, device)
             for spec in cfg.layer_specs()]

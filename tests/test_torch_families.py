@@ -31,6 +31,8 @@ from repro.models import attention as jattn
 from repro.models.cache import Int8RingCache as JaxInt8RingCache
 from repro.models.rope import apply_mrope as jax_apply_mrope
 from repro.quant.ptq import DEFAULT_SKIP
+from repro.quant.ptq import _names as _jax_names
+from repro.quant.ptq import should_quantize as jax_should_quantize
 from repro.quant.ptq import quantize_tree as jax_quantize_tree
 from repro.serving import ContinuousBatchingEngine as JaxEngine
 from repro_torch import models
@@ -314,13 +316,20 @@ def test_qwen2vl_prefill_then_decode_on_the_int8_ring_matches_reference():
 
 
 def test_mixers_of_the_next_slice_are_refused():
-    """mamba, rwkv6 and cmix name the state-space slice."""
+    """mamba, rwkv6 and cmix, the state-space slice's, now build (their
+    parameters in the mixer dict: cmix adds only ln2); an unknown mixer
+    or ffn is refused by name."""
     from repro_torch.configs import LayerSpec
 
     cfg = get_reduced_config("granite_moe_3b_a800m")
-    for spec in (LayerSpec(mixer="mamba"), LayerSpec(mixer="rwkv6"),
-                 LayerSpec(ffn="cmix")):
-        with pytest.raises(ValueError, match="state-space"):
+    for spec, key in ((LayerSpec(mixer="mamba"), "A_log"),
+                      (LayerSpec(mixer="rwkv6", ffn="cmix"), "c_k")):
+        p = transformer.init_layer(cfg, spec, torch.Generator(),
+                                   torch.float32, "cpu")
+        assert key in p["mixer"]
+    for spec, word in ((LayerSpec(mixer="hyena"), "mixer 'hyena'"),
+                       (LayerSpec(ffn="glu9"), "ffn 'glu9'")):
+        with pytest.raises(ValueError, match=word):
             transformer.init_layer(cfg, spec, torch.Generator(),
                                    torch.float32, "cpu")
 
@@ -402,6 +411,79 @@ def test_quantize_tree_chooses_the_reference_leaves_and_slices(arch, skip):
             _leaf(q, n).shape) == 3 for n in rep)
 
 
+# leaves the launcher's PTQ_SKIP quantizes that the reference's default
+# list (its static launcher's) leaves dense, per layer: "mix(?!er)" lets
+# the mixer subtree through; embed and lm_head go the other way
+_SSM_PTQ_ADDED = {
+    "rwkv6_3b": {"rwkv6": ("w_r", "w_k", "w_v", "w_g", "w_lora_a",
+                           "w_lora_b", "w_o", "c_k", "c_v", "c_r")},
+    "jamba_1_5_large_398b": {"mamba": ("w_in", "conv_w", "w_bcdt", "w_dt",
+                                       "w_out"),
+                             "attn": ("wq", "wk", "wv", "wo")},
+}
+
+
+@pytest.mark.parametrize("arch,n_ref", [("rwkv6_3b", 2),
+                                        ("jamba_1_5_large_398b", 14)])
+def test_ssm_ptq_leaf_choice_matches_the_reference(arch, n_ref):
+    """Under the reference's skip list (its static launcher's) both
+    packages quantize the same leaves: embed and lm_head, and jamba's
+    dense and expert FFN stacks (2 and 14 tensors). Under the port's
+    PTQ_SKIP the difference from the default list is exactly the mixers'
+    projections named in _SSM_PTQ_ADDED (A_log, dt_bias, D_skip, w0, u,
+    mix, cmix and the norms stay dense). The reference under PTQ_SKIP
+    picks the same leaves and rwkv6's ``u`` too: stacked over groups it
+    is (G, D), 2-D, where the port's per-layer ``u`` is (D,)."""
+    jcfg, cfg = jax_reduced_config(arch), get_reduced_config(arch)
+    jparams = _jinit(jcfg, jax.random.PRNGKey(0))
+    params = models.params_from_reference(
+        jax.tree.map(np.asarray, jparams), cfg, "cpu")
+    chosen = {}
+    for name, patterns in (("default", DEFAULT_SKIP), ("launcher",
+                                                      PTQ_SKIP)):
+        # the reference's choice is its quantize_tree's own test, without
+        # its solves (eager jax on every stacked slice: ~1 min here)
+        jrep = ["/".join(_jax_names(path)) for path, leaf in
+                jax.tree_util.tree_flatten_with_path(jparams)[0]
+                if jax_should_quantize(path, leaf, patterns)]
+        _, rep = quantize_tree(params, "kmeans@4", skip_patterns=patterns)
+        chosen[name] = (len(jrep), {n for k in jrep
+                                    for n in _port_name(k, cfg)}, set(rep))
+    n, ref, port = chosen["default"]
+    assert n == n_ref and port == ref
+    _, ref, port = chosen["launcher"]
+    assert ref - port == {f"layers/{i}/mixer/u"
+                          for i, sp in enumerate(cfg.layer_specs())
+                          if sp.mixer == "rwkv6"}
+    assert port <= ref
+    added = chosen["launcher"][2] - chosen["default"][2]
+    want = {f"layers/{i}/mixer/{leaf}"
+            for i, sp in enumerate(cfg.layer_specs())
+            for leaf in _SSM_PTQ_ADDED[arch].get(sp.mixer, ())}
+    assert added == want
+    assert chosen["default"][2] - chosen["launcher"][2] == {"embed",
+                                                            "lm_head"}
+
+
+def test_layers_cuts_inside_a_group():
+    """--layers 5 on jamba (8-layer groups) keeps the first five layer
+    specs, every layer kind of the model; a whole-group cut keeps the
+    pattern; the reduced config serves at 3 of its 4 layers."""
+    full = get_config("jamba_1_5_large_398b")
+    cut = serve.cut_depth(full, 5)
+    assert cut.n_layers == 5 and cut.layer_specs() == full.layer_specs()[:5]
+    assert {(sp.mixer, sp.ffn) for sp in cut.layer_specs()} == {
+        ("mamba", "dense"), ("mamba", "moe"), ("attn", "dense")}
+    assert serve.cut_depth(full, 16).group == full.group
+    assert serve.cut_depth(full, 16).layer_specs() == full.layer_specs()[:16]
+    r = serve.main(_RUN + ["--arch", "jamba_1_5_large_398b", "--engine",
+                           "static", "--layers", "3"])
+    assert r["cfg"].layer_specs() == get_reduced_config(
+        "jamba_1_5_large_398b").layer_specs()[:3]
+    assert len(r["params"]["layers"]) == 3
+    assert bool(torch.isfinite(r["logits"]).all())
+
+
 def _leaf(tree, name):
     for part in name.split("/"):
         tree = tree[int(part)] if isinstance(tree, list) else tree[part]
@@ -437,6 +519,17 @@ _ROWS = [
     ("whisper_tiny", "continuous", [], "refused: whisper"),
     ("qwen2_vl_72b", "static", [], "refused: qwen2vl"),
     ("qwen2_vl_72b", "continuous", [], "refused: qwen2vl"),
+    # the state-space family: the static engine only (the reference's
+    # paged engines assert "paged serving supports attention mixers only")
+    ("rwkv6_3b", "static", [], "serves"),
+    ("rwkv6_3b", "static", ["--quantize", "kmeans_ls@16"], "serves"),
+    ("rwkv6_3b", "continuous", [], "refused: rwkv6"),
+    ("rwkv6_3b", "disagg", [], "refused: rwkv6"),
+    ("jamba_1_5_large_398b", "static", [], "serves"),
+    ("jamba_1_5_large_398b", "static", ["--quantize", "kmeans_ls@16"],
+     "serves"),
+    ("jamba_1_5_large_398b", "continuous", [], "refused: jamba"),
+    ("jamba_1_5_large_398b", "disagg", [], "refused: jamba"),
 ]
 
 
