@@ -49,7 +49,14 @@ width on 2 layers through the model facade, and the reduced configs
 ``static-ssm``: the state-space family on the static engine, rwkv6-3b at
 full width and depth and jamba-1.5-large at full width on its first five
 layers (every layer kind it has), and decode against forward in f32 at
-full width (rwkv6-3b whole, jamba's first layer).
+full width (rwkv6-3b whole, jamba's first layer). Then phase ``train``:
+the training launcher on qwen3-0.6B at full width and depth (6 steps of
+8 x 1024 tokens, checkpoints under build/train_ckpt/, removed after), a
+Trainer's crash recovery against two clean runs (full width, 2 layers),
+Adafactor with bf16 factored state on qwen2-vl-72b at full width on 2
+layers, and the paper's MLP trained on the card against the CPU, its
+last layer PTQ'd with kmeans_ls and recovered by QAT; no kernel
+launches there.
 The kernel phase also holds the attention kernel against its plain
 version over head dims 8-256 and blocks of 1-128 keys, and times it at
 glm4-9b's decode shape.
@@ -62,6 +69,7 @@ tests/test_torch_cuda.py``) in a child process.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ssm-readings   # static-ssm's readings alone
+    python3 chip_smoke.py --mlp-readings   # train (d)'s readings alone
 
 Every phase prints its own line; any failure exits non-zero. The last line
 is ``{"ok": true, "device": {...}}``; the line before it holds the card's
@@ -77,6 +85,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -3250,6 +3259,378 @@ def check_solvers(cfg, gen) -> dict:
                 fista_quant=fista["fista_quant"])
 
 
+# ------------------------------------------------------------ phase train
+
+TRAIN_DIR = os.path.join(HERE, "build", "train_ckpt")
+# (a) qwen3-0.6B at full width and depth through the launcher: seq 1024
+# takes lm_loss through its two 512-token chunks at the full vocabulary
+TRAIN_ARGS = ["--arch", "qwen3_0_6b", "--steps", "6", "--batch", "8",
+              "--seq", "1024", "--ckpt-every", "3"]
+# (b) crash recovery at full width on the first 2 layers
+RECOVER_LAYERS, RECOVER_STEPS, RECOVER_EVERY = 2, 8, 2
+RECOVER_FAIL = {5}
+RECOVER_B, RECOVER_S = 8, 1024
+# (c) Adafactor with bf16 factored state: qwen2-vl-72b at full width
+VL_TRAIN_LAYERS, VL_TRAIN_B, VL_TRAIN_S, VL_TRAIN_STEPS = 2, 1, 512, 3
+# (d) the paper's MLP (benchmarks/common.py:train_paper_mlp, then
+# examples/train_quantized_mlp.py's PTQ + QAT of the last layer)
+MLP_STEPS, MLP_LR, MLP_BATCH = 400, 1e-3, 256
+QAT_STEPS, QAT_LR = 100, 3e-3
+QAT_SPECS = tuple(f"kmeans_ls@{n}:weighted=true" for n in (4, 8, 16))
+# card vs CPU by relative norm, from ``--mlp-readings`` on seeds 0-2
+# (NVIDIA H100 80GB HBM3 at 700 W, PERF.md §6). The first step's grads
+# read 1.92-2.50e-7, and 1.36-2.61e-2 with TF32 left on for the card's
+# matmuls (a copy with one line changed): 5e-5 lies 200x above the one
+# and 270x below the other. The weights after MLP_STEPS steps read
+# 0.81-3.64e-5, and 0.83-1.03e-4 with TF32 on: 400 SGD steps grow f32
+# rounding nearly as far as TF32's, so this bound catches only gross
+# faults and the grads' bound is the sharp one.
+MLP_GRAD_REL_TOL = 5e-5
+MLP_REL_TOL = 1e-4
+
+
+def synthetic_mnist(n_train: int = 4096, n_test: int = 1024,
+                    seed: int = 0) -> tuple:
+    """The paper's §4.1 data stand-in (benchmarks/common.py): 10
+    class-conditioned 784-d blob patterns, noise 0.7."""
+    rng = np.random.default_rng(seed)
+    protos = rng.uniform(0, 1, (10, 784)) * (
+        rng.uniform(0, 1, (10, 784)) > 0.6)
+
+    def make(n, s):
+        r = np.random.default_rng(s)
+        y = r.integers(0, 10, n)
+        x = protos[y] + r.normal(0, 0.7, (n, 784))
+        return np.clip(x, 0, 1).astype(np.float32), y.astype(np.int32)
+
+    return make(n_train, seed + 1), make(n_test, seed + 2)
+
+
+def mlp_sgd(params, x, y, loss_fn, steps: int, update) -> list:
+    """``steps`` of SGD on 256-row batches taken in order (mod n), as
+    the reference's scan: ``update(p, g)`` per leaf."""
+    from repro_torch.tree import leaves, tree_map, unflatten
+
+    ar = torch.arange(MLP_BATCH, device=x.device)
+    for i in range(steps):
+        idx = (ar + i * MLP_BATCH) % x.shape[0]
+        p = tree_map(lambda t: t.detach().requires_grad_(), params)
+        grads = torch.autograd.grad(loss_fn(p, x[idx], y[idx]), leaves(p))
+        params = unflatten(params, [update(t.detach(), g) for t, g in
+                                    zip(leaves(p), grads)])
+    return params
+
+
+def train_paper_mlp(params, x, y, steps: int = MLP_STEPS,
+                    lr: float = MLP_LR) -> list:
+    """benchmarks/common.py:train_paper_mlp's loop (SGD at 3 x lr)."""
+    from repro_torch.models.mlp import mlp_loss
+
+    return mlp_sgd(params, x, y, mlp_loss, steps,
+                   lambda p, g: p - lr * g * 3.0)
+
+
+def qat_recover(params, cb, x, y, steps: int = QAT_STEPS,
+                lr: float = QAT_LR) -> list:
+    """examples/train_quantized_mlp.py's QAT: fine-tune through
+    ``fake_quant`` of the last layer's weights on codebook ``cb``, then
+    snap them to it."""
+    from repro_torch.models.mlp import mlp_loss
+    from repro_torch.quant.qat import fake_quant
+
+    def loss(p, xb, yb):
+        return mlp_loss(p[:-1] + [dict(p[-1], w=fake_quant(p[-1]["w"], cb))],
+                        xb, yb)
+
+    p = mlp_sgd(params, x, y, loss, steps, lambda a, g: a - lr * g)
+    return p[:-1] + [dict(p[-1], w=fake_quant(p[-1]["w"], cb))]
+
+
+def mlp_run(dev, seed: int = 0) -> dict:
+    """The MLP from seed ``seed``'s CPU-drawn init, trained on ``dev``:
+    the trained params and their train/test accuracies."""
+    from repro_torch.models.mlp import init_mlp, mlp_accuracy
+    from repro_torch.tree import tree_map
+
+    (xtr, ytr), (xte, yte) = synthetic_mnist(seed=seed)
+    data = [torch.from_numpy(a).to(dev) for a in (xtr, ytr, xte, yte)]
+    p0 = init_mlp(torch.Generator().manual_seed(seed))
+    params = train_paper_mlp(tree_map(lambda t: t.to(dev), p0), *data[:2])
+    return dict(params=params, data=data,
+                acc_tr=float(mlp_accuracy(params, *data[:2])),
+                acc_te=float(mlp_accuracy(params, *data[2:])))
+
+
+def mlp_rel(a: list, b: list) -> float:
+    """Relative norm of the difference of two MLPs' weights (all
+    leaves), b the base."""
+    from repro_torch.tree import leaves
+
+    fa = torch.cat([t.detach().double().cpu().ravel() for t in leaves(a)])
+    fb = torch.cat([t.detach().double().cpu().ravel() for t in leaves(b)])
+    return float((fa - fb).norm() / fb.norm())
+
+
+def mlp_first_grads(dev, seed: int = 0) -> list:
+    """The grads of ``train_paper_mlp``'s first step (seed ``seed``'s
+    CPU-drawn init, the first 256 rows) computed on ``dev``."""
+    from repro_torch.models.mlp import init_mlp, mlp_loss
+    from repro_torch.tree import leaves, tree_map, unflatten
+
+    (xtr, ytr), _ = synthetic_mnist(seed=seed)
+    x, y = (torch.from_numpy(a[:MLP_BATCH]).to(dev) for a in (xtr, ytr))
+    p = tree_map(lambda t: t.to(dev).requires_grad_(),
+                 init_mlp(torch.Generator().manual_seed(seed)))
+    return unflatten(p, torch.autograd.grad(mlp_loss(p, x, y), leaves(p)))
+
+
+def mlp_readings(seeds=(0, 1, 2)) -> int:
+    """``--mlp-readings``: phase train (d)'s card-vs-CPU readings of the
+    trained MLP for several seeds, printed without a bound (run it from a
+    copy with one line changed to read a planted fault)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(card_line())
+    for seed in seeds:
+        card, cpu = mlp_run("cuda", seed), mlp_run("cpu", seed)
+        g = mlp_rel(mlp_first_grads("cuda", seed), mlp_first_grads("cpu",
+                                                                   seed))
+        print(f"seed {seed} MLP card vs CPU: first-step grads rel {g:.4e}; "
+              f"weights after {MLP_STEPS} steps rel "
+              f"{mlp_rel(card['params'], cpu['params']):.4e}; test acc card "
+              f"{card['acc_te']:.4f} CPU {cpu['acc_te']:.4f}", flush=True)
+    return 0
+
+
+def state_diff(a, b) -> tuple[float, bool]:
+    """(max |a - b| over every leaf, bitwise equal) of two train states."""
+    from repro_torch.tree import items
+
+    dmax, same = 0.0, True
+    for (k, x), (k2, y) in zip(items(a), items(b)):
+        assert k == k2, (k, k2)
+        same = same and torch.equal(x, y)
+        if x.is_floating_point():
+            dmax = max(dmax, float((x.float() - y.float()).abs().max()))
+        else:
+            dmax = max(dmax, float((x - y).abs().max()))
+    return dmax, same
+
+
+def recover_trainer(cfg, params0, d, fail_at=None):
+    """(b)'s Trainer: the launcher's loop (async checkpoints) on ``cfg``
+    from ``params0``, the synthetic stream of seed 0."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.runtime.ftolerance import Trainer
+    from repro_torch.train.step import make_train_step
+
+    step_fn, opt = make_train_step(cfg)
+    pipe = SyntheticLM(cfg, RECOVER_B, RECOVER_S)
+    specs = pipe.batch_specs()
+    return Trainer(step_fn=step_fn, init_state_fn=lambda: {
+        "params": params0, "opt": opt.init(params0),
+        "step": torch.zeros((), dtype=torch.int32, device="cuda")},
+        next_batch_fn=lambda s: pipe.next_batch(s, specs, "cuda"),
+        ckpt_dir=d, ckpt_every=RECOVER_EVERY, fail_at=fail_at,
+        async_ckpt=True)
+
+
+def check_train_launcher(name: str) -> dict:
+    """(a): ``repro_torch.launch.train`` in-process, qwen3-0.6B at full
+    width and depth, bf16 weights, f32 AdamW state."""
+    from repro_torch.launch import train
+
+    d = os.path.join(TRAIN_DIR, "qwen3")
+    shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = train.parse_args(TRAIN_ARGS + ["--ckpt-dir", d])
+    r = train.run(args)
+    peak = gib(torch.cuda.max_memory_allocated())
+    tr = r["trainer"]
+    for row in tr.metrics_log:
+        ok = all(math.isfinite(row[k]) for k in ("loss", "grad_norm"))
+        phase(name, f"(a) step {row['step']}: loss {row['loss']:.4f} (ce "
+              f"{row['ce']:.4f}), grad norm {row['grad_norm']:.4f}"
+              f"{'' if ok else ' NOT FINITE'}")
+        if not ok:
+            raise AssertionError(f"train (a): step {row}")
+    times = sorted(tr.step_times)
+    med = times[len(times) // 2]
+    tokens = args.batch * args.seq
+    phase(name, f"(a) {r['cfg'].name}: {r['n_params'] / 1e6:.1f} M params, "
+          f"{len(tr.step_times)} steps of {tokens} tokens: step "
+          f"{', '.join(f'{t:.3f}' for t in tr.step_times)} s (median "
+          f"{med:.3f} s, {tokens / med:.0f} tokens/s); peak {peak:.2f} GiB")
+    for c in tr.ckpt_log:
+        phase(name, f"(a) checkpoint step {c['step']}: {c['bytes']:,} B, "
+              f"to host {c['host_s']:.2f} s, write {c['write_s']:.2f} s "
+              f"({c['bytes'] / c['write_s'] / 1e9:.2f} GB/s)")
+    shutil.rmtree(d, ignore_errors=True)
+    return dict(median_s=med, peak_gib=peak, ckpt=tr.ckpt_log,
+                loss=[row["loss"] for row in tr.metrics_log])
+
+
+def check_train_recovery(name: str) -> dict:
+    """(b): a Trainer failing at RECOVER_FAIL against two clean runs, at
+    full width on RECOVER_LAYERS layers; the recovered state is held to
+    the clean one bitwise, or, if two clean runs differ (an atomic sum),
+    within their spread."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    cfg = serve.cut_depth(get_config("qwen3_0_6b"), RECOVER_LAYERS)
+    params0 = models.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(1), "cuda")
+    runs = {}
+    for tag, fail in (("clean", None), ("clean2", None),
+                      ("recovered", set(RECOVER_FAIL))):
+        d = os.path.join(TRAIN_DIR, tag)
+        shutil.rmtree(d, ignore_errors=True)
+        tr = recover_trainer(cfg, params0, d, fail)
+        runs[tag] = (tr.run(RECOVER_STEPS), tr)
+        shutil.rmtree(d, ignore_errors=True)
+    spread, same2 = state_diff(runs["clean2"][0], runs["clean"][0])
+    dmax, same = state_diff(runs["recovered"][0], runs["clean"][0])
+    tr = runs["recovered"][1]
+    ok = tr.restarts == len(RECOVER_FAIL) and (same or (
+        not same2 and dmax <= spread))
+    phase(name, f"(b) {cfg.name} at full width, {RECOVER_LAYERS} of "
+          f"{get_config('qwen3_0_6b').n_layers} layers, {RECOVER_STEPS} steps, checkpoints every "
+          f"{RECOVER_EVERY}, failure at {sorted(RECOVER_FAIL)}: "
+          f"{tr.restarts} restart(s), steps run "
+          f"{[r['step'] for r in tr.metrics_log]}; final params + AdamW "
+          f"state vs the clean run: max|diff| {dmax:.3g}, bitwise {same}; "
+          f"clean vs clean: max|diff| {spread:.3g}, bitwise {same2} -> "
+          f"{'OK' if ok else 'MISMATCH'}; {time.perf_counter() - t0:.1f} s")
+    if not ok:
+        raise AssertionError(f"train (b): recovered {dmax} vs spread "
+                             f"{spread}")
+    return dict(dmax=dmax, bitwise=same, spread=spread)
+
+
+def check_train_adafactor(name: str) -> dict:
+    """(c): qwen2-vl-72b at full width on VL_TRAIN_LAYERS layers, embeds
+    and M-RoPE positions from SyntheticLM, bf16 factored Adafactor
+    state."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import serve
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import leaves
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = serve.cut_depth(get_config("qwen2_vl_72b"), VL_TRAIN_LAYERS)
+    params = models.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    n = sum(t.numel() for t in leaves(params))
+    step_fn, opt = make_train_step(cfg)
+    state = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    del params
+    pipe = SyntheticLM(cfg, VL_TRAIN_B, VL_TRAIN_S)
+    specs = pipe.batch_specs()
+    losses, times = [], []
+    for s in range(VL_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = step_fn(state, pipe.next_batch(s, specs, "cuda"))
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    peak = gib(torch.cuda.max_memory_allocated())
+    free = gib(torch.cuda.mem_get_info()[1]) - peak
+    st = sorted({str(t.dtype).split(".")[-1] for t in leaves(state["opt"])})
+    ok = opt.kind == "adafactor" and all(math.isfinite(x) for x in losses)
+    phase(name, f"(c) {cfg.name} at full width, {cfg.n_layers} of 80 "
+          f"layers ({n / 1e9:.3f} B params), {opt.kind} state {st}, inputs "
+          f"{sorted(specs)}, B={VL_TRAIN_B} S={VL_TRAIN_S}: loss "
+          f"{', '.join(f'{x:.4f}' for x in losses)}"
+          f"{'' if ok else ' NOT FINITE'}; step "
+          f"{', '.join(f'{t:.2f}' for t in times)} s; peak {peak:.2f} GiB, "
+          f"{free:.2f} GiB of the card left")
+    if not ok:
+        raise AssertionError(f"train (c): {opt.kind}, losses {losses}")
+    del state
+    torch.cuda.empty_cache()
+    return dict(losses=losses, peak_gib=peak, free_gib=free)
+
+
+def check_train_mlp(name: str) -> dict:
+    """(d): the paper's §4.1 on the card: the MLP trained MLP_STEPS steps
+    (held against the same run on the CPU), the last layer PTQ'd with
+    kmeans_ls at 4, 8 and 16 values through ``core.quantize`` and
+    recovered with QAT_STEPS steps of QAT."""
+    from repro_torch.core import quantize
+    from repro_torch.models.mlp import mlp_accuracy
+
+    t0 = time.perf_counter()
+    card, cpu = mlp_run("cuda"), mlp_run("cpu")
+    rel = mlp_rel(card["params"], cpu["params"])
+    grel = mlp_rel(mlp_first_grads("cuda"), mlp_first_grads("cpu"))
+    ok = rel <= MLP_REL_TOL and grel <= MLP_GRAD_REL_TOL
+    phase(name, f"(d) MLP 784-256-128-64-10, {MLP_STEPS} SGD steps on the "
+          f"card: train acc {card['acc_tr']:.4f}, test acc "
+          f"{card['acc_te']:.4f} (CPU {cpu['acc_te']:.4f}); card vs CPU: "
+          f"first-step grads rel {grel:.3e} (limit {MLP_GRAD_REL_TOL:g}), "
+          f"trained weights rel {rel:.3e} (limit {MLP_REL_TOL:g}) -> "
+          f"{'OK' if ok else 'EXCEEDED'}")
+    if not ok:
+        raise AssertionError(f"train (d): card vs CPU grads {grel:.3e}, "
+                             f"weights {rel:.3e}")
+    params, (xtr, ytr, xte, yte) = card["params"], card["data"]
+    out = {}
+    for spec in QAT_SPECS:
+        qt, info = quantize(params[-1]["w"].detach(), spec)
+        ptq = params[:-1] + [dict(params[-1], w=qt.to_dense())]
+        acc_q = float(mlp_accuracy(ptq, xte, yte))
+        qat = qat_recover(params, qt.codebook, xtr, ytr)
+        acc_qat = float(mlp_accuracy(qat, xte, yte))
+        out[spec] = (acc_q, acc_qat)
+        phase(name, f"(d) {spec}: PTQ test acc {acc_q:.4f} -> "
+              f"QAT-recovered {acc_qat:.4f} (n_values {info['n_values']}, "
+              f"l2 {info['l2_loss']:.4f})")
+    phase(name, f"(d) {time.perf_counter() - t0:.1f} s")
+    return dict(rel=rel, acc_te=card["acc_te"], qat=out)
+
+
+def check_train() -> dict:
+    """Phase ``train``: (a) the launcher on qwen3-0.6B at full width and
+    depth, (b) crash recovery, (c) Adafactor on qwen2-vl-72b at full
+    width, (d) the paper's MLP with PTQ and QAT. Training reaches no
+    kernel: every kernel's count stays 0 over the phase. The earlier
+    phases' weights are freed first; the checkpoints go under
+    build/train_ckpt/ and are removed."""
+    import gc
+
+    name = "train"
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase(name, f"held on the card before the phase: "
+          f"{gib(torch.cuda.memory_allocated()):.2f} GiB")
+
+    def run():
+        return dict(a=check_train_launcher(name),
+                    b=check_train_recovery(name),
+                    c=check_train_adafactor(name), d=check_train_mlp(name))
+
+    out, launches = counting_launches(run)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    if any(launches.values()):
+        raise AssertionError(f"train: kernel launches {launches}")
+    phase(name, f"kernel launches over the phase: {launches} (none "
+          f"expected: training reaches no kernel); "
+          f"{time.perf_counter() - t0:.1f} s")
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -3312,6 +3693,7 @@ def main() -> int:
     phase("serve-granite", f"{time.perf_counter() - t0:.1f} s")
     check_static_families()
     ssm = check_static_ssm()["launches"]
+    trl = check_train()["launches"]
     record = {"kernels": [
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -3334,6 +3716,7 @@ def main() -> int:
          "serve_granite_kv_launches": gr["kv_launches"][
              "paged_decode_attention"],
          "static_ssm_launches": ssm["paged_decode_attention"],
+         "train_launches": trl["paged_decode_attention"],
          **k},
         {"name": "quant_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
@@ -3346,17 +3729,20 @@ def main() -> int:
          "overload_launches": ov["launches"]["quant_matmul"],
          "serve_glm4_launches": g4["launches"]["quant_matmul"],
          "static_ssm_launches": ssm["quant_matmul"],
+         "train_launches": trl["quant_matmul"],
          "solvers_launches": so["quant_matmul"], **q},
         {"name": "quant_matmul_stacked", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul.py:105",
-         "static_ssm_launches": ssm["quant_matmul_stacked"], **st},
+         "static_ssm_launches": ssm["quant_matmul_stacked"],
+         "train_launches": trl["quant_matmul_stacked"], **st},
         {"name": "fista_quant", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fista_quant.cu",
          "replaces": "src/repro/kernels/fista_quant.py:79",
          "launches": pb.pop("ptq_launches"),
          "solvers_launches": so["fista_quant"],
-         "static_ssm_launches": ssm["fista_quant"], **f["quant"], **pb},
+         "static_ssm_launches": ssm["fista_quant"],
+         "train_launches": trl["fista_quant"], **f["quant"], **pb},
         {"name": "fista_freeze", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fista_quant.cu",
          "replaces": "src/repro/kernels/fista_quant.py:79",
@@ -3366,7 +3752,8 @@ def main() -> int:
          "serve_disagg_frozen_launches": dzf["iter_launches"][
              "fista_freeze"],
          "serve_iter_l1_tpot_p50_ms": it["tpot_p50_ms"],
-         "static_ssm_launches": ssm["fista_freeze"], **f["freeze"]},
+         "static_ssm_launches": ssm["fista_freeze"],
+         "train_launches": trl["fista_freeze"], **f["freeze"]},
     ]}
     phase("done", f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
@@ -3378,5 +3765,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(ssm_readings() if sys.argv[1:] == ["--ssm-readings"]
-             else main())
+    sys.exit({"--ssm-readings": ssm_readings,
+              "--mlp-readings": mlp_readings}.get(
+                  " ".join(sys.argv[1:]), main)())

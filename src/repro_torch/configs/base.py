@@ -1,9 +1,10 @@
 """Model configuration (port of ``repro/configs/base.py``).
 
 A copy rather than an import: the reference module imports ``jax.numpy``
-for dtypes. ``ModelConfig.dtype`` returns torch dtypes here. The fields
-of paths the port does not run yet (the optimizer and remat settings,
-``quant_skip``) are left out, and so are the configs' settings of them.
+for dtypes. ``ModelConfig.dtype`` returns torch dtypes here. The
+training fields (``optimizer``, ``opt_state_dtype``, ``remat``) carry the
+reference's defaults and the configs' settings of them; ``quant_skip``,
+which no module of either package reads, is left out.
 """
 from __future__ import annotations
 
@@ -79,6 +80,9 @@ class ModelConfig:
     act: str = "silu"             # "silu" (swiglu) | "gelu" (geglu)
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
+    optimizer: str = "adamw"      # "adamw" | "adafactor"
+    opt_state_dtype: str = "float32"
+    remat: str = "full"           # "none" | "full" | "dots"
     # sub-quadratic in context (O(1) decode state): the SSM archs
     subquadratic: bool = False
     notes: str = ""

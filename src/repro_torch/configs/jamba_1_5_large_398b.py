@@ -23,6 +23,7 @@ def config() -> ModelConfig:
         n_experts=16, top_k=2, expert_ff=24576,
         ssm_d_state=16, ssm_d_conv=4, ssm_expand=2,
         scan_chunk=128, subquadratic=True,
+        optimizer="adafactor", opt_state_dtype="bfloat16",
     )
 
 

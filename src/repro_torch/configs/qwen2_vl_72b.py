@@ -12,7 +12,8 @@ def config() -> ModelConfig:
         n_layers=80, d_model=8192, n_heads=64, n_kv_heads=8, head_dim=128,
         d_ff=29568, vocab=152064, group=(LayerSpec(),),
         mrope_sections=(16, 24, 24), rope_theta=1_000_000.0,
-        input_kind="embeds", kv_cache_dtype="int8",
+        input_kind="embeds", optimizer="adafactor", opt_state_dtype="bfloat16",
+        kv_cache_dtype="int8",
     )
 
 

@@ -6,7 +6,8 @@ import torch
 
 from . import encdec as _ed
 from . import transformer as _tf
-from .convert import params_from_reference
+from .convert import (mlp_params_from_reference, opt_state_from_reference,
+                      params_from_reference)
 
 
 def init_params(cfg, gen: torch.Generator, device) -> dict:
@@ -15,11 +16,15 @@ def init_params(cfg, gen: torch.Generator, device) -> dict:
     return _tf.init_lm(cfg, gen, device)
 
 
-def forward(params, cfg, batch, *, return_hidden=False):
+def forward(params, cfg, batch, *, train=True, return_hidden=False):
+    """Logits (or the pre-head hidden). ``train`` (the reference's
+    default) remats the layer groups per ``cfg.remat``, only while
+    autograd records."""
     if cfg.family == "encdec":
-        return _ed.encdec_forward(params, cfg, batch,
+        return _ed.encdec_forward(params, cfg, batch, train=train,
                                   return_hidden=return_hidden)
-    return _tf.lm_forward(params, cfg, batch, return_hidden=return_hidden)
+    return _tf.lm_forward(params, cfg, batch, train=train,
+                          return_hidden=return_hidden)
 
 
 def lm_head(params, cfg, hidden):
@@ -57,4 +62,5 @@ def decode_window(params, cfg, tokens, cache, cache_index):
 
 
 __all__ = ["init_params", "forward", "lm_head", "init_cache", "prefill",
-           "decode_step", "decode_window", "params_from_reference"]
+           "decode_step", "decode_window", "params_from_reference",
+           "opt_state_from_reference", "mlp_params_from_reference"]

@@ -17,6 +17,12 @@ heterogeneous 8-layer group unstacks like any other: layer i of group g
 is list entry ``8 g + i``. The paged-cache converter lives beside the cache
 (``serving.kv_cache.paged_layer_from_reference``).
 
+``opt_state_from_reference`` takes an optimizer state (AdamW's ``m``,
+``v``, ``count``; Adafactor's ``v`` of ``vr``/``vc`` or ``v``, ``m``,
+``count``) as it is: the port keeps that state in the reference's stacked
+layout (``optim``). ``mlp_params_from_reference`` takes the paper's MLP
+(a list of {"w", "b"}).
+
 A PTQ'd reference tree carries QuantizedTensor leaves (numpy codebook and
 indices under ``jax.tree.map``). They cross as the port's QuantizedTensor,
 codes unchanged; a stacked leaf (codebook (G, L), indices (G, n)) becomes
@@ -79,3 +85,13 @@ def params_from_reference(tree: dict, cfg, device) -> dict:
         out["enc_layers"] = _unstack(tree["enc_groups"], cfg.n_enc_layers,
                                      1, device)
     return out
+
+
+def opt_state_from_reference(tree: dict, device) -> dict:
+    """Reference optimizer state (numpy leaves) -> the port's, leaf for
+    leaf in the reference's stacked layout."""
+    return _tree(tree, device)
+
+
+def mlp_params_from_reference(layers, device) -> list:
+    return [_tree(layer, device) for layer in layers]

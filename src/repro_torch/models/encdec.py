@@ -47,11 +47,13 @@ def encode(params, cfg, enc_embeds: torch.Tensor) -> torch.Tensor:
     return rms_norm(x, params["enc_norm"])
 
 
-def encdec_forward(params, cfg, batch, *, return_hidden=False):
-    """batch: enc_embeds (B, Se, D), tokens (B, Sd) -> logits (B, Sd, V)."""
+def encdec_forward(params, cfg, batch, *, train=True, return_hidden=False):
+    """batch: enc_embeds (B, Se, D), tokens (B, Sd) -> logits (B, Sd, V).
+    ``train`` remats the decoder's groups (not the encoder's), as the
+    reference."""
     enc_out = encode(params, cfg, batch["enc_embeds"])
     x = _embed_in(params, cfg, {"tokens": batch["tokens"]})
-    x, _ = _scan_groups(params, cfg, x, _default_positions(x),
+    x, _ = _scan_groups(params, cfg, x, _default_positions(x), train=train,
                         cross={"enc_out": enc_out})
     return x if return_hidden else _lm_head(params, cfg, x)
 

@@ -14,9 +14,14 @@ is {"h", "conv"}, an rwkv6 layer's {"shift_t", "shift_c", "s"}.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
+
+from repro_torch.tree import leaves
 
 from . import attention as attn_lib
 from . import ssm as ssm_lib
@@ -172,24 +177,68 @@ def _lm_head(params, cfg, x) -> torch.Tensor:
     return logits
 
 
+def _records(x, layers) -> bool:
+    """True while autograd records this forward: grad mode on and a
+    layer's input or one of its weights requires grad."""
+    return torch.is_grad_enabled() and (x.requires_grad or any(
+        t.requires_grad for p in layers for t in leaves(p)
+        if isinstance(t, torch.Tensor)))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """The reference's ``dots_with_no_batch_dims_saveable``: keep the
+    outputs of plain matmuls (the projections), recompute the rest (the
+    batched attention products among them)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, h, remat: str):
+    """``fn(h)`` under activation checkpointing: ``"full"`` saves only
+    ``h``, ``"dots"`` the matmul outputs too."""
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return checkpoint(fn, h, use_reentrant=False, **kw)
+
+
 def _scan_groups(params, cfg, x, positions, *, cache=None, cache_index=None,
-                 causal=True, cross=None, layers_key="layers"):
+                 train=False, causal=True, cross=None, layers_key="layers"):
     """Every layer of ``params[layers_key]`` in order (the reference's head
     layers + scanned groups). ``cross`` feeds the cross-attention layers:
     {"enc_out": (B, Se, D)} (projected in each layer) or a list of one
-    precomputed {"k", "v"} per layer. Returns (x, new_cache)."""
-    new_cache = [] if cache is not None else None
-    for i, spec in enumerate(cfg.layer_specs()):
-        c = None if cache is None else cache[i]
-        ckv = None
-        if spec.cross_attn and cross is not None:
-            ckv = cross if isinstance(cross, dict) else cross[i]
-        x, nc = apply_layer(params[layers_key][i], cfg, spec, x, positions,
-                            cache=c, cache_index=cache_index, causal=causal,
-                            cross_kv=ckv)
-        if cache is not None:
-            new_cache.append(nc)
-    return x, new_cache
+    precomputed {"k", "v"} per layer. Returns (x, new_cache).
+
+    ``train`` with ``cfg.remat`` "full" or "dots" runs each scan group's
+    layers (not the head layers) under one activation checkpoint, as the
+    reference checkpoints its scan body; it acts only while autograd
+    records, so inference and its outputs are unchanged."""
+    specs, layers = cfg.layer_specs(), params[layers_key]
+
+    def run(h, lo, hi, c=None):
+        ncs = []
+        for i in range(lo, hi):
+            ckv = None
+            if specs[i].cross_attn and cross is not None:
+                ckv = cross if isinstance(cross, dict) else cross[i]
+            h, nc = apply_layer(layers[i], cfg, specs[i], h, positions,
+                                cache=None if c is None else c[i],
+                                cache_index=cache_index, causal=causal,
+                                cross_kv=ckv)
+            ncs.append(nc)
+        return h, ncs
+
+    if not (train and cfg.remat in ("full", "dots") and cache is None
+            and _records(x, layers)):
+        x, new_cache = run(x, 0, len(specs), cache)
+        return x, (new_cache if cache is not None else None)
+    n_head, glen = len(cfg.head_layers), len(cfg.group)
+    x, _ = run(x, 0, n_head)
+    for lo in range(n_head, len(specs), glen):
+        x = _remat(lambda h, lo=lo: run(h, lo, lo + glen)[0], x, cfg.remat)
+    return x, None
 
 
 def _default_positions(x: torch.Tensor) -> torch.Tensor:
@@ -198,13 +247,16 @@ def _default_positions(x: torch.Tensor) -> torch.Tensor:
                         device=x.device)[None].expand(B, S)
 
 
-def lm_forward(params, cfg, batch, *, return_hidden=False):
-    """Full-sequence forward -> logits (B, S, V) f32."""
+def lm_forward(params, cfg, batch, *, train=True, return_hidden=False):
+    """Full-sequence forward -> logits (B, S, V) f32 (or the pre-head
+    hidden with ``return_hidden``: the chunked loss applies the head per
+    sequence chunk). ``train``: remat per ``cfg.remat`` while autograd
+    records (``_scan_groups``)."""
     x = _embed_in(params, cfg, batch)
     positions = batch.get("positions")
     if positions is None:
         positions = _default_positions(x)
-    x, _ = _scan_groups(params, cfg, x, positions)
+    x, _ = _scan_groups(params, cfg, x, positions, train=train)
     return x if return_hidden else _lm_head(params, cfg, x)
 
 

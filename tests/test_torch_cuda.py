@@ -1599,3 +1599,37 @@ def test_tracing_adds_no_host_sync_on_the_card(gen):
     assert count_events(tr.events, name="roofline", ph="C") > 0
     assert eng.metrics.stats.gauge("hbm_bytes_per_token").n > 0
     assert len(exp.lines) > 2
+
+
+def test_bf16_train_step_on_the_card(gen):
+    """One train step of the reduced qwen3 in bf16 (params, activations
+    and grads; f32 AdamW state) on the card: finite loss and grad norm,
+    every param moved, bf16 params and f32 moments kept, and no kernel
+    launched (training reaches none)."""
+    from repro_torch import models
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.fista_quant import fista_freeze
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import items
+
+    cfg = dataclasses.replace(get_reduced_config("qwen3_0_6b"),
+                              param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    params = models.init_params(cfg, gen, "cuda")
+    step, opt = make_train_step(cfg, lr=1e-2)
+    state = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    pipe = SyntheticLM(cfg, 2, 1024)
+    kernels = (paged_decode_attention, quant_matmul, quant_matmul_stacked,
+               fista_quant, fista_freeze)
+    for k in kernels:
+        k.launches = 0
+    new, m = step(state, pipe.next_batch(0, pipe.batch_specs(), "cuda"))
+    assert all(torch.isfinite(m[k]) for k in ("loss", "grad_norm"))
+    assert int(new["step"]) == 1
+    for (k, a), (_, b) in zip(items(new["params"]), items(params)):
+        assert a.dtype == torch.bfloat16 and not torch.equal(a, b), k
+    assert {str(t.dtype) for _, t in items(new["opt"]["m"])} == {
+        "torch.float32"}
+    assert [k.launches for k in kernels] == [0] * len(kernels)
