@@ -1,6 +1,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): builds the CUDA
 kernels from this checkout (paged attention, the codebook-dequant matmul
-and batched FISTA, one nvcc each, in parallel), holds each against its
+and batched FISTA, one nvcc each, in parallel, beside the phases that
+launch no kernel: ``train``, ``static-ssm``, ``static-families`` and
+``dist``, which run first), holds each against its
 plain PyTorch version, times it, checks the page-freeze solver on the card
 against the CPU, then serves qwen3-0.6B (full width and depth, bf16,
 seeded random weights) through continuous batching with chunked prefill:
@@ -45,18 +47,23 @@ attention kernel, on fp and on kmeans_ls@16 pages (phase
 (MLA + MoE) at full width and depth and whisper-tiny (encoder-decoder)
 on the static engine, qwen2-vl-72b (M-RoPE, the int8 ring cache) at full
 width on 2 layers through the model facade, and the reduced configs
-(those three, rwkv6 and jamba) on the card against the CPU. Last, phase
+(those three, rwkv6 and jamba) on the card against the CPU. Phase
 ``static-ssm``: the state-space family on the static engine, rwkv6-3b at
 full width and depth and jamba-1.5-large at full width on its first five
 layers (every layer kind it has), and decode against forward in f32 at
-full width (rwkv6-3b whole, jamba's first layer). Then phase ``train``:
+full width (rwkv6-3b whole, jamba's first layer). Phase ``train``:
 the training launcher on qwen3-0.6B at full width and depth (6 steps of
 8 x 1024 tokens, checkpoints under build/train_ckpt/, removed after), a
 Trainer's crash recovery against two clean runs (full width, 2 layers),
 Adafactor with bf16 factored state on qwen2-vl-72b at full width on 2
 layers, and the paper's MLP trained on the card against the CPU, its
 last layer PTQ'd with kmeans_ls and recovered by QAT; no kernel
-launches there.
+launches there. Phase ``dist``: 4 ranks sharing the card (one spawn; a
+1 x 1 DeviceMesh on a one-rank NCCL group bitwise the one-device step,
+the (2, 1) and (1, 2) meshes against one rank, the launcher at full
+width and depth on 2 x 1 with its checkpoint restored at 1 x 1, the int8
+cross-pod exchange of full grads against the CPU's, GPipe over 4 stages
+against the sequential forward); no kernel launches there either.
 The kernel phase also holds the attention kernel against its plain
 version over head dims 8-256 and blocks of 1-128 keys, and times it at
 glm4-9b's decode shape.
@@ -70,6 +77,7 @@ tests/test_torch_cuda.py``) in a child process.
     python3 chip_smoke.py
     python3 chip_smoke.py --ssm-readings   # static-ssm's readings alone
     python3 chip_smoke.py --mlp-readings   # train (d)'s readings alone
+    python3 chip_smoke.py --dist           # phase dist alone
 
 Every phase prints its own line; any failure exits non-zero. The last line
 is ``{"ok": true, "device": {...}}``; the line before it holds the card's
@@ -3631,6 +3639,545 @@ def check_train() -> dict:
     return out
 
 
+# ------------------------------------------------------------- phase dist
+
+DIST_DIR = os.path.join(HERE, "build", "dist")
+# (a), (b): qwen3-0.6B at full width on its first 2 layers, f32, 3 steps
+DIST_LAYERS, DIST_STEPS, DIST_B, DIST_S, DIST_LR = 2, 3, 4, 256, 3e-4
+# (b) the launcher at full width and depth, bf16, on a 2 x 1 mesh: one
+# checkpoint, at the end, from the sharded state
+DIST_TRAIN_ARGS = ["--arch", "qwen3_0_6b", "--steps", "4", "--batch", "8",
+                   "--seq", "1024", "--ckpt-every", "1000", "--data-par",
+                   "2", "--device", "cuda"]
+# (c) each pod's grads: full width and depth, bf16, its half of 8 x 512
+GC_B, GC_S = 8, 512
+# (d) 4 stages of 7 full-width layers (all 28), f32, 8 microbatches
+PIPE_STAGES, PIPE_MICRO, PIPE_MB, PIPE_S = 4, 8, 1, 256
+# tolerances of tests/test_torch_train.py (a sharded step changes only the
+# order of the sums that cross shards) and the reference's own bound for
+# the int8 exchange against the exact mean (tests/test_fault_tolerance.py)
+DIST_LOSS_RTOL, DIST_PARAM_RTOL, DIST_LEAF_RTOL = 1e-5, 1e-5, 1e-3
+GC_EXCHANGE_RTOL, GC_EXACT_BOUND, PIPE_ATOL = 1e-6, 0.02, 1e-6
+
+
+def dist_cfg():
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    return dataclasses.replace(
+        serve.cut_depth(get_config("qwen3_0_6b"), DIST_LAYERS),
+        param_dtype="float32", compute_dtype="float32")
+
+
+def dist_batches(cfg, dev):
+    from repro_torch.data import SyntheticLM
+
+    pipe = SyntheticLM(cfg, DIST_B, DIST_S)
+    specs = {"tokens": ((DIST_B, DIST_S), torch.int32),
+             "labels": ((DIST_B, DIST_S), torch.int32)}
+    return [pipe.next_batch(s, specs, dev) for s in range(DIST_STEPS)]
+
+
+def dist_run(cfg, mesh, dev, whole: bool = True) -> tuple:
+    """DIST_STEPS train steps from seed 0 on ``mesh`` (None: one device).
+    Returns (losses, the final state as full tensors: the whole state, or
+    only its params)."""
+    from repro_torch import models
+    from repro_torch.runtime.sharding import distribute
+    from repro_torch.train.step import (distribute_batch, make_train_step,
+                                        train_state_specs)
+    from repro_torch.tree import tree_map
+
+    step, opt = make_train_step(cfg, mesh, lr=DIST_LR)
+    params = models.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    state = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    if mesh is not None:
+        state = distribute(state, mesh,
+                           train_state_specs(cfg, mesh, opt)[1])
+    losses = []
+    for b in dist_batches(cfg, dev):
+        if mesh is not None:
+            b = distribute_batch(b, mesh)
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+    full = tree_map(lambda t: t.full_tensor() if hasattr(t, "full_tensor")
+                    else t, state if whole else {"params": state["params"]})
+    return losses, full
+
+
+def tree_rel(a, b) -> tuple[float, float]:
+    """(worst leaf, whole tree) relative norm of ``a - b`` over the
+    floating leaves of two trees."""
+    from repro_torch.tree import items
+
+    worst, num, den = 0.0, 0.0, 0.0
+    for (k, x), (_, y) in zip(items(a), items(b)):
+        if not x.is_floating_point():
+            continue
+        d = float((x.double() - y.double()).norm())
+        n = float(y.double().norm())
+        worst = max(worst, d / max(n, 1e-30))
+        num, den = num + d * d, den + n * n
+    return worst, math.sqrt(num) / max(math.sqrt(den), 1e-30)
+
+
+def dist_part_a() -> tuple:
+    """(a), in a one-rank NCCL group: the sharded step on a 1 x 1
+    DeviceMesh against ``mesh=None``, bitwise. Returns its record and the
+    one-device run (losses, params), the one rank (b)'s meshes are held
+    to."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cfg = dist_cfg()
+    t0 = time.perf_counter()
+    plain, s0 = dist_run(cfg, None, "cuda")
+    meshed, s1 = dist_run(cfg, make_host_mesh(1, 1), "cuda")
+    dmax, same = state_diff(s1, s0)
+    return (dict(plain=plain, meshed=meshed, dmax=dmax, same=same,
+                 s=time.perf_counter() - t0), (plain, s0["params"]))
+
+
+def _launches_zeroed():
+    from repro_torch.kernels import (fista_freeze, fista_quant,
+                                     paged_decode_attention, quant_matmul,
+                                     quant_matmul_stacked)
+
+    ks = (paged_decode_attention, quant_matmul, quant_matmul_stacked,
+          fista_quant, fista_freeze)
+    for k in ks:
+        k.launches = 0
+    return ks
+
+
+def dist_part_meshes(ref) -> dict:
+    """(b)'s meshes in a group of two ranks sharing the card (gloo, CUDA
+    tensors staged through the host): (2, 1) and (1, 2), each held on the
+    group's rank 0 to ``ref``, the one-device run (losses, params)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    rank, out = dist.get_rank(), {}
+    cfg = dist_cfg()
+    t0 = time.perf_counter()
+    for shape in ((2, 1), (1, 2)):
+        mesh = make_host_mesh(*shape)
+        losses, st = dist_run(cfg, mesh, "cuda", whole=False)
+        if rank == 0:
+            worst, whole = tree_rel(st["params"], ref[1])
+            out[shape] = dict(losses=losses, ref=ref[0], worst=worst,
+                              whole=whole)
+        del st
+    torch.cuda.empty_cache()
+    out["meshes_s"] = time.perf_counter() - t0
+    return out
+
+
+def dist_part_launcher() -> dict:
+    """(b)'s launcher in a group of two ranks sharing the card: full width
+    and depth on 2 x 1, bf16, and its checkpoint restored at 1 x 1. Rank 0
+    returns the checkpoint's record too."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import host_bytes
+    from repro_torch.tree import items, tree_map
+
+    rank, out = dist.get_rank(), {}
+    # the launcher at full width and depth on 2 x 1, bf16
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    d = os.path.join(DIST_DIR, "ckpt")
+    if rank == 0:
+        shutil.rmtree(d, ignore_errors=True)
+    dist.barrier()
+    args = train.parse_args(DIST_TRAIN_ARGS + ["--ckpt-dir", d])
+    staged0 = host_bytes()
+    r = train.run(args)
+    staged1 = host_bytes()
+    sm = train.summary(r)
+    out["launcher"] = dict(step_times=sm["step_times"],
+                           peak=torch.cuda.max_memory_allocated(),
+                           losses=[m["loss"] for m in sm["metrics_log"]],
+                           ckpt=sm["ckpt_log"], n_params=sm["n_params"],
+                           staged=(staged1[0] - staged0[0],
+                                   staged1[1] - staged0[1]),
+                           s=time.perf_counter() - t0)
+    # the checkpoint (from the sharded state) restored at 1 x 1 on each
+    # rank, each rank's shard of every leaf held to the restored tensor's
+    # block, bitwise: the two ranks cover every leaf whole
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    t0 = time.perf_counter()
+    like = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="cuda"), r["state"])
+    restored = dict(items(ckpt.restore(like, d)[0]))
+    del like
+    n_same = n_leaves = 0
+    for k, v in items(r["state"]):
+        full = restored.pop(k)
+        if hasattr(v, "to_local"):
+            shape, off = compute_local_shape_and_global_offset(
+                v.shape, v.device_mesh, v.placements)
+            full = full[tuple(slice(o, o + n) for o, n in zip(off, shape))]
+            v = v.to_local()
+        n_leaves += 1
+        n_same += int(torch.equal(v, full))
+        del full
+    out["restore"] = (n_same, n_leaves)
+    out["restore_s"] = time.perf_counter() - t0
+    del r, restored
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_part_c() -> dict:
+    """(c) in a group of two ranks sharing the card, one a pod: the int8
+    exchange of full-width, full-depth grads; the group's rank 0 holds
+    it to the same exchange on the CPU."""
+    import torch.distributed as dist
+
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.quant.gradcomp import (_quantize_int8,
+                                            pod_quantized_allreduce)
+    from repro_torch.train.step import value_and_grad
+    from repro_torch.tree import items, leaves, tree_map
+
+    out = {}
+    t0 = time.perf_counter()
+    pmesh = make_host_mesh(1, 1, pod=2)
+    pod = pmesh.get_local_rank("pod")
+    gcfg = get_config("qwen3_0_6b")
+    params = models.init_params(
+        gcfg, torch.Generator(device="cuda").manual_seed(2), "cuda")
+    tok = torch.from_numpy(np.random.default_rng(4).integers(
+        0, gcfg.vocab, (GC_B, GC_S)).astype(np.int32)).cuda()
+    halves = []
+    for p in range(2):        # both pods' grads, on every rank
+        rows = tok[p * GC_B // 2:(p + 1) * GC_B // 2]
+        _, _, g = value_and_grad(params, gcfg, {
+            "tokens": rows, "labels": torch.roll(rows, -1, 1)})
+        halves.append(g)
+    del params
+    err = tree_map(lambda t: torch.zeros(t.shape, dtype=torch.float32,
+                                         device="cuda"), halves[pod])
+    stats = {}
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    mean, new_err = pod_quantized_allreduce(halves[pod], err,
+                                            group=pmesh.get_group("pod"),
+                                            stats=stats)
+    torch.cuda.synchronize()
+    out["gc_s"] = time.perf_counter() - t1
+    out["gc_stats"] = stats
+    if dist.get_rank() == 0:  # the same exchange on the CPU
+        codes_same = n = 0
+        worst_ex, worst_exact = 0.0, 0.0
+        for (k, g0), (_, g1), (_, m) in zip(items(halves[0]),
+                                            items(halves[1]), items(mean)):
+            qs, ss = [], []
+            for g in (g0, g1):
+                qc, sc = _quantize_int8(g.float())
+                qh, sh = _quantize_int8(g.float().cpu())
+                codes_same += int(torch.equal(qc.cpu(), qh)
+                                  and torch.equal(sc.cpu(), sh))
+                qs.append(qh)
+                ss.append(sh)
+                n += 1
+            cpu = (torch.tensordot(torch.stack(ss),
+                                   torch.stack(qs).float(), dims=([0], [0]))
+                   / 2).to(g0.dtype)
+            mc = m.cpu().float()
+            worst_ex = max(worst_ex, float((mc - cpu.float()).norm()
+                                           / max(float(cpu.float().norm()),
+                                                 1e-30)))
+            exact = (g0.float().cpu() + g1.float().cpu()) / 2
+            worst_exact = max(worst_exact, float(
+                (mc - exact).abs().max() / max(float(exact.abs().max()),
+                                               1e-30)))
+        out["gc"] = dict(codes_same=codes_same, n=n, worst_ex=worst_ex,
+                         worst_exact=worst_exact,
+                         n_params=sum(t.numel() for t in leaves(mean)))
+    del halves, mean, new_err, err
+    torch.cuda.empty_cache()
+    out["c_s"] = time.perf_counter() - t0
+    return out
+
+
+def dist_part_d() -> dict:
+    """(d) on the 4 ranks: 4 stages of 7 full-width layers, GPipe over 8
+    microbatches, against the sequential forward on rank 0."""
+    import torch.distributed as dist
+
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import host_bytes
+    from repro_torch.models.transformer import apply_layer
+    from repro_torch.runtime.pipeline import pipeline_forward
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_config("qwen3_0_6b"),
+                              param_dtype="float32", compute_dtype="float32")
+    per = cfg.n_layers // PIPE_STAGES
+    params = models.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(5), "cuda")
+    layers, specs = params["layers"], cfg.layer_specs()
+    del params
+    stacked = {f"l{j}": tree_map(lambda *ts: torch.stack(ts),
+                                 *[layers[s * per + j]
+                                   for s in range(PIPE_STAGES)])
+               for j in range(per)}
+    x = torch.randn((PIPE_MICRO, PIPE_MB, PIPE_S, cfg.d_model),
+                    generator=torch.Generator(device="cuda").manual_seed(6),
+                    device="cuda")
+    pos = torch.arange(PIPE_S, device="cuda")[None].expand(PIPE_MB, PIPE_S)
+
+    def stage_fn(p, h):
+        for j in range(per):
+            h, _ = apply_layer(p[f"l{j}"], cfg, specs[j], h, pos)
+        return h
+
+    out = {"s": []}
+    for _ in range(2):             # the first run pays the first calls
+        stats = {}
+        staged0 = host_bytes()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            y = pipeline_forward(stage_fn, stacked, x,
+                                 group=dist.group.WORLD,
+                                 n_stages=PIPE_STAGES, stats=stats)
+        torch.cuda.synchronize()
+        out["s"].append(time.perf_counter() - t0)
+        staged1 = host_bytes()
+    out["stats"] = stats
+    out["staged"] = (staged1[0] - staged0[0], staged1[1] - staged0[1])
+    if dist.get_rank() == 0:
+        with torch.no_grad():
+            ref = []
+            for m in range(PIPE_MICRO):
+                h = x[m]
+                for i, lp in enumerate(layers):
+                    h, _ = apply_layer(lp, cfg, specs[i], h, pos)
+                ref.append(h)
+            ref = torch.stack(ref)
+        out["err"] = float((y - ref).abs().max())
+        out["scale"] = float(ref.abs().max())
+        out["bitwise"] = bool(torch.equal(y, ref))
+    return out
+
+
+def dist_rank(stores: str) -> dict:
+    """Phase dist on each of 4 ranks sharing the card, one process each
+    (each process's start, first CUDA calls and first DTensor dispatch
+    paid once): ranks 0 and 1 run (b)'s launcher as a group of two;
+    beside them rank 2 runs (a) as a one-rank NCCL group, then ranks 2
+    and 3 run (b)'s meshes against (a)'s one-device run, and (c), as a
+    group of two; then the 4 run (d) together. Groups join through file
+    stores under ``stores``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import regroup
+
+    started = time.time()
+    rank, out = dist.get_rank(), {}
+    if rank >= 2:      # the launcher's ranks are the phase's longest path
+        os.nice(5)
+    ks = _launches_zeroed()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    if rank < 2:
+        regroup(os.path.join(stores, "launcher"), rank, 2)
+        out.update(dist_part_launcher())
+    else:
+        ref = None
+        if rank == 2:
+            regroup(os.path.join(stores, "a"), 0, 1)
+            out["a"], ref = dist_part_a()
+        regroup(os.path.join(stores, "bc"), rank - 2, 2)
+        out.update(dist_part_meshes(ref))
+        del ref
+        out.update(dist_part_c())
+    out["abc_s"] = time.perf_counter() - t0
+    regroup(os.path.join(stores, "d"), rank, PIPE_STAGES)
+    t0 = time.perf_counter()
+    out["d"] = dist_part_d()
+    out["d_s"] = time.perf_counter() - t0
+    out["launches"] = {k.__name__: k.launches for k in ks}
+    out["started"] = started
+    return out
+
+
+def check_dist() -> dict:
+    """Phase ``dist``, in one spawn of 4 ranks sharing the card
+    (``dist_rank``): (a) a 1 x 1 DeviceMesh on a one-rank NCCL group,
+    bitwise the one-device step; (b) groups of two ranks over gloo (NCCL
+    refuses two ranks on one GPU), CUDA tensors staged through the host
+    by ``launch/host_gloo.py``: the (2, 1) and (1, 2) meshes held
+    to (a)'s one-device run, and the launcher at full width and depth on
+    2 x 1 with its checkpoint restored at 1 x 1 bitwise; (c) the int8 cross-pod exchange
+    over 2 pods of full-width, full-depth grads against the CPU's; (d)
+    the GPipe pipeline on 4 ranks against the sequential forward. No
+    kernel launches in any rank."""
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn
+
+    name = "dist"
+    t0 = time.perf_counter()
+    os.makedirs(DIST_DIR, exist_ok=True)
+    stores = tempfile.mkdtemp(prefix="stores_", dir=DIST_DIR)
+    t_spawn = time.time()
+    rs = spawn(dist_rank, PIPE_STAGES, stores, device="cuda")
+    r0, r2 = rs[0], rs[2]
+    a = r2["a"]
+    ok = a["same"] and a["plain"] == a["meshed"]
+    phase(name, f"(a) {DIST_LAYERS} layers of qwen3-0.6b at full width, "
+          f"f32, {DIST_STEPS} steps of {DIST_B} x {DIST_S} on a 1 x 1 "
+          f"DeviceMesh (one-rank NCCL group): loss "
+          f"{', '.join(f'{x:.6f}' for x in a['meshed'])}; state vs "
+          f"mesh=None max|diff| {a['dmax']:.3g}, bitwise {a['same']}; "
+          f"{a['s']:.1f} s -> {'OK' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"dist (a): {a}")
+    for shape in ((2, 1), (1, 2)):
+        m = r2[shape]
+        dl = max(abs(x / y - 1) for x, y in zip(m["losses"], m["ref"]))
+        ok = (dl <= DIST_LOSS_RTOL and m["whole"] <= DIST_PARAM_RTOL
+              and m["worst"] <= DIST_LEAF_RTOL)
+        phase(name, f"(b) mesh {shape} on 2 ranks sharing the card: loss "
+              f"{', '.join(f'{x:.6f}' for x in m['losses'])} vs one rank's "
+              f"(max rel {dl:.2e}, limit {DIST_LOSS_RTOL:g}); params after "
+              f"{DIST_STEPS} steps rel {m['whole']:.2e} (limit "
+              f"{DIST_PARAM_RTOL:g}), worst leaf {m['worst']:.2e} (limit "
+              f"{DIST_LEAF_RTOL:g}) -> {'OK' if ok else 'EXCEEDED'}")
+        if not ok:
+            raise AssertionError(f"dist (b) {shape}: {m}")
+    phase(name, f"(b) both meshes: {r2['meshes_s']:.1f} s")
+    tokens = 8 * 1024
+    for rank, rr in enumerate(rs[:2]):
+        lr = rr["launcher"]
+        times = sorted(lr["step_times"])
+        phase(name, f"(b) launcher rank {rank}: qwen3-0.6b "
+              f"{lr['n_params'] / 1e6:.1f} M params, mesh 2 x 1, bf16, "
+              f"{len(times)} steps of {tokens} tokens: step "
+              f"{', '.join(f'{t:.3f}' for t in lr['step_times'])} s (median "
+              f"{times[len(times) // 2]:.3f} s); loss "
+              f"{', '.join(f'{x:.4f}' for x in lr['losses'])}; peak "
+              f"{gib(lr['peak']):.2f} GiB; staged through the host "
+              f"{lr['staged'][0] / 1e9:.2f} GB down, "
+              f"{lr['staged'][1] / 1e9:.2f} GB up (the checkpoint's "
+              f"gathers included); {lr['s']:.1f} s in all")
+    for c in r0["launcher"]["ckpt"]:
+        phase(name, f"(b) checkpoint step {c['step']} from the sharded "
+              f"state: {c['bytes']:,} B, to host {c['host_s']:.2f} s, write "
+              f"{c['write_s']:.2f} s")
+    same = [rr["restore"][0] for rr in rs[:2]]
+    n = r0["restore"][1]
+    ok = all(x == n for x in same)
+    phase(name, f"(b) restored at 1 x 1 on each rank: its shard of "
+          f"{', '.join(map(str, same))} of {n} leaves bitwise the sharded "
+          f"state (the ranks' shards cover each leaf); "
+          f"{r0['restore_s']:.1f} s -> {'OK' if ok else 'MISMATCH'}")
+    if not ok or not all(math.isfinite(x) for x in
+                         r0["launcher"]["losses"]):
+        raise AssertionError(f"dist (b): restore {same}/{n}, "
+                             f"{r0['launcher']['losses']}")
+    gc, st = r2["gc"], r2["gc_stats"]
+    ok = (gc["codes_same"] == gc["n"] and gc["worst_ex"] <= GC_EXCHANGE_RTOL
+          and gc["worst_exact"] <= GC_EXACT_BOUND)
+    phase(name, f"(c) int8 exchange over 2 pods, qwen3-0.6b full width and "
+          f"depth grads ({gc['n_params'] / 1e6:.1f} M params, each pod "
+          f"{GC_B // 2} x {GC_S} tokens): codes and scales bitwise the "
+          f"CPU's {gc['codes_same']} of {gc['n']}; output vs the CPU "
+          f"exchange worst leaf rel {gc['worst_ex']:.2e} (limit "
+          f"{GC_EXCHANGE_RTOL:g}); vs the exact mean {gc['worst_exact']:.4f}"
+          f" of the largest (limit {GC_EXACT_BOUND:g}) -> "
+          f"{'OK' if ok else 'EXCEEDED'}")
+    phase(name, f"(c) bytes a pod sends: {st['bytes']:,} B of int8 codes "
+          f"+ scales ({st['bytes'] / 1e9:.3f} GB) against "
+          f"{st['bytes_grad_dtype']:,} B of bf16 grads "
+          f"({st['bytes_grad_dtype'] / 1e9:.3f} GB) and {st['bytes_f32']:,}"
+          f" B in f32 ({st['bytes_f32'] / 1e9:.3f} GB); exchange "
+          f"{r2['gc_s']:.2f} s; (c) {r2['c_s']:.1f} s in all")
+    if not ok:
+        raise AssertionError(f"dist (c): {gc}")
+    d0 = r0["d"]
+    ok = d0["err"] <= PIPE_ATOL
+    phase(name, f"(d) GPipe on {PIPE_STAGES} ranks sharing the card, "
+          f"{PIPE_STAGES} stages of {28 // PIPE_STAGES} full-width layers "
+          f"(f32), {PIPE_MICRO} microbatches of {PIPE_MB} x {PIPE_S}: "
+          f"{d0['s'][0]:.2f} s, again {d0['s'][1]:.2f} s; vs the sequential "
+          f"forward max|diff| "
+          f"{d0['err']:.3g} of {d0['scale']:.3g} (limit {PIPE_ATOL:g}), "
+          f"bitwise {d0['bitwise']}; rank 0 sent {d0['stats']['sent']:,} B "
+          f"of hand-offs, staged through the host {d0['staged'][0]:,} B "
+          f"down, {d0['staged'][1]:,} B up -> {'OK' if ok else 'EXCEEDED'}")
+    if not ok:
+        raise AssertionError(f"dist (d): {d0}")
+    starts = ", ".join(f"{rr['started'] - t_spawn:.1f}" for rr in rs)
+    abc = ", ".join(f"{rr['abc_s']:.1f}" for rr in rs)
+    dd = ", ".join(f"{rr['d_s']:.1f}" for rr in rs)
+    phase(name, f"time by rank: start {starts} s after the spawn; (a)-(c) "
+          f"{abc} s; (d) {dd} s")
+    launches = dict.fromkeys(rs[0]["launches"], 0)
+    for rr in rs:
+        for k, v in rr["launches"].items():
+            launches[k] += v
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    if any(launches.values()):
+        raise AssertionError(f"dist: kernel launches {launches}")
+    phase(name, f"kernel launches over the phase, every rank: {launches} "
+          f"(none expected: no kernel on this path); "
+          f"{time.perf_counter() - t0:.1f} s")
+    return dict(a=a, launches=launches)
+
+
+def in_thread(fn) -> dict:
+    """Start ``fn()`` in a thread (a build: its compilers run as
+    processes); ``joined`` waits for it."""
+    import threading
+
+    out = {"t0": time.perf_counter()}
+
+    def run():
+        try:
+            fn()
+        except BaseException as e:        # raised by joined
+            out["error"] = e
+        out["s"] = time.perf_counter() - out["t0"]
+
+    out["thread"] = threading.Thread(target=run, daemon=True)
+    out["thread"].start()
+    return out
+
+
+def joined(h: dict) -> float:
+    """Wait for an ``in_thread`` job; its seconds (its error raised)."""
+    h["thread"].join()
+    if "error" in h:
+        raise h["error"]
+    return h["s"]
+
+
+def dist_main() -> int:
+    """``--dist``: phase dist alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    phase("card", f"{card_line()} | torch {torch.__version__} CUDA "
+          f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
+    print(json.dumps({"dist_launches": check_dist()["launches"]}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -3643,16 +4190,29 @@ def main() -> int:
           f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t0 = time.perf_counter()
+    # one nvcc per source, all at once, beside the phases that launch no
+    # kernel (train, static-ssm, static-families, dist), at a lower
+    # priority than theirs (a thread's nice value is its own on Linux, and
+    # the compilers it starts inherit it); the kernel phases wait for it
     sources = ("paged_attention", "quant_matmul", "fista_quant")
-    build.load_all(sources)              # one nvcc per source, in parallel
+
+    def build_niced():
+        os.nice(10)
+        build.load_all(sources)
+
+    nv = in_thread(build_niced)
+    trl = check_train()["launches"]
+    ssm = check_static_ssm()["launches"]
+    check_static_families()
+    dsl = check_dist()["launches"]
+    nv_s = joined(nv)
     for name in sources:
         log = build.library_path(name).with_suffix(".log")
         ptxas = sorted({ln.strip() for ln in log.read_text().splitlines()
                         if "registers" in ln or "spill" in ln})
         phase("build", f"{name}.cu -> sm_90a ({len(sources)} sources in "
-              f"parallel, {time.perf_counter() - t0:.1f} s); ptxas: "
-              f"{' | '.join(ptxas)}")
+              f"parallel beside the kernel-free phases, {nv_s:.1f} s); "
+              f"ptxas: {' | '.join(ptxas)}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     k = check_kernel(gen)
     k.update(check_kernel_shapes(gen))
@@ -3691,9 +4251,6 @@ def main() -> int:
     t0 = time.perf_counter()
     gr = check_serve_granite()
     phase("serve-granite", f"{time.perf_counter() - t0:.1f} s")
-    check_static_families()
-    ssm = check_static_ssm()["launches"]
-    trl = check_train()["launches"]
     record = {"kernels": [
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -3717,6 +4274,7 @@ def main() -> int:
              "paged_decode_attention"],
          "static_ssm_launches": ssm["paged_decode_attention"],
          "train_launches": trl["paged_decode_attention"],
+         "dist_launches": dsl["paged_decode_attention"],
          **k},
         {"name": "quant_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
@@ -3730,19 +4288,22 @@ def main() -> int:
          "serve_glm4_launches": g4["launches"]["quant_matmul"],
          "static_ssm_launches": ssm["quant_matmul"],
          "train_launches": trl["quant_matmul"],
+         "dist_launches": dsl["quant_matmul"],
          "solvers_launches": so["quant_matmul"], **q},
         {"name": "quant_matmul_stacked", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul.py:105",
          "static_ssm_launches": ssm["quant_matmul_stacked"],
-         "train_launches": trl["quant_matmul_stacked"], **st},
+         "train_launches": trl["quant_matmul_stacked"],
+         "dist_launches": dsl["quant_matmul_stacked"], **st},
         {"name": "fista_quant", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fista_quant.cu",
          "replaces": "src/repro/kernels/fista_quant.py:79",
          "launches": pb.pop("ptq_launches"),
          "solvers_launches": so["fista_quant"],
          "static_ssm_launches": ssm["fista_quant"],
-         "train_launches": trl["fista_quant"], **f["quant"], **pb},
+         "train_launches": trl["fista_quant"],
+         "dist_launches": dsl["fista_quant"], **f["quant"], **pb},
         {"name": "fista_freeze", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fista_quant.cu",
          "replaces": "src/repro/kernels/fista_quant.py:79",
@@ -3753,7 +4314,8 @@ def main() -> int:
              "fista_freeze"],
          "serve_iter_l1_tpot_p50_ms": it["tpot_p50_ms"],
          "static_ssm_launches": ssm["fista_freeze"],
-         "train_launches": trl["fista_freeze"], **f["freeze"]},
+         "train_launches": trl["fista_freeze"],
+         "dist_launches": dsl["fista_freeze"], **f["freeze"]},
     ]}
     phase("done", f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
@@ -3766,5 +4328,6 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.exit({"--ssm-readings": ssm_readings,
-              "--mlp-readings": mlp_readings}.get(
+              "--mlp-readings": mlp_readings,
+              "--dist": dist_main}.get(
                   " ".join(sys.argv[1:]), main)())

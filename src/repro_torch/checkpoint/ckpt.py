@@ -1,5 +1,5 @@
 """Atomic, optionally asynchronous checkpoints in the reference's layout
-(port of ``repro/checkpoint/ckpt.py``) on one device.
+with reshard-on-load (port of ``repro/checkpoint/ckpt.py``).
 
 Layout: ``<dir>/step_<N>/`` holds one ``.npy`` per leaf and
 ``manifest.json`` ({"step", "tree": {key: {"file", "shape", "dtype"}},
@@ -8,8 +8,15 @@ written to ``step_<N>.tmp`` and renamed (an atomic publish); ``keep_last``
 prunes older steps. bf16 leaves are stored as their uint16 bits under the
 manifest dtype ``"bfloat16"`` (no ``ml_dtypes`` needed) and come back
 bitwise. The two packages read each other's checkpoints of every other
-dtype. Reshard-on-load (``restore(shardings=)``) needs a device mesh and
-comes with the port of ``runtime/sharding.py``.
+dtype.
+
+A sharded state (DTensor leaves on a mesh) is gathered to full tensors on
+every rank in the caller's thread; rank 0 writes, and every rank waits
+for the write at a barrier (``save`` returns after it, or the handle's
+``join`` does). The files are the one-device files, so a checkpoint
+written on a mesh restores on one device and the other way round;
+``restore(shardings=)`` distributes each leaf onto the current mesh,
+whatever its size (reshard-on-load).
 """
 from __future__ import annotations
 
@@ -32,6 +39,8 @@ def _flatten(tree) -> dict:
 
 
 def _to_host(t: torch.Tensor) -> tuple[np.ndarray, str]:
+    if hasattr(t, "full_tensor"):       # a DTensor: gathered on every rank
+        t = t.full_tensor()
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -39,15 +48,42 @@ def _to_host(t: torch.Tensor) -> tuple[np.ndarray, str]:
     return a, str(a.dtype)
 
 
+def _ranks() -> tuple[int, bool]:
+    """(this rank, whether a process group of several ranks is up)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        return dist.get_rank(), True
+    return 0, False
+
+
+class _Pending:
+    """An asynchronous save on a process group: ``join`` waits for rank
+    0's writer thread, then every rank meets at a barrier."""
+
+    def __init__(self, thread):
+        self.thread = thread
+
+    def join(self, timeout=None):
+        import torch.distributed as dist
+
+        if self.thread is not None:
+            self.thread.join(timeout)
+        dist.barrier()
+
+
 def save(state, directory: str, step: int, *, keep_last: int = 3,
          async_: bool = False, log: list | None = None):
-    """Write a checkpoint. async_=True returns a thread (join to wait).
+    """Write a checkpoint. async_=True returns a handle (join to wait):
+    the writer thread on one device, a ``_Pending`` on a process group.
     ``log``, if given, gets {"step", "bytes", "host_s", "write_s"} once
-    the checkpoint is published."""
+    the checkpoint is published (on the writing rank)."""
     # to the host in the caller's thread; the disk I/O off its path
     t0 = time.perf_counter()
     flat = {k: _to_host(v) for k, v in _flatten(state).items()}
     host_s = time.perf_counter() - t0
+    rank, multi = _ranks()
 
     def _write():
         t1 = time.perf_counter()
@@ -72,6 +108,16 @@ def save(state, directory: str, step: int, *, keep_last: int = 3,
                         "write_s": time.perf_counter() - t1,
                         "bytes": sum(a.nbytes for a, _ in flat.values())})
 
+    if multi:
+        thread = None
+        if rank == 0:
+            thread = threading.Thread(target=_write, daemon=True)
+            thread.start()
+        pending = _Pending(thread)
+        if async_:
+            return pending
+        pending.join()
+        return None
     if async_:
         t = threading.Thread(target=_write, daemon=True)
         t.start()
@@ -97,14 +143,25 @@ def latest_step(directory: str) -> int | None:
 
 
 def restore(like_tree, directory: str, *, step: int | None = None,
-            shardings=None):
+            shardings=None, mesh=None):
     """Load into the structure of ``like_tree``: the same leaf keys and
     shapes, each leaf cast to its like's dtype on its like's device.
-    Returns (tree, step)."""
+    ``shardings``: a matching tree of DTensor placements; each leaf is
+    then distributed onto ``mesh`` (default: the mesh of ``like_tree``'s
+    first DTensor leaf) whatever its size: reshard-on-load. Every rank
+    reads the files. Returns (tree, step)."""
+    flat_sh = {}
     if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=...): reshard-on-load needs a device mesh, "
-            "which comes with runtime/sharding.py (ROADMAP A4)")
+        flat_sh = _flatten(shardings)
+        flat_like = _flatten(like_tree)
+        if set(flat_sh) != set(flat_like):
+            raise ValueError("restore: shardings/tree mismatch: "
+                             f"{sorted(set(flat_sh) ^ set(flat_like))[:4]}")
+        mesh = mesh or next((t.device_mesh for t in flat_like.values()
+                             if hasattr(t, "device_mesh")), None)
+        if mesh is None:
+            raise ValueError("restore(shardings=): no mesh given and no "
+                             "DTensor in the tree to take one from")
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -130,5 +187,18 @@ def restore(like_tree, directory: str, *, step: int | None = None,
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(arr)
-        out.append(t.to(device=like.device, dtype=like.dtype))
+        dev = like.to_local().device if hasattr(like, "to_local") \
+            else like.device
+        t = t.to(device=dev, dtype=like.dtype)
+        if key in flat_sh:
+            t = _distribute(t, mesh, flat_sh[key])
+        out.append(t)
     return unflatten(like_tree, out), step
+
+
+def _distribute(t, mesh, placements):
+    """``t`` (the same full tensor on every rank) onto ``mesh``: each rank
+    keeps its shard, with no collective."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(t, mesh, placements, src_data_rank=None)

@@ -1,14 +1,15 @@
-"""Deterministic synthetic LM batches on one device (port of
+"""Deterministic synthetic LM batches (port of
 ``repro/data/pipeline.py``).
 
 Deterministic in (seed, step): a restart resumes mid-stream without
-state. Tokens are the reference's host stream bit for bit (its batch on a
-1 x 1 mesh: one shard, rows 0..B); labels are the tokens rolled left by
-one. Any other input (``embeds``, ``positions``, ``enc_embeds``) is a
-seeded standard normal drawn, as the reference draws it, from
-``(seed, step, hash(name) % 997)``: Python salts ``str`` hashes per
-process, so those streams agree with the reference's within one process
-but not across a restart (ROADMAP C).
+state. Tokens are the reference's host stream bit for bit: each batch
+shard's rows from the stream of its first row (one shard, rows 0..B, on
+a 1 x 1 mesh); labels are the tokens rolled left by one. Any other input
+(``embeds``, ``positions``, ``enc_embeds``) is a seeded standard normal
+drawn, as the reference draws it, from ``(seed, step, hash(name) %
+997)``: Python salts ``str`` hashes per process, so those streams agree
+with the reference's within one process but not across a restart
+(ROADMAP C).
 """
 from __future__ import annotations
 
@@ -43,13 +44,20 @@ class SyntheticLM:
         return input_specs(self.cfg, "train_4k", batch=self.batch,
                            seq=self.seq)
 
-    def next_batch(self, step: int, specs: dict, device) -> dict:
+    def next_batch(self, step: int, specs: dict, device,
+                   shards: int = 1) -> dict:
         """specs: name -> (shape, dtype) (``batch_specs`` or any train
-        shape). Built on the host, then moved to ``device``."""
+        shape). Built on the host, then moved to ``device``. ``shards``:
+        the batch's shards on a mesh (``batch_shards``); the reference
+        draws each shard's token rows from its own stream, so the batch
+        of a mesh is its batch on that mesh."""
         out = {}
         for name, (shape, dtype) in specs.items():
             if name in ("tokens", "labels"):
-                tok = self._host_tokens(step, 0, shape[0], shape[1])
+                rows = shape[0] // shards
+                tok = np.concatenate([
+                    self._host_tokens(step, lo, lo + rows, shape[1])
+                    for lo in range(0, shape[0], rows)])
                 arr = tok if name == "tokens" else np.roll(tok, -1, axis=1)
                 t = torch.from_numpy(arr)
             else:
@@ -60,3 +68,15 @@ class SyntheticLM:
                     np.float32 if dtype.is_floating_point else np.int32))
             out[name] = t.to(device=device, dtype=dtype)
         return out
+
+
+def batch_shards(mesh, batch: int) -> int:
+    """How many shards a mesh cuts a batch of ``batch`` rows into: the
+    product of its ``pod`` and ``data`` axes where it divides the batch,
+    else 1 (replicated), as ``runtime.sharding.batch_spec`` places it."""
+    if mesh is None:
+        return 1
+    from repro_torch.runtime.sharding import _axsize, _batch_axes, axis_sizes
+
+    n = _axsize(axis_sizes(mesh), _batch_axes(mesh))
+    return n if batch % n == 0 else 1

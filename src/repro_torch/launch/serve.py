@@ -203,7 +203,8 @@ def _make_engine(params, cfg, args, *, kv_quant, record_logits=False,
     on the overload flags (the served run; the replays probe an
     uncontended pool), as do ``tracer`` and ``exporter``. A disagg engine
     without ``kv_quant`` migrates fp, the only pages that cross without a
-    spec."""
+    spec; one that records logits (a replay) blocks on each prefill, so
+    two replays run the same schedule whatever the card's timing."""
     from repro_torch.serving import ContinuousBatchingEngine, DisaggEngine
 
     speculate = args.speculate if speculate is None else speculate
@@ -228,7 +229,8 @@ def _make_engine(params, cfg, args, *, kv_quant, record_logits=False,
                             decode_workers=args.decode_workers,
                             migrate=(args.migrate if kv_quant is not None
                                      else "fp"),
-                            staging_depth=args.staging_depth, **kw)
+                            staging_depth=args.staging_depth,
+                            block_prefill=record_logits, **kw)
     return ContinuousBatchingEngine(
         params, cfg, prefix_cache=prefix_cache,
         prefill_chunk=(args.prefill_chunk if prefill_chunk == -1

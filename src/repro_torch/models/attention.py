@@ -18,6 +18,8 @@ import math
 import torch
 
 from repro_torch.quant.serve import qmatmul
+from repro_torch.runtime.hints import (hint, is_dtensor, model_axis_size,
+                                      per_shard)
 
 from .cache import as_adapter, supports_fused_decode, supports_fused_prefill
 from .ffn import _dense
@@ -104,11 +106,21 @@ def sdpa(q, k, v, *, causal, window=None, softcap=None, q_offset=0,
     """Grouped SDPA, chunked over the query axis to bound the live logits
     buffer at (B, H, q_chunk, Skv). K/V repeat across the GQA group for
     multi-token queries only (a decode step would re-read the cache G
-    times). v's head dim may differ from q's and k's (MLA). The
-    reference's online-softmax kv-chunk schedule for very long KV is not
-    ported: every length runs the block form here."""
+    times), and only where the heads divide a mesh's model axis (the
+    context-parallel fallback keeps K/V un-repeated). On a mesh each rank
+    attends its own rows and heads (``hints.per_shard``: GQA groups
+    align when the query and kv heads both divide the model axis, else
+    the heads are gathered). v's head dim may differ from q's and k's
+    (MLA). The reference's online-softmax kv-chunk schedule for very long
+    KV is not ported: every length runs the block form here."""
+    if is_dtensor(q):       # on a mesh: each rank's rows and heads
+        return per_shard(
+            lambda q, k, v: sdpa(q, k, v, causal=causal, window=window,
+                                 softcap=softcap, q_offset=q_offset,
+                                 kv_valid_len=kv_valid_len, q_chunk=q_chunk),
+            q, k, v, keep=(0, 2))
     B, Sq, Hq, Dh = q.shape
-    rep = Sq > 1
+    rep = Sq > 1 and (Hq % model_axis_size() == 0)
 
     def one_chunk(qi, off):
         return _sdpa_block(qi, k, v, causal=causal, window=window,
@@ -145,6 +157,7 @@ def attention(params, cfg, spec, x, positions, *, cache=None,
     if positions is not None:
         q = _rope(cfg, q, positions)
         k = _rope(cfg, k, positions)
+    q, k, v = hint(q, "qkv"), hint(k, "kv"), hint(v, "kv")
 
     new_cache = None
     if cache is not None:
@@ -178,7 +191,7 @@ def attention(params, cfg, spec, x, positions, *, cache=None,
         co = sdpa(cq, ckv["k"], ckv["v"], causal=False,
                   q_chunk=cfg.attn_q_chunk)
         y = y + co.reshape(B, S, H * Dh) @ params["c_wo"]
-    return y, new_cache
+    return hint(y, "hidden"), new_cache
 
 
 def init_cross_kv(params, cfg, enc_out) -> dict:
@@ -245,4 +258,5 @@ def mla_attention(params, cfg, spec, x, positions, *, cache=None,
     out = sdpa(qq, k, vv, causal=causal, window=spec.window,
                softcap=cfg.attn_softcap, q_offset=q_off, kv_valid_len=valid,
                q_chunk=cfg.attn_q_chunk)
-    return out.reshape(B, S, H * dv) @ params["wo"], new_cache
+    return hint(out.reshape(B, S, H * dv) @ params["wo"], "hidden"), \
+        new_cache

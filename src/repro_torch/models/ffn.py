@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.quant.serve import qmatmul
+from repro_torch.runtime.hints import hint
 
 
 def _dense(gen: torch.Generator, d_in: int, d_out: int, dtype,
@@ -40,4 +41,5 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
 def ffn(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
     h = _act(qmatmul(x, params["w_gate"]), cfg.act) * qmatmul(
         x, params["w_up"])
-    return qmatmul(h, params["w_down"])
+    h = hint(h, "ffn")
+    return hint(qmatmul(h, params["w_down"]), "hidden")

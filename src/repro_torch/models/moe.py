@@ -19,6 +19,8 @@ import math
 
 import torch
 
+from repro_torch.runtime.hints import hint, per_shard
+
 from .ffn import _act, _dense, init_ffn
 
 
@@ -91,17 +93,21 @@ def moe_ffn(params, cfg, x: torch.Tensor) -> torch.Tensor:
     top_w, top_i = route(params, cfg, x)
     C = capacity(cfg, S)
     flat_e = top_i.reshape(B, S * K)
-    slot_tok, slot_ok, tok_pos = _row_dispatch(flat_e, E, C)
+    slot_tok, slot_ok, tok_pos = per_shard(
+        lambda fe: _row_dispatch(fe, E, C), flat_e)
 
     # dispatch: gather tokens into (B, E, C, D); slot -> source token a // K
     src_tok = (slot_tok // K).reshape(B, E * C)
     buf = torch.gather(x, 1, src_tok[..., None].expand(B, E * C, D))
     buf = buf.reshape(B, E, C, D) * slot_ok[..., None].to(x.dtype)
+    buf = hint(buf, "moe_buf")
 
     h = torch.einsum("becd,edf->becf", buf, params["w_gate"])
     h = _act(h, cfg.act) * torch.einsum("becd,edf->becf", buf,
                                         params["w_up"])
+    h = hint(h, "moe_h")
     out = torch.einsum("becf,efd->becd", h, params["w_down"])
+    out = hint(out, "moe_buf")
 
     # combine: gather each assignment's slot back; dropped ones give 0
     keep = tok_pos < C
@@ -109,6 +115,7 @@ def moe_ffn(params, cfg, x: torch.Tensor) -> torch.Tensor:
                                           torch.zeros_like(tok_pos))
     y_tok = torch.gather(out.reshape(B, E * C, D), 1,
                          gather_idx[..., None].expand(B, S * K, D))
+    y_tok = hint(y_tok, "moe_tok")
     y_tok = y_tok * keep[..., None].to(out.dtype)
     y = (y_tok.reshape(B, S, K, D)
          * top_w[..., None].to(out.dtype)).sum(dim=2)
@@ -116,7 +123,7 @@ def moe_ffn(params, cfg, x: torch.Tensor) -> torch.Tensor:
         sh = params["shared"]
         y = y + (_act(x @ sh["w_gate"], cfg.act) * (x @ sh["w_up"])) \
             @ sh["w_down"]
-    return y
+    return hint(y, "hidden")
 
 
 def router_aux_loss(params, cfg, x: torch.Tensor) -> torch.Tensor:

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.quant.serve import qmatmul
+from repro_torch.runtime.hints import hint
 
 from .ffn import _dense
 from .norms import init_rms, rms_norm
@@ -88,6 +89,7 @@ def mamba(params, cfg, x: torch.Tensor, *, cache=None):
     B, S, _ = x.shape
     E, N, R, dc = cfg.d_inner, cfg.ssm_d_state, cfg.dt_rank, cfg.ssm_d_conv
     xs, z = qmatmul(x, params["w_in"]).chunk(2, dim=-1)     # (B, S, E) each
+    xs = hint(xs, "ssm_inner")
     # causal depthwise conv over the cached inputs (zeros without a cache)
     if cache is not None:
         ctx = torch.cat([cache["conv"].to(xs.dtype), xs], dim=1)
@@ -123,7 +125,7 @@ def mamba(params, cfg, x: torch.Tensor, *, cache=None):
     y = y + params["D_skip"] * xc.float()
     y = qmatmul(y.to(x.dtype) * F.silu(z), params["w_out"])
     new_cache = {"h": h_last, "conv": new_conv} if cache is not None else None
-    return y, new_cache
+    return hint(y, "hidden"), new_cache
 
 
 def init_mamba_cache(cfg, batch: int, dtype, device) -> dict:
@@ -235,7 +237,7 @@ def rwkv6_time_mix(params, cfg, x: torch.Tensor, *, shift_state,
                                  params["w_lora_b"]).float()
     w = torch.exp(-torch.exp(dec)).reshape(B, S, H, hd)       # in (0, 1)
     u = params["u"].float().reshape(H, hd)[None, :, :, None]
-    rf, kf, vf = r.float(), k.float(), v.float()
+    rf, kf, vf, w = (hint(t.float(), "wkv") for t in (r, k, v, w))
     if S == 1:
         ys, s_last = _wkv6_chunk(rf, kf, vf, w, u, wkv_state)
     else:
@@ -250,7 +252,7 @@ def rwkv6_time_mix(params, cfg, x: torch.Tensor, *, shift_state,
         ys = torch.cat(ys, dim=1)[:, :S]
     y = ys.reshape(B, S, D).to(x.dtype)
     y = rms_norm(y, params["ln_out"]) * g
-    return qmatmul(y, params["w_o"]), new_shift, s_last
+    return hint(qmatmul(y, params["w_o"]), "hidden"), new_shift, s_last
 
 
 def rwkv6_channel_mix(params, cfg, x: torch.Tensor, *, shift_state):

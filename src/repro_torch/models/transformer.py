@@ -21,6 +21,8 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.runtime.hints import (checkpoint_context_fn, gather_data,
+                                      gather_inner, hint, lookup)
 from repro_torch.tree import leaves
 
 from . import attention as attn_lib
@@ -124,7 +126,7 @@ def apply_layer(p, cfg, spec, x, positions, *, cache=None, cache_index=None,
         if cfg.post_block_norm:
             f = rms_norm(f, p["post_ln2"])
         x = x + f
-    return x, new_c
+    return hint(x, "hidden"), new_c
 
 
 def init_lm(cfg, gen: torch.Generator, device) -> dict:
@@ -160,21 +162,23 @@ def _embed_in(params, cfg, batch) -> torch.Tensor:
     if "embeds" in batch:
         x = batch["embeds"].to(cfg.dtype("compute"))
     else:
-        x = params["embed"][batch["tokens"].long()].to(cfg.dtype("compute"))
+        x = lookup(params["embed"], batch["tokens"].long()).to(
+            cfg.dtype("compute"))
     if cfg.embed_scale:
         x = x * math.sqrt(cfg.d_model)
-    return x
+    return hint(x, "hidden")
 
 
 def _lm_head(params, cfg, x) -> torch.Tensor:
     """Logits in f32 (the reference's f32 ``preferred_element_type``):
     bf16 operands upcast, so every product is exact and sums are f32."""
-    x = rms_norm(x, params["final_norm"])
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    x = gather_inner(rms_norm(x, params["final_norm"]))
+    w = gather_data(params["embed"].T if cfg.tie_embeddings
+                    else params["lm_head"])
     logits = x.float() @ w.float()
     if cfg.final_softcap:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
-    return logits
+    return hint(logits, "logits")
 
 
 def _records(x, layers) -> bool:
@@ -197,10 +201,10 @@ def _dots_policy(ctx, op, *args, **kwargs):
 def _remat(fn, h, remat: str):
     """``fn(h)`` under activation checkpointing: ``"full"`` saves only
     ``h``, ``"dots"`` the matmul outputs too."""
-    kw = {}
-    if remat == "dots":
-        kw["context_fn"] = functools.partial(
-            create_selective_checkpoint_contexts, _dots_policy)
+    base = (functools.partial(create_selective_checkpoint_contexts,
+                              _dots_policy) if remat == "dots" else None)
+    context_fn = checkpoint_context_fn(base)    # a mesh's hints, if any
+    kw = {} if context_fn is None else {"context_fn": context_fn}
     return checkpoint(fn, h, use_reentrant=False, **kw)
 
 

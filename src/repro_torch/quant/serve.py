@@ -21,6 +21,7 @@ import math
 
 import torch
 
+from repro_torch.runtime.hints import gather_data, gather_inner
 from repro_torch.core.types import QuantizedTensor
 from repro_torch.kernels.quant_matmul import quant_matmul, quant_matmul_stacked
 
@@ -34,9 +35,12 @@ def fallback_count() -> int:
 
 
 def qmatmul(x: torch.Tensor, w) -> torch.Tensor:
-    """Drop-in for ``x @ w`` taking dense or QuantizedTensor weights."""
+    """Drop-in for ``x @ w`` taking dense or QuantizedTensor weights. On
+    a mesh, a sequence-sharded DTensor ``x`` is gathered first
+    (``hints.gather_inner``) and so are ``w``'s data shards
+    (``hints.gather_data``, FSDP's all-gather)."""
     if not isinstance(w, QuantizedTensor):
-        return x @ w
+        return gather_inner(x) @ gather_data(w)
     K, N = w.shape
     if not w.stacked:
         out = quant_matmul(x.reshape(-1, K).contiguous(),

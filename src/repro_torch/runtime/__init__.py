@@ -1,2 +1,3 @@
-"""Runtime layer: fault tolerance (port of ``repro/runtime``; sharding,
-activation hints and pipeline parallelism come with distribution)."""
+"""Runtime layer (port of ``repro/runtime``): fault tolerance, the
+sharding rules and their activation hints, and GPipe pipeline
+parallelism."""

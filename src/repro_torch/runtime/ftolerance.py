@@ -55,11 +55,18 @@ class Trainer:
     step's metrics as floats (a host read each step, as the reference's),
     ``step_times`` each step's host seconds (the metrics' read waits for
     the device), ``ckpt_log`` each checkpoint's bytes and seconds.
+
+    Across ranks (a sharded state), every rank runs the same loop: an
+    injected failure fires at the same step on each, each retry restores
+    on each (``restore_shardings``: the state's placements, passed to
+    ``ckpt.restore``), and a pending write is joined on rank 0 while the
+    other ranks wait for it at the save handle's barrier.
     """
 
     def __init__(self, *, step_fn, init_state_fn, next_batch_fn, ckpt_dir,
                  ckpt_every: int = 10, keep_last: int = 3,
-                 fail_at: set | None = None, async_ckpt: bool = False):
+                 fail_at: set | None = None, async_ckpt: bool = False,
+                 restore_shardings=None):
         self.step_fn = step_fn
         self.init_state_fn = init_state_fn
         self.next_batch_fn = next_batch_fn
@@ -68,6 +75,7 @@ class Trainer:
         self.keep_last = keep_last
         self.fail_at = fail_at or set()
         self.async_ckpt = async_ckpt
+        self.restore_shardings = restore_shardings
         self.monitor = StragglerMonitor()
         self.metrics_log: list[dict] = []
         self.step_times: list[float] = []
@@ -79,7 +87,8 @@ class Trainer:
 
         state = self.init_state_fn()
         if ckpt.latest_step(self.ckpt_dir) is not None:
-            return ckpt.restore(state, self.ckpt_dir)
+            return ckpt.restore(state, self.ckpt_dir,
+                                shardings=self.restore_shardings)
         return state, 0
 
     def run(self, total_steps: int, *, max_restarts: int = 10):

@@ -373,7 +373,15 @@ class DisaggEngine:
     of them share one ``MetricsCollector`` and one outputs dict. The
     decode options are the colocated engine's, but for chunked prefill
     and prefix sharing, which the reference does not compose with
-    migration either."""
+    migration either.
+
+    A prefill is harvested once the card has finished it, so which decode
+    steps run before a prompt joins the batch depends on the card's and
+    the host's speed, and with it the step at which a budgeted freeze
+    quantizes each page. ``block_prefill`` harvests every prefill in the
+    iteration that dispatched it, waiting for the card: the schedule is
+    then the CPU's on every machine, which replays that compare two
+    engines need."""
 
     def __init__(self, params, cfg, *, device="cuda",
                  prefill_workers: int = 1, decode_workers: int = 1,
@@ -388,7 +396,8 @@ class DisaggEngine:
                  speculate: int = 0, draft: tuple | None = None,
                  tracer=None, exporter=None, offload_pages: bool = False,
                  preempt: bool = False, admission: str = "fcfs",
-                 itl_slo_s: float | None = None):
+                 itl_slo_s: float | None = None,
+                 block_prefill: bool = False):
         if cfg.family != "lm":
             raise ValueError("paged serving drives decoder-only LMs")
         if prefill_workers < 1 or decode_workers < 1:
@@ -454,6 +463,7 @@ class DisaggEngine:
         self.freeze_async = self.decode[0].freeze_async
         self.eos_id = eos_id
         self.preempt = preempt
+        self.block_prefill = block_prefill
         self.overload = _make_overload(
             self.metrics, offload_pages=offload_pages, preempt=preempt,
             admission=admission, itl_slo_s=itl_slo_s, router=self.router)
@@ -548,7 +558,7 @@ class DisaggEngine:
                     progressed |= bool(om.try_restore(dw, now_fn))
             self.router.route_prefill(self.prefills)
             for pw in self.prefills:
-                for fin in pw.step(now_fn):
+                for fin in pw.step(now_fn, block=self.block_prefill):
                     self.router.stage(fin)
                     progressed = True
             progressed |= bool(self.router.route_decode(self.decode, place))

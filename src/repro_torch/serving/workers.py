@@ -1221,10 +1221,11 @@ class PrefillWorker:
         tr.async_end(self._trk, "prefill", req.id, rid=req.id)
         return fin
 
-    def step(self, now_fn) -> list[FinishedPrefill]:
+    def step(self, now_fn, block: bool = False) -> list[FinishedPrefill]:
         """Advance the owned-pool worker: dispatch the queue head if idle
         (and its prompt pages fit), harvest the in-flight prefill once the
-        card finished it. Returns 0 or 1 finished prefills."""
+        card finished it (at once when ``block``, waiting for the card).
+        Returns 0 or 1 finished prefills."""
         if self.pool is not None:
             raise ValueError("step() drives an owned-pool worker; a "
                              "colocated one runs run_inline or chunks")
@@ -1235,7 +1236,8 @@ class PrefillWorker:
         # harvest only once the prefill, the gathers and any solve landed:
         # to_host() on work still in flight would stall the caller's decode
         # loop
-        if self._inflight is not None and self._inflight[3].is_ready():
+        if self._inflight is not None and (block
+                                           or self._inflight[3].is_ready()):
             return [self._harvest(now_fn)]
         return []
 

@@ -57,6 +57,15 @@ def _mixed_state(seed=0):
             "step": torch.tensor(3, dtype=torch.int32)}
 
 
+def items_like(tree):
+    """A tree of (replicated) placements shaped like ``tree``."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda _: (Replicate(),), tree)
+
+
 def _assert_bitwise(a, b):
     la, lb = items(a), items(b)
     assert [k for k, _ in la] == [k for k, _ in lb]
@@ -111,8 +120,13 @@ def test_restore_validates_tree_shapes_and_refuses_shardings(tmp_path):
     other["params"]["layers"][0]["w"] = torch.zeros(3, 4)
     with pytest.raises(ValueError, match="expected"):
         ckpt.restore(other, d)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+    # reshard-on-load takes a tree of placements matching the state's,
+    # and a mesh (given, or a DTensor leaf's)
+    with pytest.raises(ValueError, match="shardings/tree mismatch"):
         ckpt.restore(_mixed_state(), d, shardings={})
+    with pytest.raises(ValueError, match="no mesh"):
+        ckpt.restore(_mixed_state(), d, shardings=items_like(
+            _mixed_state()))
     with pytest.raises(FileNotFoundError):
         ckpt.restore(_mixed_state(), str(tmp_path / "none"))
 

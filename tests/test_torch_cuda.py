@@ -1529,7 +1529,8 @@ def test_frozen_migrated_pages_read_through_the_kernel_match_gather(gen):
         eng = DisaggEngine(params, cfg, device="cuda", migrate="frozen",
                            max_slots=2, block_size=8, max_seq_len=48,
                            kv_quant="kmeans_ls@16", record_logits=True,
-                           attn_impl=impl, freeze_async=False)
+                           attn_impl=impl, freeze_async=False,
+                           block_prefill=True)
         n0 = paged_decode_attention.launches
         out = eng.generate(prompts, max_new_tokens=8)
         runs[impl] = (eng, out, paged_decode_attention.launches - n0)

@@ -558,3 +558,59 @@ def test_frozen_payload_is_harvested_only_once_its_solve_is_ready(qwen):
     assert p.frozen[0].dtype == torch.uint8 and not p.frozen[0].is_cuda
     assert pw.counters["migrate_solves"] == 1
     assert pw.alloc.num_free == pw.num_blocks - 1
+
+
+def _slow_card(monkeypatch, polls):
+    """A card slower than the host: every payload reads not ready for its
+    first ``polls`` polls (on the CPU a payload is ready at once)."""
+    from repro_torch.serving import transfer
+
+    seen = {}
+
+    def is_ready(self):
+        seen[id(self)] = n = seen.get(id(self), 0) + 1
+        return n > polls
+
+    monkeypatch.setattr(transfer.PagePayload, "is_ready", is_ready)
+
+
+def test_replay_schedule_does_not_depend_on_the_cards_timing(qwen,
+                                                               monkeypatch):
+    """With a budgeted freeze the step at which a page is quantized
+    depends on when each prompt joins the decode batch. On a card slower
+    than the host, decode steps run before the next prefill is harvested
+    and the logits move; with ``block_prefill`` (the launcher's replays)
+    greedy tokens and logits are bitwise those of the CPU's schedule."""
+    cfg, params = qwen
+    prompts = _prompts(cfg, 5, (16, 16, 16))
+    kw = dict(KW, max_slots=3, max_seq_len=40, kv_quant="kmeans_ls@16",
+              freeze_async=False, freeze_page_budget=1)
+
+    def run(**extra):
+        eng = DisaggEngine(params, cfg, device="cpu", migrate="fp", **kw,
+                           **extra)
+        return eng, eng.generate(prompts, max_new_tokens=6)
+
+    base, out = run()
+    _slow_card(monkeypatch, 3)
+    slow, _ = run()
+    blocked, blocked_out = run(block_prefill=True)
+    same = lambda eng: all(np.array_equal(eng.request_logits[i],
+                                          base.request_logits[i])
+                           for i in range(len(prompts)))
+    assert not same(slow)               # the slow card changes the replay
+    assert blocked_out == out and same(blocked)
+
+
+def test_launcher_replays_block_on_each_prefill(qwen):
+    """``_make_engine`` builds a disagg replay (recorded logits) with
+    ``block_prefill`` and the served engine without it."""
+    from repro_torch.launch import serve
+
+    cfg, params = qwen
+    args = serve.parse_args(["--reduced", "--device", "cpu", "--engine",
+                             "disagg"])
+    assert serve._make_engine(params, cfg, args, kv_quant=None,
+                              record_logits=True).block_prefill
+    assert not serve._make_engine(params, cfg, args,
+                                  kv_quant=None).block_prefill

@@ -480,21 +480,32 @@ def test_launcher_trains_on_the_cpu_and_resumes(tmp_path, capsys):
 
 
 def test_launcher_refuses_a_mesh_and_defaults_to_the_card(tmp_path):
+    """A mesh is taken (one rank a device); a rank count that does not
+    match it, or a size below 1, is refused. The default device is the
+    card, on a mesh too."""
     from repro_torch.launch import train
 
-    for flags in (["--data-par", "2"], ["--model-par", "4"]):
-        with pytest.raises(SystemExit, match="ROADMAP A4"):
+    args = train.parse_args(["--reduced", "--data-par", "2",
+                             "--model-par", "4", "--host-devices", "8"])
+    assert (args.data_par, args.model_par, args.host_devices) == (2, 4, 8)
+    for flags in (["--data-par", "2", "--host-devices", "8"],
+                  ["--model-par", "4", "--host-devices", "2"],
+                  ["--data-par", "0"]):
+        with pytest.raises(SystemExit, match="refused"):
             train.parse_args(["--reduced"] + flags)
-    args = train.parse_args(["--reduced", "--host-devices", "8"])
-    assert args.device == "cuda"
+    args = train.parse_args(["--reduced"])
+    assert args.device == "cuda" and args.host_devices is None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train.run(args)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train.main(["--reduced", "--data-par", "2"])
 
 
 def test_training_modules_run_without_jax(tmp_path):
-    """With jax blocked: import every training module of the port and run
-    the launcher on the CPU."""
+    """With jax blocked: import every training and distribution module of
+    the port, run the launcher on the CPU, then on a 1 x 2 mesh of two
+    spawned gloo ranks."""
     code = textwrap.dedent(f"""
         import sys
         sys.modules["jax"] = None
@@ -503,18 +514,27 @@ def test_training_modules_run_without_jax(tmp_path):
         import repro_torch.checkpoint.ckpt, repro_torch.models.mlp
         import repro_torch.optim, repro_torch.quant.qat
         import repro_torch.runtime.ftolerance, repro_torch.train.step
+        import repro_torch.launch.mesh, repro_torch.runtime.sharding
+        import repro_torch.runtime.hints, repro_torch.runtime.pipeline
+        import repro_torch.quant.gradcomp, repro_torch.launch.host_gloo
         from repro_torch.launch import train
-        r = train.main(["--reduced", "--device", "cpu", "--steps", "2",
-                        "--batch", "2", "--seq", "8", "--ckpt-dir",
-                        {str(tmp_path)!r}])
-        assert len(r["trainer"].metrics_log) == 2
-        assert not any(m == "repro" or m.startswith(("repro.", "jax"))
-                       for m in sys.modules if sys.modules[m] is not None)
-        print("ok")
+        if __name__ == "__main__":
+            r = train.main(["--reduced", "--device", "cpu", "--steps", "2",
+                            "--batch", "2", "--seq", "8", "--ckpt-dir",
+                            {str(tmp_path / "one")!r}])
+            assert len(r["trainer"].metrics_log) == 2
+            r = train.main(["--reduced", "--device", "cpu", "--steps", "2",
+                            "--batch", "2", "--seq", "8", "--model-par",
+                            "2", "--ckpt-dir", {str(tmp_path / "mesh")!r}])
+            assert r["step"] == 2 and len(r["ranks"]) == 2
+            assert not any(m == "repro" or m.startswith(("repro.", "jax"))
+                           for m in sys.modules
+                           if sys.modules[m] is not None)
+            print("ok")
     """)
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                OMP_NUM_THREADS="1")
     r = subprocess.run([sys.executable, "-c", code], env=env,
-                       capture_output=True, text=True, timeout=120)
+                       capture_output=True, text=True, timeout=300)
     assert r.returncode == 0 and r.stdout.strip().endswith("ok"), \
         r.stderr[-2000:]
