@@ -1,8 +1,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): builds the CUDA
 kernels from this checkout (paged attention, the codebook-dequant matmul
 and batched FISTA, one nvcc each, in parallel, beside the phases that
-launch no kernel: ``train``, ``static-ssm``, ``static-families`` and
-``dist``, which run first), holds each against its
+launch no kernel: ``train``, ``static-ssm``, ``static-families``,
+``dist`` and ``dryrun``, which run first), holds each against its
 plain PyTorch version, times it, checks the page-freeze solver on the card
 against the CPU, then serves qwen3-0.6B (full width and depth, bf16,
 seeded random weights) through continuous batching with chunked prefill:
@@ -64,6 +64,11 @@ the (2, 1) and (1, 2) meshes against one rank, the launcher at full
 width and depth on 2 x 1 with its checkpoint restored at 1 x 1, the int8
 cross-pod exchange of full grads against the CPU's, GPipe over 4 stages
 against the sequential forward); no kernel launches there either.
+Phase ``dryrun`` runs in a child process beside them (at the compilers'
+nice 10; no card): qwen3-0.6B's train_4k and decode_32k cells on a fake
+group of 256 ranks and granite's prefill_32k on 512
+(``launch/dryrun.py``), then train (a)'s own step counted on one fake
+device, whose roofline bound is held to the step the card measured.
 The kernel phase also holds the attention kernel against its plain
 version over head dims 8-256 and blocks of 1-128 keys, and times it at
 glm4-9b's decode shape.
@@ -78,6 +83,7 @@ tests/test_torch_cuda.py``) in a child process.
     python3 chip_smoke.py --ssm-readings   # static-ssm's readings alone
     python3 chip_smoke.py --mlp-readings   # train (d)'s readings alone
     python3 chip_smoke.py --dist           # phase dist alone
+    python3 chip_smoke.py --dryrun         # phase dryrun's cells (no card)
 
 Every phase prints its own line; any failure exits non-zero. The last line
 is ``{"ok": true, "device": {...}}``; the line before it holds the card's
@@ -104,12 +110,10 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# the H100 SXM's HBM3 rate, the one constant the port's rooflines share
-from repro_torch.device import HBM_BYTES_PER_S  # noqa: E402
-
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-F32_FLOPS = 67e12              # f32 outside the tensor cores
-BF16_FLOPS = 989e12            # bf16 tensor cores, f32 accumulation
+# the H100 SXM's peaks (HBM3 rate; f32 outside the tensor cores, bf16 on
+# them), defined once for every roofline of the port
+from repro_torch.device import (BF16_FLOPS, F32_FLOPS,  # noqa: E402
+                                HBM_BYTES_PER_S)
 # kernel vs plain version: f32 pools at the reference's bar
 # (tests/test_kernels.py); bf16 pools: both compute in f32 and round the
 # output once to bf16, so they differ by at most a bf16 ulp or two
@@ -4139,6 +4143,108 @@ def check_dist() -> dict:
     return dict(a=a, launches=launches)
 
 
+# ----------------------------------------------------------- phase dryrun
+
+# production cells on fake ranks (launch/dryrun.py): qwen3-0.6B's train
+# and decode cells on 16 x 16 (8 kv heads on a 16-wide model axis) and
+# granite's prefill on 2 x 16 x 16 (24 heads, 40 experts)
+DRYRUN_CELLS = (("qwen3_0_6b", "train_4k", False),
+                ("qwen3_0_6b", "decode_32k", False),
+                ("granite_moe_3b_a800m", "prefill_32k", True))
+# train (a)'s step counted on one fake device: its roofline bound may not
+# exceed the step the card measured, beyond the spread of the median
+DRYRUN_SHARE_LIMIT = 1.05
+
+
+def dryrun_main() -> int:
+    """``--dryrun``: phase dryrun's work, on the host (no card needed):
+    the production cells on a fake group of 256 or 512 ranks, then the
+    count of train (a)'s step (qwen3-0.6B full, one device, 8 x 1024).
+    Prints a line a cell; the last line is one JSON object of the
+    results, kernel launches included."""
+    import logging
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import (mesh_name, run_cell, summary,
+                                           train_step_counts)
+    from repro_torch.launch.mesh import join_fake
+
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+        logging.ERROR)
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+
+    def run():
+        cells = []
+        for arch, shape, mp in DRYRUN_CELLS:
+            join_fake(512 if mp else 256)
+            cell = run_cell(arch, shape, multi_pod=mp)
+            cells.append(cell)
+            phase("dryrun", f"{arch} {shape} {mesh_name(mp)}: "
+                  f"{summary(cell)}")
+            if cell["status"] != "ok":
+                raise AssertionError(f"dryrun: {cell}")
+        dist.destroy_process_group()
+        st, rl = train_step_counts(get_config("qwen3_0_6b"), 8, 1024)
+        return cells, st, rl
+
+    (cells, st, rl), launches = counting_launches(run)
+    print(json.dumps({"cells": cells, "train_a": dict(
+        st, bound_s=rl.step_time_lower_bound, roofline=rl.as_dict()),
+        "launches": launches, "s": time.perf_counter() - t0}))
+    return 0
+
+
+def start_dryrun():
+    """Phase dryrun in a child process (``--dryrun``) at nice 10, as the
+    kernel build's compilers: it runs beside the kernel-free phases."""
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dryrun"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        preexec_fn=lambda: os.nice(10))
+
+
+def check_dryrun(proc, train_median_s: float) -> dict:
+    """Wait for phase dryrun's child; print its cells, and train (a)'s
+    counted FLOPs and bytes and their bound beside the step the card
+    measured. Fails if a cell failed, a kernel launched, or the bound
+    exceeds the measured step by more than ``DRYRUN_SHARE_LIMIT``."""
+    name = "dryrun"
+    t0 = time.perf_counter()
+    out, err = proc.communicate()
+    waited = time.perf_counter() - t0
+    lines = out.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"dryrun: rc {proc.returncode}\n{out[-3000:]}"
+                             f"\n{err[-3000:]}")
+    for line in lines[:-1]:
+        print(line)
+    r = json.loads(lines[-1])
+    a = r["train_a"]
+    share = a["bound_s"] / train_median_s
+    rl = a["roofline"]
+    phase(name, f"train (a)'s step counted (qwen3-0.6b, 1 x 1, bf16, 8 x "
+          f"1024, fake): {a['flops'] - a['flops_f32']:.6g} bf16 FLOPs, "
+          f"{a['flops_f32']:.6g} f32 FLOPs, {a['hbm_bytes']:.6g} HBM B, "
+          f"{a['n_ops']} ops, peak {a['peak_bytes'] / 2**30:.2f} GiB; "
+          f"t_compute {rl['t_compute_s']:.4f} s, t_memory "
+          f"{rl['t_memory_s']:.4f} s: bound {a['bound_s']:.4f} s "
+          f"({rl['dominant']}) against the measured median step "
+          f"{train_median_s:.4f} s: share {share:.4f} (limit "
+          f"{DRYRUN_SHARE_LIMIT})")
+    if share > DRYRUN_SHARE_LIMIT:
+        raise AssertionError(f"dryrun: the bound's share {share:.4f} of "
+                             f"the measured step: the count is wrong")
+    if any(r["launches"].values()):
+        raise AssertionError(f"dryrun: kernel launches {r['launches']}")
+    phase(name, f"kernel launches in the child: {r['launches']}; the "
+          f"child's {r['s']:.1f} s beside the other phases, "
+          f"{waited:.1f} s waited for after them")
+    return dict(r, share=share, waited_s=waited)
+
+
 def in_thread(fn) -> dict:
     """Start ``fn()`` in a thread (a build: its compilers run as
     processes); ``joined`` waits for it."""
@@ -4201,11 +4307,15 @@ def main() -> int:
         build.load_all(sources)
 
     nv = in_thread(build_niced)
-    trl = check_train()["launches"]
+    dr = start_dryrun()
+    tr = check_train()
+    trl = tr["launches"]
     ssm = check_static_ssm()["launches"]
     check_static_families()
     dsl = check_dist()["launches"]
     nv_s = joined(nv)
+    dry = check_dryrun(dr, tr["a"]["median_s"])
+    drl = dry["launches"]
     for name in sources:
         log = build.library_path(name).with_suffix(".log")
         ptxas = sorted({ln.strip() for ln in log.read_text().splitlines()
@@ -4275,6 +4385,7 @@ def main() -> int:
          "static_ssm_launches": ssm["paged_decode_attention"],
          "train_launches": trl["paged_decode_attention"],
          "dist_launches": dsl["paged_decode_attention"],
+         "dryrun_launches": drl["paged_decode_attention"],
          **k},
         {"name": "quant_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
@@ -4289,13 +4400,15 @@ def main() -> int:
          "static_ssm_launches": ssm["quant_matmul"],
          "train_launches": trl["quant_matmul"],
          "dist_launches": dsl["quant_matmul"],
+         "dryrun_launches": drl["quant_matmul"],
          "solvers_launches": so["quant_matmul"], **q},
         {"name": "quant_matmul_stacked", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
          "replaces": "src/repro/kernels/quant_matmul.py:105",
          "static_ssm_launches": ssm["quant_matmul_stacked"],
          "train_launches": trl["quant_matmul_stacked"],
-         "dist_launches": dsl["quant_matmul_stacked"], **st},
+         "dist_launches": dsl["quant_matmul_stacked"],
+         "dryrun_launches": drl["quant_matmul_stacked"], **st},
         {"name": "fista_quant", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fista_quant.cu",
          "replaces": "src/repro/kernels/fista_quant.py:79",
@@ -4303,7 +4416,8 @@ def main() -> int:
          "solvers_launches": so["fista_quant"],
          "static_ssm_launches": ssm["fista_quant"],
          "train_launches": trl["fista_quant"],
-         "dist_launches": dsl["fista_quant"], **f["quant"], **pb},
+         "dist_launches": dsl["fista_quant"],
+         "dryrun_launches": drl["fista_quant"], **f["quant"], **pb},
         {"name": "fista_freeze", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fista_quant.cu",
          "replaces": "src/repro/kernels/fista_quant.py:79",
@@ -4315,7 +4429,8 @@ def main() -> int:
          "serve_iter_l1_tpot_p50_ms": it["tpot_p50_ms"],
          "static_ssm_launches": ssm["fista_freeze"],
          "train_launches": trl["fista_freeze"],
-         "dist_launches": dsl["fista_freeze"], **f["freeze"]},
+         "dist_launches": dsl["fista_freeze"],
+         "dryrun_launches": drl["fista_freeze"], **f["freeze"]},
     ]}
     phase("done", f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
@@ -4329,5 +4444,6 @@ def main() -> int:
 if __name__ == "__main__":
     sys.exit({"--ssm-readings": ssm_readings,
               "--mlp-readings": mlp_readings,
-              "--dist": dist_main}.get(
+              "--dist": dist_main,
+              "--dryrun": dryrun_main}.get(
                   " ".join(sys.argv[1:]), main)())

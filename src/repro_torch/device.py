@@ -8,10 +8,19 @@ from __future__ import annotations
 
 import torch
 
-#: HBM3 bandwidth of the H100 SXM (NVIDIA data sheet), the memory rate of
-#: the port's rooflines: ``obs.export``'s gauges and ``chip_smoke.py``'s
-#: kernel bounds
+# The H100 SXM's peaks (NVIDIA data sheet, dense, at the 700 W limit),
+# defined here once: ``analysis.roofline``, ``obs.export``'s gauges and
+# ``chip_smoke.py``'s kernel bounds read these objects.
+
+#: HBM3 bandwidth, the memory rate of every roofline of the port
 HBM_BYTES_PER_S = 3.35e12
+#: bf16 on the tensor cores, f32 accumulation
+BF16_FLOPS = 989e12
+#: f32 outside the tensor cores: the port runs with TF32 off
+F32_FLOPS = 67e12
+#: NVLink 4, one way: 900 GB/s both ways, and a device's collective bytes
+#: are the bytes it sends
+LINK_BYTES_PER_S = 450e9
 
 
 def resolve_device(device=None) -> torch.device:

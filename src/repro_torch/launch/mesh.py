@@ -21,11 +21,22 @@ gloo on CUDA tensors is not usable on the card (``host_gloo`` says how
 it fails), so ranks that share a GPU join through that module's
 ``gloo_host`` backend: every collective on a CUDA tensor is staged
 through host memory around a CPU gloo collective, explicitly, on every
-call, its bytes counted (``host_bytes``). ``make_production_mesh`` (the 256- and 512-rank
-dry-run meshes) is not ported (ROADMAP A4b).
+call, its bytes counted (``host_bytes``).
+
+``make_production_mesh(multi_pod=)`` is the dry run's mesh: (16, 16) on
+("data", "model"), or (2, 16, 16) with a pod axis, over a default group
+of 256 or 512 ranks, which ``join_fake(n)`` makes in one process (a
+fake process group: collectives return at once and move nothing). Its
+device type is ``"cpu"``: a fake step needs no device, and a CUDA mesh
+cannot be built without a GPU. The dry run counts the op sequence of the
+CUDA step all the same: the one branch on the device type under a
+step's models and train code, ``quant.serve.qmatmul``'s dense fallback
+for a stacked QuantizedTensor on the CPU, is not on a step's path (its
+weights are dense).
 """
 from __future__ import annotations
 
+import math
 import os
 import pickle
 import shutil
@@ -197,6 +208,34 @@ def make_host_mesh(data: int = 1, model: int = 1, *, pod: int | None = None,
                                 mesh_dim_names=("data", "model"))
     return init_device_mesh(device_type, (pod, data, model),
                             mesh_dim_names=("pod", "data", "model"))
+
+
+def join_fake(n: int) -> None:
+    """Make this process the one rank of a fake default process group of
+    ``n`` ranks (backend ``"fake"``): a mesh over it shards as a mesh of
+    ``n`` devices would, and its collectives return at once. What the
+    dry run joins first."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """16 x 16 = 256 devices a pod; ``multi_pod`` stacks 2 pods -> 512,
+    on a ``"cpu"`` mesh over the default group (module docstring)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    n = math.prod(shape)
+    have = dist.get_world_size() if dist.is_initialized() else 0
+    if have != n:
+        raise RuntimeError(
+            f"mesh {shape} needs a process group of {n} ranks, have {have}; "
+            f"the dry run must first join one: "
+            f"repro_torch.launch.mesh.join_fake({n})")
+    if multi_pod:
+        return make_host_mesh(16, 16, pod=2, device_type="cpu")
+    return make_host_mesh(16, 16, device_type="cpu")
 
 
 def batch_axes(mesh) -> tuple:

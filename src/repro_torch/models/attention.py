@@ -18,8 +18,9 @@ import math
 import torch
 
 from repro_torch.quant.serve import qmatmul
-from repro_torch.runtime.hints import (hint, is_dtensor, model_axis_size,
-                                      per_shard)
+from repro_torch.runtime.hints import (hint, is_dtensor, merge_heads,
+                                      model_axis_size, per_shard,
+                                      split_heads)
 
 from .cache import as_adapter, supports_fused_decode, supports_fused_prefill
 from .ffn import _dense
@@ -146,11 +147,11 @@ def attention(params, cfg, spec, x, positions, *, cache=None,
     ``spec.cross_attn`` layer: ``cross_kv`` is {"enc_out": (B, Se, D)}
     (projected here) or the precomputed {"k", "v"} of ``init_cross_kv``.
     Returns (out, new_cache)."""
-    B, S, _ = x.shape
+    S = x.shape[1]
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = qmatmul(x, params["wq"]).reshape(B, S, H, Dh)
-    k = qmatmul(x, params["wk"]).reshape(B, S, Hkv, Dh)
-    v = qmatmul(x, params["wv"]).reshape(B, S, Hkv, Dh)
+    q = split_heads(qmatmul(x, params["wq"]), H, Dh)
+    k = split_heads(qmatmul(x, params["wk"]), Hkv, Dh)
+    v = split_heads(qmatmul(x, params["wv"]), Hkv, Dh)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
@@ -180,27 +181,26 @@ def attention(params, cfg, spec, x, positions, *, cache=None,
     else:
         out = sdpa(q, k, v, causal=causal, window=spec.window,
                    softcap=cfg.attn_softcap, q_chunk=cfg.attn_q_chunk)
-    y = qmatmul(out.reshape(B, S, H * Dh), params["wo"])
+    y = qmatmul(merge_heads(out), params["wo"])
 
     if spec.cross_attn:
         if cross_kv is None:
             raise ValueError("cross-attention needs the encoder's K/V")
         ckv = (init_cross_kv(params, cfg, cross_kv["enc_out"])
                if "enc_out" in cross_kv else cross_kv)
-        cq = (x @ params["c_wq"]).reshape(B, S, H, Dh)
+        cq = split_heads(qmatmul(x, params["c_wq"]), H, Dh)
         co = sdpa(cq, ckv["k"], ckv["v"], causal=False,
                   q_chunk=cfg.attn_q_chunk)
-        y = y + co.reshape(B, S, H * Dh) @ params["c_wo"]
+        y = y + qmatmul(merge_heads(co), params["c_wo"])
     return hint(y, "hidden"), new_cache
 
 
 def init_cross_kv(params, cfg, enc_out) -> dict:
     """The encoder's K/V for one decoder layer, computed once (prefill)
     and reused every decode step."""
-    B, Se, _ = enc_out.shape
     Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
-    return {"k": (enc_out @ params["c_wk"]).reshape(B, Se, Hkv, Dh),
-            "v": (enc_out @ params["c_wv"]).reshape(B, Se, Hkv, Dh)}
+    return {"k": split_heads(qmatmul(enc_out, params["c_wk"]), Hkv, Dh),
+            "v": split_heads(qmatmul(enc_out, params["c_wv"]), Hkv, Dh)}
 
 
 # ------------------------------------------------------------------ MLA
@@ -230,10 +230,10 @@ def mla_attention(params, cfg, spec, x, positions, *, cache=None,
     H = cfg.n_heads
     r, nope, ropd, dv = (cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
                          cfg.v_head_dim)
-    q = (x @ params["wq"]).reshape(B, S, H, nope + ropd)
+    q = split_heads(qmatmul(x, params["wq"]), H, nope + ropd)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
-    ckv = x @ params["wdkv"]                                  # (B, S, r)
-    krope = (x @ params["wkr"]).reshape(B, S, 1, ropd)
+    ckv = qmatmul(x, params["wdkv"])                          # (B, S, r)
+    krope = qmatmul(x, params["wkr"]).reshape(B, S, 1, ropd)
     if positions is not None:
         q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
         krope = apply_rope(krope, positions, cfg.rope_theta)
@@ -250,7 +250,7 @@ def mla_attention(params, cfg, spec, x, positions, *, cache=None,
         ckv_use, kr_use, q_off, valid = ckv, krope, 0, None
 
     L = ckv_use.shape[1]
-    kv = (ckv_use @ params["wukv"]).reshape(B, L, H, nope + dv)
+    kv = split_heads(qmatmul(ckv_use, params["wukv"]), H, nope + dv)
     k_nope, vv = kv[..., :nope], kv[..., nope:]
     k = torch.cat([k_nope, kr_use.expand(B, L, H, ropd).to(k_nope.dtype)],
                   dim=-1)
@@ -258,5 +258,5 @@ def mla_attention(params, cfg, spec, x, positions, *, cache=None,
     out = sdpa(qq, k, vv, causal=causal, window=spec.window,
                softcap=cfg.attn_softcap, q_offset=q_off, kv_valid_len=valid,
                q_chunk=cfg.attn_q_chunk)
-    return hint(out.reshape(B, S, H * dv) @ params["wo"], "hidden"), \
+    return hint(qmatmul(merge_heads(out), params["wo"]), "hidden"), \
         new_cache

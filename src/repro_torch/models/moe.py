@@ -19,7 +19,9 @@ import math
 
 import torch
 
-from repro_torch.runtime.hints import hint, per_shard
+from repro_torch.quant.serve import qmatmul
+from repro_torch.runtime.hints import (gather_inner, gather_inner_grad, hint,
+                                      is_dtensor, per_shard)
 
 from .ffn import _act, _dense, init_ffn
 
@@ -80,10 +82,26 @@ def capacity(cfg, S: int) -> int:
 def route(params, cfg, x: torch.Tensor):
     """The router in f32: (top-k weights renormalized (B, S, K) f32,
     expert ids (B, S, K))."""
-    logits = torch.einsum("bsd,de->bse", x.float(), params["router"].float())
+    logits = gather_inner_grad(torch.einsum(
+        "bsd,de->bse", gather_inner(x).float(), params["router"].float()))
     probs = torch.softmax(logits, dim=-1)
     top_w, top_i = torch.topk(probs, cfg.top_k, dim=-1)
     return top_w / top_w.sum(-1, keepdim=True).clamp(min=1e-9), top_i
+
+
+def _experts(x, w):
+    """(B, E, C, d_in) x (E, d_in, d_out) -> (B, E, C, d_out): each
+    expert's slots through its weight. The experts are laid out leading
+    and contiguous first, the order the einsum's batched matmul takes
+    them in (the same product, bit for bit). On a mesh the copy is
+    forced: after a redistribute a DTensor's local block may be laid out
+    otherwise than its global strides say, ``contiguous()`` then skips
+    the copy, and the einsum's reshape cannot view the block (granite's
+    40 experts on a 16-wide model axis)."""
+    xt = x.transpose(0, 1)
+    xt = (xt.clone(memory_format=torch.contiguous_format) if is_dtensor(xt)
+          else xt.contiguous())
+    return torch.einsum("ebcd,edf->ebcf", xt, w).transpose(0, 1)
 
 
 def moe_ffn(params, cfg, x: torch.Tensor) -> torch.Tensor:
@@ -102,11 +120,10 @@ def moe_ffn(params, cfg, x: torch.Tensor) -> torch.Tensor:
     buf = buf.reshape(B, E, C, D) * slot_ok[..., None].to(x.dtype)
     buf = hint(buf, "moe_buf")
 
-    h = torch.einsum("becd,edf->becf", buf, params["w_gate"])
-    h = _act(h, cfg.act) * torch.einsum("becd,edf->becf", buf,
-                                        params["w_up"])
+    h = _experts(buf, params["w_gate"])
+    h = _act(h, cfg.act) * _experts(buf, params["w_up"])
     h = hint(h, "moe_h")
-    out = torch.einsum("becf,efd->becd", h, params["w_down"])
+    out = _experts(h, params["w_down"])
     out = hint(out, "moe_buf")
 
     # combine: gather each assignment's slot back; dropped ones give 0
@@ -121,8 +138,8 @@ def moe_ffn(params, cfg, x: torch.Tensor) -> torch.Tensor:
          * top_w[..., None].to(out.dtype)).sum(dim=2)
     if "shared" in params:
         sh = params["shared"]
-        y = y + (_act(x @ sh["w_gate"], cfg.act) * (x @ sh["w_up"])) \
-            @ sh["w_down"]
+        y = y + qmatmul(_act(qmatmul(x, sh["w_gate"]), cfg.act)
+                        * qmatmul(x, sh["w_up"]), sh["w_down"])
     return hint(y, "hidden")
 
 

@@ -22,7 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.quant.serve import qmatmul
-from repro_torch.runtime.hints import hint
+from repro_torch.runtime.hints import (hint, merge_heads, per_shard,
+                                      split_heads)
 
 from .ffn import _dense
 from .norms import init_rms, rms_norm
@@ -222,35 +223,40 @@ def rwkv6_time_mix(params, cfg, x: torch.Tensor, *, shift_state,
                    wkv_state):
     """x: (B, S, D); shift_state (B, D); wkv_state (B, H, hd, hd) f32.
     Returns (y, the new shift state, the new wkv state)."""
-    B, S, D = x.shape
+    _, S, D = x.shape
     hd = cfg.rwkv_head_dim
     H = D // hd
     prev, new_shift = _token_shift(x, shift_state)
     mix = params["mix"].to(x.dtype)
     xr, xk, xv, xw, xg = (x + (prev - x) * mix[i] for i in range(5))
-    r = qmatmul(xr, params["w_r"]).reshape(B, S, H, hd)
-    k = qmatmul(xk, params["w_k"]).reshape(B, S, H, hd)
-    v = qmatmul(xv, params["w_v"]).reshape(B, S, H, hd)
+    r = split_heads(qmatmul(xr, params["w_r"]), H, hd)
+    k = split_heads(qmatmul(xk, params["w_k"]), H, hd)
+    v = split_heads(qmatmul(xv, params["w_v"]), H, hd)
     g = F.silu(qmatmul(xg, params["w_g"]))
     # the data-dependent decay (Finch), in f32
     dec = params["w0"] + qmatmul(torch.tanh(qmatmul(xw, params["w_lora_a"])),
                                  params["w_lora_b"]).float()
-    w = torch.exp(-torch.exp(dec)).reshape(B, S, H, hd)       # in (0, 1)
+    w = split_heads(torch.exp(-torch.exp(dec)), H, hd)       # in (0, 1)
     u = params["u"].float().reshape(H, hd)[None, :, :, None]
     rf, kf, vf, w = (hint(t.float(), "wkv") for t in (r, k, v, w))
-    if S == 1:
-        ys, s_last = _wkv6_chunk(rf, kf, vf, w, u, wkv_state)
-    else:
+
+    def wkv(rf, kf, vf, w, s0, u):
+        if S == 1:
+            return _wkv6_chunk(rf, kf, vf, w, u, s0)
         c = min(cfg.scan_chunk, S)
         pad = (-S) % c             # w = 1, k = 0: the state passes through
         rf, kf, vf = (_pad_seq(t, pad) for t in (rf, kf, vf))
         wf = _pad_seq(w, pad, 1.0)
-        s_last, ys = wkv_state, []
+        s_last, ys = s0, []
         for chunk in zip(*(t.split(c, dim=1) for t in (rf, kf, vf, wf))):
             y_c, s_last = _wkv6_chunk_matmul(*chunk, u, s_last)
             ys.append(y_c)
-        ys = torch.cat(ys, dim=1)[:, :S]
-    y = ys.reshape(B, S, D).to(x.dtype)
+        return torch.cat(ys, dim=1)[:, :S], s_last
+
+    # on a mesh, each rank's batch rows on their own (the recurrence is
+    # per row): DTensor's einsums fail on its sharded blocks
+    ys, s_last = per_shard(wkv, rf, kf, vf, w, wkv_state, shared=(u,))
+    y = merge_heads(ys).to(x.dtype)
     y = rms_norm(y, params["ln_out"]) * g
     return hint(qmatmul(y, params["w_o"]), "hidden"), new_shift, s_last
 

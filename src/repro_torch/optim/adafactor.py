@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.runtime.hints import is_dtensor
 from repro_torch.tree import leaves, tree_map
 
 
@@ -55,7 +56,10 @@ def update(grads, state, params, *, lr, b2=0.999, eps=1e-30, clip=1.0,
             denom = (vr[..., None] / torch.clamp(
                 vr.mean(-1, keepdim=True)[..., None], min=eps)) \
                 * vc[..., None, :]
-            u = torch.div(g32, denom.add_(eps).sqrt_(), out=denom)
+            if is_dtensor(denom):   # DTensor refuses in-place on partials
+                u = g32 / (denom + eps).sqrt()
+            else:
+                u = torch.div(g32, denom.add_(eps).sqrt_(), out=denom)
             new_v = {"vr": vr.to(vdict["vr"].dtype),
                      "vc": vc.to(vdict["vc"].dtype)}
         else:

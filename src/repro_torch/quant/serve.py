@@ -21,7 +21,8 @@ import math
 
 import torch
 
-from repro_torch.runtime.hints import gather_data, gather_inner
+from repro_torch.runtime.hints import (gather_data, gather_inner,
+                                      gather_inner_grad)
 from repro_torch.core.types import QuantizedTensor
 from repro_torch.kernels.quant_matmul import quant_matmul, quant_matmul_stacked
 
@@ -38,9 +39,10 @@ def qmatmul(x: torch.Tensor, w) -> torch.Tensor:
     """Drop-in for ``x @ w`` taking dense or QuantizedTensor weights. On
     a mesh, a sequence-sharded DTensor ``x`` is gathered first
     (``hints.gather_inner``) and so are ``w``'s data shards
-    (``hints.gather_data``, FSDP's all-gather)."""
+    (``hints.gather_data``, FSDP's all-gather); the output's grad is
+    gathered likewise (``hints.gather_inner_grad``)."""
     if not isinstance(w, QuantizedTensor):
-        return gather_inner(x) @ gather_data(w)
+        return gather_inner_grad(gather_inner(x) @ gather_data(w))
     K, N = w.shape
     if not w.stacked:
         out = quant_matmul(x.reshape(-1, K).contiguous(),

@@ -41,7 +41,7 @@ from repro_torch import models
 from repro_torch.launch.mesh import spawn
 from repro_torch.optim import stack_layers
 from repro_torch.quant.gradcomp import _quantize_int8
-from repro_torch.train.step import value_and_grad
+from repro_torch.train.step import make_train_step, value_and_grad
 from repro_torch.tree import items
 
 torch.set_num_threads(1)
@@ -248,6 +248,8 @@ def ranks(reference_run, tmp_path_factory):
     calls.append(("pod", R.pod_step, ("qwen3_0_6b", p0, _batches(1)[0], 2,
                                       2)))
     calls.append(("pipe", R.pipeline, _pipe_in()))
+    calls.append(("uneven heads", R.train_steps_uneven_heads,
+                  ((1, 4), _batches(), LR)))
     # last: the group joins again through the host-staging backend
     calls.append(("staged", R.staged,
                   (str(tmp_path_factory.mktemp("staged") / "store"),
@@ -278,6 +280,28 @@ def test_sharded_train_step_matches_the_reference(reference, ranks, mesh):
     sharded = [k for k, pl in got["placements"]
                if any(p.is_shard() for p in pl)]
     assert "embed" in sharded and any("wq" in k for k in sharded)
+
+
+def test_sharded_step_where_heads_do_not_divide_the_model_axis(ranks):
+    """6 query and 2 kv heads on a (1, 4) mesh: each projection's output
+    is gathered over ``model`` before it splits into heads
+    (``hints.split_heads``), as GSPMD reshards, and the grad before it
+    merges back (``hints.merge_heads``). Held to the one-device step over
+    3 steps at the mesh tests' tolerances."""
+    got = ranks["uneven heads"]
+    assert "error" not in got, got.get("error")
+    cfg = R.uneven_heads_cfg()
+    step, opt = make_train_step(cfg, lr=LR)
+    params = models.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    state = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32)}
+    for i, b in enumerate(_batches()):
+        state, m = step(state, {k: torch.from_numpy(v) for k, v in b.items()})
+        for k in ("loss", "ce", "zloss"):
+            assert abs(got["metrics"][i][k] / float(m[k]) - 1) <= LOSS_RTOL
+    one = {k: v.detach().numpy() for k, v in
+           items(stack_layers(state["params"], cfg))}
+    _assert_tree_close(got["params"], one, "uneven heads after 3 steps")
 
 
 def test_sharded_moe_train_step_matches_the_reference_1x1(ranks):

@@ -343,10 +343,24 @@ def _worker(attn_impl, pb, *, lens, table, frozen, active):
 
 
 def test_the_roofline_rate_is_the_h100s_and_defined_once():
+    import chip_smoke as smoke
+    from repro_torch.analysis import roofline
     from repro_torch.obs import export
 
     assert device.HBM_BYTES_PER_S == 3.35e12
     assert export.HBM_BYTES_PER_S is device.HBM_BYTES_PER_S
+    # the peaks too: the roofline's defaults and chip_smoke.py's bounds
+    # read device.py's objects
+    assert (device.BF16_FLOPS, device.F32_FLOPS) == (989e12, 67e12)
+    assert device.LINK_BYTES_PER_S == 450e9
+    r = roofline.Roofline(flops=0.0, hbm_bytes=0.0, collective_bytes=0.0)
+    assert r.hbm_bw is device.HBM_BYTES_PER_S
+    assert r.peak_bf16 is device.BF16_FLOPS
+    assert r.peak_f32 is device.F32_FLOPS
+    assert r.link_bw is device.LINK_BYTES_PER_S
+    assert smoke.HBM_BYTES_PER_S is device.HBM_BYTES_PER_S
+    assert smoke.BF16_FLOPS is device.BF16_FLOPS
+    assert smoke.F32_FLOPS is device.F32_FLOPS
 
 
 def test_page_bytes_of_the_served_bf16_pages():

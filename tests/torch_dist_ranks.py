@@ -75,6 +75,43 @@ def train_steps(arch, shape, ref_params, batches, lr):
     return _rank0(out)
 
 
+def uneven_heads_cfg():
+    """qwen3 at the test's dims but with 6 query and 2 kv heads: neither
+    count divides a 4-wide model axis, though the projections' widths
+    (96 and 32) do, so their shards end inside a head."""
+    return dataclasses.replace(small_cfg("qwen3_0_6b"), n_heads=6,
+                               n_kv_heads=2)
+
+
+def train_steps_uneven_heads(shape, batches, lr):
+    """The sharded train step of ``uneven_heads_cfg`` on a ``shape`` mesh
+    from seeded params; the metrics and params as ``train_steps``. A
+    failure comes back as its traceback (the group runs on)."""
+    import traceback
+
+    cfg = uneven_heads_cfg()
+    try:
+        mesh = make_host_mesh(*shape, device_type="cpu")
+        step, opt = make_train_step(cfg, mesh, lr=lr)
+        params = models.init_params(cfg, torch.Generator().manual_seed(0),
+                                    "cpu")
+        _, shard = train_state_specs(cfg, mesh, opt)
+        state = distribute({"params": params, "opt": opt.init(params),
+                            "step": torch.zeros((), dtype=torch.int32)},
+                           mesh, shard)
+        metrics = []
+        for b in batches:
+            batch = distribute_batch({k: torch.from_numpy(v)
+                                      for k, v in b.items()}, mesh)
+            state, m = step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+        out = {"metrics": metrics,
+               "params": _full_np(stack_layers(state["params"], cfg))}
+    except Exception:
+        out = {"error": traceback.format_exc()[-3000:]}
+    return _rank0(out)
+
+
 def decode(arch, shape, ref_params, prompt, n_steps):
     """Prefill ``prompt`` (B, S0) into a (B, S0 + n_steps) cache, then
     ``n_steps`` greedy decode steps, on the mesh and on one device.
