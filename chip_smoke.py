@@ -78,12 +78,23 @@ last on a full-width projection served through the dequant kernel, and
 kernel 4's page-solver and batch-solve options.
 Before serving it runs the card tests (``pytest -m cuda
 tests/test_torch_cuda.py``) in a child process.
+Phase ``examples`` runs the port's five examples (``examples/torch_*.py``)
+through their ``main()`` on the card: quickstart, train_lm (with a
+crash recovered) and train_quantized_mlp beside the kernel build (no
+kernel launches), serve_quantized and trace_serving after it (kernel 1
+reads their frozen pages; the trace reconciles); then a count method
+registered at run time (``uniform``: L evenly spaced levels, nearest
+assignment, a torch device solver) freezes the pages of the reduced
+qwen3 served with ``--kv-quant uniform@16`` on the fused engine, and its
+fused-vs-gather replay is held to a limit.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ssm-readings   # static-ssm's readings alone
     python3 chip_smoke.py --mlp-readings   # train (d)'s readings alone
     python3 chip_smoke.py --dist           # phase dist alone
     python3 chip_smoke.py --dryrun         # phase dryrun's cells (no card)
+    python3 chip_smoke.py --examples       # phase examples alone
+    python3 chip_smoke.py --uniform-readings  # its replay's readings
 
 Every phase prints its own line; any failure exits non-zero. The last line
 is ``{"ok": true, "device": {...}}``; the line before it holds the card's
@@ -113,7 +124,8 @@ import torch  # noqa: E402
 # the H100 SXM's peaks (HBM3 rate; f32 outside the tensor cores, bf16 on
 # them), defined once for every roofline of the port
 from repro_torch.device import (BF16_FLOPS, F32_FLOPS,  # noqa: E402
-                                HBM_BYTES_PER_S)
+                                HBM_BYTES_PER_S, card_line)
+from repro_torch.models.mlp import MLP_STEPS  # noqa: E402
 # kernel vs plain version: f32 pools at the reference's bar
 # (tests/test_kernels.py); bf16 pools: both compute in f32 and round the
 # output once to bf16, so they differ by at most a bf16 ulp or two
@@ -292,13 +304,6 @@ def plan_text(r: dict) -> str:
     return (f"S={r['splits']} x {r['split_steps']} steps, {r['stages']} "
             f"stages, cluster {tuple(r['cluster'])}, {r['smem']} B smem, "
             f"{r['blocks']} blocks")
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def phase(name: str, msg: str) -> None:
@@ -3284,10 +3289,8 @@ RECOVER_FAIL = {5}
 RECOVER_B, RECOVER_S = 8, 1024
 # (c) Adafactor with bf16 factored state: qwen2-vl-72b at full width
 VL_TRAIN_LAYERS, VL_TRAIN_B, VL_TRAIN_S, VL_TRAIN_STEPS = 2, 1, 512, 3
-# (d) the paper's MLP (benchmarks/common.py:train_paper_mlp, then
-# examples/train_quantized_mlp.py's PTQ + QAT of the last layer)
-MLP_STEPS, MLP_LR, MLP_BATCH = 400, 1e-3, 256
-QAT_STEPS, QAT_LR = 100, 3e-3
+# (d) the paper's MLP (models/mlp.py: train_paper_mlp, then the PTQ + QAT
+# of the last layer of examples/torch_train_quantized_mlp.py)
 QAT_SPECS = tuple(f"kmeans_ls@{n}:weighted=true" for n in (4, 8, 16))
 # card vs CPU by relative norm, from ``--mlp-readings`` on seeds 0-2
 # (NVIDIA H100 80GB HBM3 at 700 W, PERF.md §6). The first step's grads
@@ -3301,72 +3304,16 @@ MLP_GRAD_REL_TOL = 5e-5
 MLP_REL_TOL = 1e-4
 
 
-def synthetic_mnist(n_train: int = 4096, n_test: int = 1024,
-                    seed: int = 0) -> tuple:
-    """The paper's §4.1 data stand-in (benchmarks/common.py): 10
-    class-conditioned 784-d blob patterns, noise 0.7."""
-    rng = np.random.default_rng(seed)
-    protos = rng.uniform(0, 1, (10, 784)) * (
-        rng.uniform(0, 1, (10, 784)) > 0.6)
-
-    def make(n, s):
-        r = np.random.default_rng(s)
-        y = r.integers(0, 10, n)
-        x = protos[y] + r.normal(0, 0.7, (n, 784))
-        return np.clip(x, 0, 1).astype(np.float32), y.astype(np.int32)
-
-    return make(n_train, seed + 1), make(n_test, seed + 2)
-
-
-def mlp_sgd(params, x, y, loss_fn, steps: int, update) -> list:
-    """``steps`` of SGD on 256-row batches taken in order (mod n), as
-    the reference's scan: ``update(p, g)`` per leaf."""
-    from repro_torch.tree import leaves, tree_map, unflatten
-
-    ar = torch.arange(MLP_BATCH, device=x.device)
-    for i in range(steps):
-        idx = (ar + i * MLP_BATCH) % x.shape[0]
-        p = tree_map(lambda t: t.detach().requires_grad_(), params)
-        grads = torch.autograd.grad(loss_fn(p, x[idx], y[idx]), leaves(p))
-        params = unflatten(params, [update(t.detach(), g) for t, g in
-                                    zip(leaves(p), grads)])
-    return params
-
-
-def train_paper_mlp(params, x, y, steps: int = MLP_STEPS,
-                    lr: float = MLP_LR) -> list:
-    """benchmarks/common.py:train_paper_mlp's loop (SGD at 3 x lr)."""
-    from repro_torch.models.mlp import mlp_loss
-
-    return mlp_sgd(params, x, y, mlp_loss, steps,
-                   lambda p, g: p - lr * g * 3.0)
-
-
-def qat_recover(params, cb, x, y, steps: int = QAT_STEPS,
-                lr: float = QAT_LR) -> list:
-    """examples/train_quantized_mlp.py's QAT: fine-tune through
-    ``fake_quant`` of the last layer's weights on codebook ``cb``, then
-    snap them to it."""
-    from repro_torch.models.mlp import mlp_loss
-    from repro_torch.quant.qat import fake_quant
-
-    def loss(p, xb, yb):
-        return mlp_loss(p[:-1] + [dict(p[-1], w=fake_quant(p[-1]["w"], cb))],
-                        xb, yb)
-
-    p = mlp_sgd(params, x, y, loss, steps, lambda a, g: a - lr * g)
-    return p[:-1] + [dict(p[-1], w=fake_quant(p[-1]["w"], cb))]
-
-
 def mlp_run(dev, seed: int = 0) -> dict:
     """The MLP from seed ``seed``'s CPU-drawn init, trained on ``dev``:
     the trained params and their train/test accuracies."""
-    from repro_torch.models.mlp import init_mlp, mlp_accuracy
+    from repro_torch.models.mlp import (init_mlp, mlp_accuracy,
+                                        synthetic_mnist, train_paper_mlp)
     from repro_torch.tree import tree_map
 
     (xtr, ytr), (xte, yte) = synthetic_mnist(seed=seed)
     data = [torch.from_numpy(a).to(dev) for a in (xtr, ytr, xte, yte)]
-    p0 = init_mlp(torch.Generator().manual_seed(seed))
+    p0 = init_mlp(torch.Generator().manual_seed(seed), device="cpu")
     params = train_paper_mlp(tree_map(lambda t: t.to(dev), p0), *data[:2])
     return dict(params=params, data=data,
                 acc_tr=float(mlp_accuracy(params, *data[:2])),
@@ -3386,13 +3333,14 @@ def mlp_rel(a: list, b: list) -> float:
 def mlp_first_grads(dev, seed: int = 0) -> list:
     """The grads of ``train_paper_mlp``'s first step (seed ``seed``'s
     CPU-drawn init, the first 256 rows) computed on ``dev``."""
-    from repro_torch.models.mlp import init_mlp, mlp_loss
+    from repro_torch.models.mlp import (MLP_BATCH, init_mlp, mlp_loss,
+                                        synthetic_mnist)
     from repro_torch.tree import leaves, tree_map, unflatten
 
     (xtr, ytr), _ = synthetic_mnist(seed=seed)
     x, y = (torch.from_numpy(a[:MLP_BATCH]).to(dev) for a in (xtr, ytr))
     p = tree_map(lambda t: t.to(dev).requires_grad_(),
-                 init_mlp(torch.Generator().manual_seed(seed)))
+                 init_mlp(torch.Generator().manual_seed(seed), device="cpu"))
     return unflatten(p, torch.autograd.grad(mlp_loss(p, x, y), leaves(p)))
 
 
@@ -3577,9 +3525,9 @@ def check_train_mlp(name: str) -> dict:
     """(d): the paper's §4.1 on the card: the MLP trained MLP_STEPS steps
     (held against the same run on the CPU), the last layer PTQ'd with
     kmeans_ls at 4, 8 and 16 values through ``core.quantize`` and
-    recovered with QAT_STEPS steps of QAT."""
+    recovered with models.mlp.QAT_STEPS steps of QAT."""
     from repro_torch.core import quantize
-    from repro_torch.models.mlp import mlp_accuracy
+    from repro_torch.models.mlp import mlp_accuracy, qat_recover
 
     t0 = time.perf_counter()
     card, cpu = mlp_run("cuda"), mlp_run("cpu")
@@ -4245,6 +4193,286 @@ def check_dryrun(proc, train_median_s: float) -> dict:
     return dict(r, share=share, waited_s=waited)
 
 
+# ------------------------------------------------------------ phase examples
+
+EXAMPLES = os.path.join(HERE, "examples")
+EXAMPLES_OUT = os.path.join(HERE, "build", "examples")
+# train_lm at its defaults (the ~100M LM, 40 steps of 8 x 128, checkpoints
+# every 20) with a crash at step 25, recovered from step 20's checkpoint
+TRAIN_LM_ARGS = ["--fail-at", "25"]
+# the registered count method on the reduced qwen3, continuous batching,
+# chunked prefill, the fused engine: 4 full pages a prompt freeze at attach
+UNIFORM_ARGS = ["--reduced", "--engine", "continuous", "--kv-quant",
+                "uniform@16", "--prefill-chunk", "16", "--num-requests", "8",
+                "--prompt-len", "64", "--gen", "32", "--max-slots", "4",
+                "--block-size", "16", "--max-seq-len", "128",
+                "--request-rate", "8", "--attn-impl", "auto", "--seed", "0"]
+# fused vs gather on the uniform@16 pool, f32 (``--uniform-readings`` on
+# the H100, NVIDIA H100 80GB HBM3 at 700 W; PERF.md §6, PR 30): sound
+# 2.96e-7, 2.96e-7, 3.23e-7 of the logit range on prompt seeds 0-2; each
+# page read with the next page's K codebook 13.46%, 15.47%, 15.17% (31 of
+# 96 tokens differ on seed 1). 1% (the kmeans_ls@16 replay's limit) lies
+# 3e4x above the one and 13x below the other.
+UNIFORM_REPLAY_REL_TOL = 0.01
+UNIFORM_CALLS = {"n": 0}
+
+
+def load_example(name: str):
+    """``examples/torch_<name>.py`` as a module (its ``main`` is not
+    run)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{name}", os.path.join(EXAMPLES, f"torch_{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def uniform_levels(lo, hi, L: int):
+    """L evenly spaced levels from lo to hi (per row), and their step
+    (1 where the row is constant)."""
+    step = (hi - lo) / (L - 1)
+    step = torch.where(step > 0, step, torch.ones_like(step))
+    return lo + step * torch.arange(L, dtype=lo.dtype, device=lo.device), step
+
+
+def uniform_host(ctx, spec, **kw):
+    """``uniform``'s host solve: the nearest of L evenly spaced levels
+    over the unique values' range."""
+    w = ctx.problem.w_hat
+    lo, hi = w.min().reshape(1), w.max().reshape(1)
+    levels, step = uniform_levels(lo, hi, ctx.num_values)
+    idx = torch.round((w - lo) / step).clamp(0, ctx.num_values - 1).long()
+    return levels[idx], None
+
+
+def uniform_pages(rows, spec):
+    """``uniform``'s device solver: every row's L levels over its own
+    range, codes the nearest level's index (uint8), codebooks f32.
+    Counts its calls."""
+    UNIFORM_CALLS["n"] += 1
+    L = spec.num_values
+    x = rows.float()
+    lo, hi = x.amin(1, keepdim=True), x.amax(1, keepdim=True)
+    cb, step = uniform_levels(lo, hi, L)
+    codes = torch.round((x - lo) / step).clamp(0, L - 1).to(torch.uint8)
+    return codes, cb
+
+
+def register_uniform() -> None:
+    from repro_torch.core import registry
+
+    registry.register(registry.Solver(
+        "uniform", "count", uniform_host, device_batch=uniform_pages,
+        description="L evenly spaced levels, nearest assignment"))
+
+
+def check_examples_free() -> dict:
+    """Phase examples, beside the kernel build: quickstart, train_lm and
+    train_quantized_mlp through their ``main()`` on the card; each
+    launches no kernel."""
+    name = "examples"
+    t0 = time.perf_counter()
+    out = {}
+    runs = (("quickstart", ["--device", "cuda"]),
+            ("train_lm", ["--device", "cuda", "--ckpt-dir",
+                          os.path.join(EXAMPLES_OUT, "lm_ckpt")]
+             + TRAIN_LM_ARGS),
+            ("train_quantized_mlp", ["--device", "cuda"]))
+    shutil.rmtree(os.path.join(EXAMPLES_OUT, "lm_ckpt"), ignore_errors=True)
+    for ex, argv in runs:
+        t1 = time.perf_counter()
+        r, launches = counting_launches(
+            lambda: load_example(ex).main(argv))
+        if r["device"] != "cuda" or any(launches.values()):
+            raise AssertionError(f"examples {ex}: device {r['device']}, "
+                                 f"launches {launches}")
+        out[ex] = dict(r, launches=launches, s=time.perf_counter() - t1)
+    shutil.rmtree(os.path.join(EXAMPLES_OUT, "lm_ckpt"), ignore_errors=True)
+    qs = out["quickstart"]
+    phase(name, f"quickstart: {len(qs['methods'])} methods on the card, "
+          + ", ".join(f"{k} {v['n_values']} values l2 {v['l2_loss']:.4f} "
+                      f"{v['time_s'] * 1e3:.1f} ms"
+                      for k, v in qs["methods"].items())
+          + f"; kmeans_ls@16 {qs['kmeans_ls16']['ratio']:.2f}x; "
+          f"{qs['s']:.1f} s")
+    lm = out["train_lm"]
+    first, replayed = {}, []
+    for st, loss in zip(lm["steps_run"], lm["losses"]):
+        if st in first:
+            replayed.append(first[st] == loss)
+        first.setdefault(st, loss)
+    ok = (lm["restarts"] == 1 and replayed and all(replayed)
+          and all(math.isfinite(x) for x in lm["losses"]))
+    phase(name, f"train_lm: {lm['n_params']:,} params, mesh "
+          f"{lm['mesh'][0]} x {lm['mesh'][1]}, {len(lm['losses'])} steps "
+          f"run (crash at {TRAIN_LM_ARGS[1]}: {lm['restarts']} restart, "
+          f"{len(replayed)} steps replayed from the checkpoint, their "
+          f"losses {'equal to' if all(replayed) else 'NOT'} the first "
+          f"pass's), loss {lm['losses'][0]:.4f} -> {lm['losses'][-1]:.4f} "
+          f"(mean of the first 5 {sum(lm['losses'][:5]) / 5:.4f}, of the "
+          f"last 5 {sum(lm['losses'][-5:]) / 5:.4f}), median step "
+          f"{lm['median_step_s'] * 1e3:.2f} ms; {lm['s']:.1f} s")
+    if not ok:
+        raise AssertionError(f"examples train_lm: restarts "
+                             f"{lm['restarts']}, replays {replayed}, "
+                             f"losses {lm['losses']}")
+    mlp = out["train_quantized_mlp"]
+    phase(name, f"train_quantized_mlp: baseline test acc "
+          f"{mlp['acc_test']:.4f}; "
+          + ", ".join(f"l={k}: PTQ {v['ptq']:.4f} -> QAT {v['qat']:.4f}"
+                      for k, v in mlp["by_values"].items())
+          + f"; {mlp['s']:.1f} s")
+    for k, v in mlp["by_values"].items():
+        if not v["qat"] >= v["ptq"]:
+            raise AssertionError(f"examples train_quantized_mlp: l={k} QAT "
+                                 f"{v['qat']} below PTQ {v['ptq']}")
+    phase(name, f"kernel-free examples {time.perf_counter() - t0:.1f} s "
+          f"beside the build; 0 launches each")
+    return dict(out, s=time.perf_counter() - t0)
+
+
+def uniform_replay(seed: int) -> dict:
+    """The fused-vs-gather replay of UNIFORM_ARGS (prompt seed ``seed``)
+    on a uniform@16 pool, f32."""
+    from repro_torch import models
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch import serve
+
+    args = serve.parse_args(UNIFORM_ARGS[:-1] + [str(seed)])
+    cfg = get_reduced_config("qwen3_0_6b")
+    params = models.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    return fused_vs_gather(params, cfg, args, args.kv_quant)
+
+
+def check_examples_served() -> dict:
+    """Phase examples after the build: serve_quantized and trace_serving
+    through their ``main()`` (kernel 1 launched; the trace reconciled),
+    then the registered ``uniform`` method: the reduced qwen3 served with
+    ``--kv-quant uniform@16`` on the fused engine (every freeze through
+    ``uniform_pages``, kernel 1 on every step) and its fused-vs-gather
+    replay within UNIFORM_REPLAY_REL_TOL."""
+    name = "examples"
+    t0 = time.perf_counter()
+    out = {}
+    for ex, argv in (("serve_quantized", ["--device", "cuda"]),
+                     ("trace_serving", ["--device", "cuda", "--out",
+                                        EXAMPLES_OUT])):
+        t1 = time.perf_counter()
+        r, launches = counting_launches(lambda: load_example(ex).main(argv))
+        if r["device"] != "cuda" or r["attn_impl"] != "fused" \
+                or launches["paged_decode_attention"] <= 0 \
+                or launches["paged_decode_attention"] != r[
+                    "paged_attention_launches"]:
+            raise AssertionError(f"examples {ex}: device {r['device']}, "
+                                 f"attn {r['attn_impl']}, launches "
+                                 f"{launches}")
+        out[ex] = dict(r, launches=launches, s=time.perf_counter() - t1)
+    sq, tr = out["serve_quantized"], out["trace_serving"]
+    # frozen migration: the pages are solved on the prefill worker and
+    # land frozen in the decode worker's pool, which kernel 1 reads
+    if not sq["migrated_pages"] or sq["host_page_solves"] \
+            or not sq["migrate_bytes"] < sq["migrate_fp_equiv_bytes"]:
+        raise AssertionError(f"examples serve_quantized: {sq}")
+    phase(name, f"serve_quantized: {sq['ptq_tensors']} tensors PTQ'd, "
+          f"{sq['compression']:.2f}x; decode agreement dense vs quantized "
+          f"{sq['agreement']:.2%}; estimate on the H100's HBM dense "
+          f"{sq['estimate']['t_dense_s'] * 1e6:.4f} us -> quantized "
+          f"{sq['estimate']['t_quant_s'] * 1e6:.4f} us; disagg frozen "
+          f"handoff {sq['migrate_bytes']:,} B against "
+          f"{sq['migrate_fp_equiv_bytes']:,} B fp for "
+          f"{sq['migrated_pages']} pages "
+          f"({sq['migrate_fp_equiv_bytes'] / sq['migrate_bytes']:.2f}x), "
+          f"{sq['launches']['paged_decode_attention']} kernel 1 launches; "
+          f"{sq['s']:.1f} s")
+    phase(name, f"trace_serving: {tr['events']} events, reconciled with "
+          f"{tr['decode_steps']} decode steps, {tr['freeze_dispatches']} "
+          f"freeze flushes, {tr['spec_steps']} verify slices; "
+          f"{tr['launches']['paged_decode_attention']} kernel 1 launches; "
+          f"{tr['s']:.1f} s")
+    # a method registered at run time, served on the card
+    t1 = time.perf_counter()
+    register_uniform()
+    UNIFORM_CALLS["n"] = 0
+    s, params, cfg, args, launches = serve_once(UNIFORM_ARGS)
+    calls = UNIFORM_CALLS["n"]
+    line = check_launches(s, cfg, launches, quantized=False)
+    if calls != s["freeze_dispatches"] or not s["freeze_installs"]:
+        raise AssertionError(f"examples uniform: {calls} calls of the "
+                             f"registered solver for "
+                             f"{s['freeze_dispatches']} freeze dispatches, "
+                             f"{s['freeze_installs']} installs")
+    phase(name, f"uniform@16 (registered at run time) on the reduced "
+          f"qwen3, fused: {calls} calls of its device solver = "
+          f"{s['freeze_dispatches']} freeze dispatches -> "
+          f"{s['freeze_installs']} installs; {line}")
+    r = fused_vs_gather(params, cfg, args, args.kv_quant)
+    ok = r["tokens_equal"] and r["rel"] <= UNIFORM_REPLAY_REL_TOL
+    phase(name, f"uniform@16 fused vs gather replay (f32): greedy tokens "
+          f"{r['agree']}/{r['total']} equal, max|dlogit| {r['dmax']:.4g} "
+          f"rel {r['rel']:.4e} (tolerance {UNIFORM_REPLAY_REL_TOL:g}) -> "
+          f"{'OK' if ok else 'EXCEEDED'}; {time.perf_counter() - t1:.1f} s")
+    if not ok:
+        raise AssertionError(f"examples uniform replay: {r}")
+    phase(name, f"served examples {time.perf_counter() - t0:.1f} s on "
+          f"{card_line()}")
+    return dict(out, uniform=dict(launches=launches, calls=calls,
+                                  summary=s, replay=r),
+                s=time.perf_counter() - t0)
+
+
+def examples_launches(free: dict, served: dict) -> dict:
+    """Every kernel's launches over phase examples."""
+    runs = [free[k]["launches"] for k in ("quickstart", "train_lm",
+                                          "train_quantized_mlp")]
+    runs += [served[k]["launches"] for k in ("serve_quantized",
+                                             "trace_serving")]
+    runs.append(served["uniform"]["launches"])
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
+
+
+def examples_main() -> int:
+    """``--examples``: phase examples alone (the attention kernel built
+    first)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase("card", f"{card_line()} | torch {torch.__version__} CUDA "
+          f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    nv = in_thread(lambda: build.load_all(["paged_attention"]))
+    free = check_examples_free()
+    phase("build", f"paged_attention.cu {joined(nv):.1f} s")
+    served = check_examples_served()
+    print(json.dumps({"examples_launches": examples_launches(free, served),
+                      "s": time.perf_counter() - t0}))
+    return 0
+
+
+def uniform_readings(seeds=(0, 1, 2)) -> int:
+    """``--uniform-readings``: the uniform@16 fused-vs-gather replay's
+    readings for prompt seeds 0-2, printed without a bound (run it from a
+    copy with one line changed to read a planted fault)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(card_line())
+    register_uniform()
+    for seed in seeds:
+        r = uniform_replay(seed)
+        print(f"seed {seed} uniform@16 fused vs gather: tokens "
+              f"{r['agree']}/{r['total']} equal, max|dlogit| {r['dmax']:.4g}"
+              f" of range {r['scale']:.4g}, rel {r['rel']:.4e}", flush=True)
+    return 0
+
+
 def in_thread(fn) -> dict:
     """Start ``fn()`` in a thread (a build: its compilers run as
     processes); ``joined`` waits for it."""
@@ -4313,6 +4541,7 @@ def main() -> int:
     ssm = check_static_ssm()["launches"]
     check_static_families()
     dsl = check_dist()["launches"]
+    exf = check_examples_free()
     nv_s = joined(nv)
     dry = check_dryrun(dr, tr["a"]["median_s"])
     drl = dry["launches"]
@@ -4361,6 +4590,10 @@ def main() -> int:
     t0 = time.perf_counter()
     gr = check_serve_granite()
     phase("serve-granite", f"{time.perf_counter() - t0:.1f} s")
+    exs = check_examples_served()
+    exl = examples_launches(exf, exs)
+    phase("examples", f"{exf['s'] + exs['s']:.1f} s ({exf['s']:.1f} s "
+          f"beside the build, {exs['s']:.1f} s after it); launches {exl}")
     record = {"kernels": [
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -4386,6 +4619,13 @@ def main() -> int:
          "train_launches": trl["paged_decode_attention"],
          "dist_launches": dsl["paged_decode_attention"],
          "dryrun_launches": drl["paged_decode_attention"],
+         "examples_launches": exl["paged_decode_attention"],
+         "examples_serve_quantized_launches": exs["serve_quantized"][
+             "launches"]["paged_decode_attention"],
+         "examples_trace_serving_launches": exs["trace_serving"][
+             "launches"]["paged_decode_attention"],
+         "examples_uniform_launches": exs["uniform"]["launches"][
+             "paged_decode_attention"],
          **k},
         {"name": "quant_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
@@ -4401,6 +4641,7 @@ def main() -> int:
          "train_launches": trl["quant_matmul"],
          "dist_launches": dsl["quant_matmul"],
          "dryrun_launches": drl["quant_matmul"],
+         "examples_launches": exl["quant_matmul"],
          "solvers_launches": so["quant_matmul"], **q},
         {"name": "quant_matmul_stacked", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
@@ -4408,7 +4649,8 @@ def main() -> int:
          "static_ssm_launches": ssm["quant_matmul_stacked"],
          "train_launches": trl["quant_matmul_stacked"],
          "dist_launches": dsl["quant_matmul_stacked"],
-         "dryrun_launches": drl["quant_matmul_stacked"], **st},
+         "dryrun_launches": drl["quant_matmul_stacked"],
+         "examples_launches": exl["quant_matmul_stacked"], **st},
         {"name": "fista_quant", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fista_quant.cu",
          "replaces": "src/repro/kernels/fista_quant.py:79",
@@ -4417,7 +4659,8 @@ def main() -> int:
          "static_ssm_launches": ssm["fista_quant"],
          "train_launches": trl["fista_quant"],
          "dist_launches": dsl["fista_quant"],
-         "dryrun_launches": drl["fista_quant"], **f["quant"], **pb},
+         "dryrun_launches": drl["fista_quant"],
+         "examples_launches": exl["fista_quant"], **f["quant"], **pb},
         {"name": "fista_freeze", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fista_quant.cu",
          "replaces": "src/repro/kernels/fista_quant.py:79",
@@ -4430,7 +4673,8 @@ def main() -> int:
          "static_ssm_launches": ssm["fista_freeze"],
          "train_launches": trl["fista_freeze"],
          "dist_launches": dsl["fista_freeze"],
-         "dryrun_launches": drl["fista_freeze"], **f["freeze"]},
+         "dryrun_launches": drl["fista_freeze"],
+         "examples_launches": exl["fista_freeze"], **f["freeze"]},
     ]}
     phase("done", f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
@@ -4444,6 +4688,8 @@ def main() -> int:
 if __name__ == "__main__":
     sys.exit({"--ssm-readings": ssm_readings,
               "--mlp-readings": mlp_readings,
+              "--examples": examples_main,
+              "--uniform-readings": uniform_readings,
               "--dist": dist_main,
               "--dryrun": dryrun_main}.get(
                   " ".join(sys.argv[1:]), main)())

@@ -35,10 +35,18 @@ memory). ``with accounting(*held) as acc:`` counts what runs inside;
 
 ``while_trips`` is dropped: the port's layers are a Python list, so
 every layer's ops are dispatched, and counted, one by one.
+
+``accounting(*held, record=True)`` also keeps one row per counted op, in
+dispatch order (``Accounting.ops``; ``op_lines`` renders them): the op's
+name, its operands' dtypes and local shapes, its FLOPs (and how many are
+f32), HBM bytes, and collective kind and bytes. The rows sum to
+``stats()``'s totals. It is the port's counterpart of the reference's
+saved HLO text (``launch/dryrun.py --save-hlo``).
 """
 from __future__ import annotations
 
 import contextlib
+import json
 import threading
 import weakref
 from collections import defaultdict
@@ -120,8 +128,9 @@ class Accounting(TorchDispatchMode):
     """The counter (module docstring); read ``stats()`` after the
     step."""
 
-    def __init__(self, held=()):
+    def __init__(self, held=(), record: bool = False):
         super().__init__()
+        self.ops = [] if record else None
         self.flops = 0
         self.flops_f32 = 0
         self.hbm_bytes = 0
@@ -172,19 +181,27 @@ class Accounting(TorchDispatchMode):
         self.n_ops += 1
         ins = _tensors((args, kwargs))
         kind = _collective_kind(func)
+        coll = f = f32 = hbm = 0
         if kind is not None:
-            b = sum(_nbytes(t) for t in ins)
-            self.collective_bytes += b
-            self.per_collective[kind] += b
+            coll = sum(_nbytes(t) for t in ins)
+            self.collective_bytes += coll
+            self.per_collective[kind] += coll
         packet = func.overloadpacket
         if packet in flop_registry:
             f = int(flop_registry[packet](*args, **kwargs, out_val=out))
             self.flops += f
             if ins and ins[0].dtype == torch.float32:
+                f32 = f
                 self.flops_f32 += f
         outs = _tensors(out)
         if func._opname not in _NO_TRAFFIC and not _is_view(func):
-            self.hbm_bytes += sum(_nbytes(t) for t in ins + outs)
+            hbm = sum(_nbytes(t) for t in ins + outs)
+            self.hbm_bytes += hbm
+        if self.ops is not None:
+            self.ops.append((
+                f"{func._schema.name}.{func._overloadname}",
+                [f"{str(t.dtype).removeprefix('torch.')}"
+                 f"{list(t.shape)}" for t in ins], f, f32, hbm, kind, coll))
         for t in outs:
             self._track(t)
         self.peak_bytes = max(self.peak_bytes, self.live_bytes)
@@ -200,11 +217,22 @@ class Accounting(TorchDispatchMode):
                 "held_bytes": self.held_bytes}
 
 
+def op_lines(ops):
+    """One JSON line per recorded op (``Accounting.ops``): keys ``op``,
+    ``operands``, ``flops``, ``flops_f32``, ``hbm_bytes``,
+    ``collective`` (a kind or null) and ``collective_bytes``."""
+    keys = ("op", "operands", "flops", "flops_f32", "hbm_bytes",
+            "collective", "collective_bytes")
+    for row in ops:
+        yield json.dumps(dict(zip(keys, row)), separators=(",", ":"))
+
+
 @contextlib.contextmanager
-def accounting(*held):
+def accounting(*held, record: bool = False):
     """Count the ops run inside, per device (module docstring); the
-    tensors of ``held`` (any trees) count as alive from the start.
-    Yields the ``Accounting``; read its ``stats()`` after the block."""
-    acc = Accounting(held)
+    tensors of ``held`` (any trees) count as alive from the start;
+    ``record`` keeps a row per op (``Accounting.ops``). Yields the
+    ``Accounting``; read its ``stats()`` after the block."""
+    acc = Accounting(held, record=record)
     with _skip_meta_propagation(), acc:
         yield acc

@@ -9,6 +9,9 @@ support index reconstruct to 0, as in the paper's V* formulation.
 Segments are contiguous, so their sums are differences of one float64
 prefix sum: deterministic on the card (no atomics) and more accurate than
 the reference's float32 segment sums, which it matches to ~1e-7 relative.
+``refit_support_dense_reference`` is the paper's own form, eq. 9 solved
+by lstsq on the materialized V*, in float64 on the host: the oracle the
+closed form is held to.
 """
 from __future__ import annotations
 
@@ -23,7 +26,9 @@ def refit_support(problem: LSQProblem, support: torch.Tensor
     """Optimal piecewise-constant reconstruction for a boolean support.
 
     Returns (w_star, alpha_star): the reconstruction on unique values (m,)
-    and the refit alpha (eq. 10; zeros off the support), both f32.
+    and the refit alpha (eq. 10; zeros off the support), in the
+    problem's dtype (f32 as ``make_problem`` stores it; a float64 problem
+    gives the float64 solution the oracle is held to).
     """
     w, n = problem.w_hat.double(), problem.counts.double()
     support = support.to(device=w.device, dtype=torch.bool)
@@ -44,7 +49,7 @@ def refit_support(problem: LSQProblem, support: torch.Tensor
     seg_num = num[end] - num[s]
     seg_den = den[end] - den[s]
     w_star = torch.where(valid, seg_num / seg_den.clamp(min=1e-20),
-                         torch.zeros_like(w)).to(torch.float32)
+                         torch.zeros_like(w)).to(problem.w_hat.dtype)
     # alpha* (eq. 10): jump sizes at support positions scaled by 1/d_k
     prev = torch.cat([w_star.new_zeros(1), w_star[:-1]])
     jump = w_star - prev
@@ -52,6 +57,25 @@ def refit_support(problem: LSQProblem, support: torch.Tensor
     d_safe = torch.where(d == 0, torch.ones_like(d), d)
     alpha_star = torch.where(support, jump / d_safe, torch.zeros_like(jump))
     return w_star, alpha_star
+
+
+def refit_support_dense_reference(problem: LSQProblem,
+                                  support) -> np.ndarray:
+    """Oracle: materialize V*, solve eq. 9 by lstsq (float64 numpy; the
+    reconstruction on unique values). Tests only."""
+    w, d, n = (_f64(t) for t in (problem.w_hat, problem.d, problem.counts))
+    m = w.shape[0]
+    V = np.tril(np.ones((m, m))) * d[None, :]
+    Vs = V[:, _f64(support).astype(bool)]
+    sw = np.sqrt(n)
+    coef, *_ = np.linalg.lstsq(Vs * sw[:, None], w * sw, rcond=None)
+    return Vs @ coef
+
+
+def _f64(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu().double().numpy()
+    return np.asarray(t, np.float64)
 
 
 def support_of(alpha: torch.Tensor, tol: float = 1e-10) -> torch.Tensor:

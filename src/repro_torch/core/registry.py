@@ -7,7 +7,9 @@ quantization method, the reference's twelve, method for method.
   host_solve    ``(ctx, spec, **kw) -> (recon, alpha_or_None)`` on the
                 sorted-unique problem; ``core.api.quantize`` drives it.
   device_batch  the batched row solver ``(rows, spec) -> (codes, cb)`` that
-                freezes KV pages, or None.
+                freezes KV pages: a callable, or a ``"module:function"``
+                string that ``device_batch_solve`` imports at first use
+                (so importing ``core`` never imports kernel code), or None.
   accepts_lam2  the spec may carry ``lam2``.
   tree_batched  ``quant.ptq.quantize_tree(..., batched=True)`` can solve a
                 whole parameter tree with it in one FISTA kernel launch.
@@ -20,10 +22,18 @@ run in torch on that device. Pages freeze by the batched device solvers
 of iter_l1, kmeans_ls and kmeans; the other count methods freeze a page
 at a time through their host solves
 (``serving.kv_cache.quantize_page``), as in the reference.
+
+Adding a solver is one ``register(Solver(...))`` call, as in the
+reference: ``quantize``, ``QuantSpec`` validation, PTQ and the serving
+engine's freeze (``--kv-quant name@L``) find it here. The capability
+tuples of ``core.api`` (``ALL_METHODS`` ...) are snapshots taken at
+import, in both packages; ``methods()`` and its kin read the registry as
+it stands.
 """
 from __future__ import annotations
 
 import dataclasses
+import importlib
 from typing import TYPE_CHECKING, Any, Callable
 
 import numpy as np
@@ -63,12 +73,29 @@ class Solver:
     """One method's parameterisation and backends."""
 
     name: str
-    param_kind: str
+    param_kind: str                     # "lam" | "count"
     host_solve: Callable[..., Any]
-    device_batch: Callable | None = None
-    description: str = ""
+    device_batch: Callable | str | None = None
     accepts_lam2: bool = False
     tree_batched: bool = False
+    description: str = ""
+
+    def __post_init__(self) -> None:
+        if self.param_kind not in ("lam", "count"):
+            raise ValueError(f"param_kind must be 'lam' or 'count', got "
+                             f"{self.param_kind!r}")
+
+
+_REGISTRY: dict[str, Solver] = {}
+_DEVICE_CACHE: dict[str, Callable] = {}
+
+
+def register(solver: Solver) -> Solver:
+    """Add ``solver`` to the registry, or replace the entry of its name
+    (and forget the device solver resolved for the old one)."""
+    _REGISTRY[solver.name] = solver
+    _DEVICE_CACHE.pop(solver.name, None)
+    return solver
 
 
 def _f32(x: float) -> float:
@@ -166,50 +193,43 @@ def _solve_dp(ctx: HostSolveContext, spec: "QuantSpec", **kw: Any):
     return recon, None
 
 
-def _pages(name: str) -> Callable:
-    """A page solver of ``kernels.page_quant``, imported at first call so
-    that importing ``core`` never imports kernel code."""
-    def solve(rows, spec):
-        from repro_torch.kernels import page_quant
+_PAGES = "repro_torch.kernels.page_quant:"
 
-        return getattr(page_quant, name)(rows, spec)
-    solve.__name__ = name
-    return solve
-
-
-_REGISTRY: dict[str, Solver] = {s.name: s for s in (
-    Solver("l1", "lam", _solve_l1,
-           description="eq. 6 - raw l1 CD (no refit)"),
-    Solver("l1_ls", "lam", _solve_l1_ls, tree_batched=True,
-           description="alg. 1 - l1 CD + LS refit on the support "
-                       "(tree-batched via the FISTA kernel)"),
-    Solver("l1l2", "lam", _solve_l1l2, accepts_lam2=True,
-           description="eq. 13 - l1 + negative-l2 CD (+ refit)"),
-    Solver("tv", "lam", _solve_tv,
-           description="beyond-paper exact O(m) global optimum of eq. 6"),
-    Solver("l0", "count", _solve_l0,
-           description="eq. 16 - l0-constrained CD w/ gamma bisection"),
-    Solver("iter_l1", "count", _solve_iter_l1,
-           _pages("quantize_pages_fista_spec"),
-           "alg. 2 - lambda ramp to <= num_values (device backend: batched "
-           "FISTA + per-row lambda bisection)"),
-    Solver("tv_iter", "count", _solve_tv_iter,
-           description="exact-count via lambda bisection on tv"),
-    Solver("kmeans_ls", "count", _solve_kmeans_ls,
-           _pages("quantize_pages_kmeans_spec"),
-           "alg. 3 - k-means support + LS values (device backend: exact "
-           "1-D k-means DP on a quantile sketch, then an LS refit)"),
-    Solver("kmeans", "count", _solve_kmeans,
-           _pages("quantize_pages_kmeans_raw_spec"),
-           "baseline §4 - plain 1-D k-means (device backend: the same DP, "
-           "no refit)"),
-    Solver("mog", "count", _solve_mog,
-           description="baseline §4 - mixture-of-Gaussians EM"),
-    Solver("dtc", "count", _solve_dtc,
-           description="baseline §4 - decision-tree clustering"),
-    Solver("dp", "count", _solve_dp,
-           description="optimal 1-D quantizer (loss lower bound)"),
-)}
+register(Solver("l1", "lam", _solve_l1,
+                description="eq. 6 - raw l1 CD (no refit)"))
+register(Solver("l1_ls", "lam", _solve_l1_ls, tree_batched=True,
+                description="alg. 1 - l1 CD + LS refit on the support "
+                            "(tree-batched via the FISTA kernel)"))
+register(Solver("l1l2", "lam", _solve_l1l2, accepts_lam2=True,
+                description="eq. 13 - l1 + negative-l2 CD (+ refit)"))
+register(Solver("tv", "lam", _solve_tv,
+                description="beyond-paper exact O(m) global optimum of "
+                            "eq. 6"))
+register(Solver("l0", "count", _solve_l0,
+                description="eq. 16 - l0-constrained CD w/ gamma "
+                            "bisection"))
+register(Solver("iter_l1", "count", _solve_iter_l1,
+                device_batch=_PAGES + "quantize_pages_fista_spec",
+                description="alg. 2 - lambda ramp to <= num_values (device "
+                            "backend: batched FISTA + per-row lambda "
+                            "bisection)"))
+register(Solver("tv_iter", "count", _solve_tv_iter,
+                description="exact-count via lambda bisection on tv"))
+register(Solver("kmeans_ls", "count", _solve_kmeans_ls,
+                device_batch=_PAGES + "quantize_pages_kmeans_spec",
+                description="alg. 3 - k-means support + LS values (device "
+                            "backend: exact 1-D k-means DP on a quantile "
+                            "sketch, then an LS refit)"))
+register(Solver("kmeans", "count", _solve_kmeans,
+                device_batch=_PAGES + "quantize_pages_kmeans_raw_spec",
+                description="baseline §4 - plain 1-D k-means (device "
+                            "backend: the same DP, no refit)"))
+register(Solver("mog", "count", _solve_mog,
+                description="baseline §4 - mixture-of-Gaussians EM"))
+register(Solver("dtc", "count", _solve_dtc,
+                description="baseline §4 - decision-tree clustering"))
+register(Solver("dp", "count", _solve_dp,
+                description="optimal 1-D quantizer (loss lower bound)"))
 
 
 def get(name: str) -> Solver:
@@ -232,6 +252,25 @@ def count_methods() -> tuple[str, ...]:
     return tuple(n for n, s in _REGISTRY.items() if s.param_kind == "count")
 
 
-def device_methods() -> list[str]:
-    """Methods with a batched device solver: the ones that freeze pages."""
-    return sorted(n for n, s in _REGISTRY.items() if s.device_batch)
+def device_methods() -> tuple[str, ...]:
+    """Methods with a batched device solver (the ones that freeze pages
+    on the device), in registration order."""
+    return tuple(n for n, s in _REGISTRY.items() if s.device_batch)
+
+
+def device_batch_solve(name: str) -> Callable:
+    """A method's device row solver ``(rows, spec) -> (codes, cb)``; a
+    ``"module:function"`` entry is imported at first use and cached."""
+    solver = get(name)
+    if not solver.device_batch:
+        raise ValueError(
+            f"method {name!r} has no batched device solver; device-capable "
+            f"methods: {', '.join(device_methods())}")
+    fn = _DEVICE_CACHE.get(name)
+    if fn is None:
+        fn = solver.device_batch
+        if isinstance(fn, str):
+            mod, _, attr = fn.partition(":")
+            fn = getattr(importlib.import_module(mod), attr)
+        _DEVICE_CACHE[name] = fn
+    return fn

@@ -98,7 +98,7 @@ class QuantSpec:
 
     def device_solve(self, rows):
         """Run this spec's batched device row solver."""
-        return registry.get(self.method).device_batch(rows, self)
+        return registry.device_batch_solve(self.method)(rows, self)
 
     def replace(self, **kw: Any) -> "QuantSpec":
         return dataclasses.replace(self, **kw)

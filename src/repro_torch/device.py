@@ -6,6 +6,8 @@ falling back to the host.
 """
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 # The H100 SXM's peaks (NVIDIA data sheet, dense, at the 700 W limit),
@@ -32,3 +34,20 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is visible; pass device='cpu' (or --device cpu) "
             "to run the port on the host")
     return dev
+
+
+def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader`` gives them: what every time
+    measured on the card is printed beside (a card may be capped below
+    its 700 W maximum)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def where(dev: torch.device) -> str:
+    """What a reading was taken on: the card's ``card_line`` on CUDA,
+    else "the CPU"."""
+    return card_line() if dev.type == "cuda" else "the CPU"

@@ -3,7 +3,7 @@ shape x mesh) cell's step run once on fake tensors over a fake process
 group of 256 or 512 ranks, counted per device.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3_0_6b \\
-        --shape train_4k [--multi-pod] [--out build/dryrun]
+        --shape train_4k [--multi-pod] [--out build/dryrun] [--save-hlo]
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--jobs 4]
 
 The process joins the fake group first (``launch.mesh.join_fake``), as
@@ -25,7 +25,13 @@ the quantity: ``status``, ``n_devices``, ``params_total``,
 here: ``t_compile_s`` (nothing compiles), ``hlo.while_trips`` (no
 loops: the layers are a list), ``cost_analysis`` (XLA's), and
 ``memory``'s ``temp_bytes`` and ``alias_bytes`` (the peak is measured,
-not summed); ``--save-hlo`` (there is no HLO). Cells that
+not summed). The port has no HLO: ``--save-hlo`` (the reference's flag,
+kept so its command lines run) writes the counterpart, the op listing
+``<arch>.<shape>.<mesh>.ops.gz`` beside the cell's JSON: one JSON line
+per counted op in dispatch order (``analysis.hlo.op_lines``: the aten or
+c10d name, the operands' dtypes and local shapes, FLOPs and f32 FLOPs,
+HBM bytes, collective kind and bytes), whose columns sum to the cell's
+``hlo`` totals and whose lines are its ``n_ops``. Cells that
 ``shape_skip_reason`` names are ``skipped``. ``--all`` runs each cell
 in a subprocess, ``--jobs`` of them at a time.
 
@@ -34,6 +40,7 @@ Imports neither jax nor the reference package.
 from __future__ import annotations
 
 import argparse
+import gzip
 import json
 import logging
 import os
@@ -47,7 +54,7 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch import models
-from repro_torch.analysis.hlo import _locals, _tensors, accounting
+from repro_torch.analysis.hlo import _locals, _tensors, accounting, op_lines
 from repro_torch.analysis.roofline import (Roofline, model_flops,
                                            model_params_active)
 from repro_torch.configs import ARCHS, get_config
@@ -121,9 +128,17 @@ def _local_bytes(tree, skip=()) -> int:
     return sum(n for k, n in ids(tree).items() if k not in seen)
 
 
-def run_cell(arch: str, shape: str, *, multi_pod: bool) -> dict:
+def ops_path(out_dir: str, arch: str, shape: str, multi_pod: bool) -> str:
+    """Where ``--save-hlo`` writes a cell's op listing."""
+    return os.path.join(out_dir,
+                        f"{arch}.{shape}.{mesh_name(multi_pod)}.ops.gz")
+
+
+def run_cell(arch: str, shape: str, *, multi_pod: bool,
+             save_ops: str | None = None) -> dict:
     """One cell (the process must already be in a group of 256 or 512
-    ranks): its record, as the JSON file holds it."""
+    ranks): its record, as the JSON file holds it. ``save_ops`` (a
+    directory) also writes the cell's op listing there (``ops_path``)."""
     cell = {"arch": arch, "shape": shape, "mesh": mesh_name(multi_pod)}
     cfg = get_config(arch)
     skip = shape_skip_reason(cfg, shape)
@@ -135,7 +150,7 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool) -> dict:
     run, held, cfg, mesh = lower_cell(arch, shape, multi_pod=multi_pod,
                                       fake_mode=fake_mode)
     with fake_mode:
-        with accounting(held) as acc:
+        with accounting(held, record=save_ops is not None) as acc:
             out = run()
         out_bytes = _local_bytes(out, skip=held)
     t_lower = time.time() - t0
@@ -158,6 +173,11 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool) -> dict:
                                    "collective_bytes", "per_collective",
                                    "n_ops")},
         roofline=rl.as_dict())
+    if save_ops is not None:
+        os.makedirs(save_ops, exist_ok=True)
+        with gzip.open(ops_path(save_ops, arch, shape, multi_pod), "wt") as f:
+            for line in op_lines(acc.ops):
+                f.write(line + "\n")
     return cell
 
 
@@ -225,6 +245,8 @@ def _run_all(args) -> int:
                arch, "--shape", shape, "--out", args.out]
         if mp:
             cmd.append("--multi-pod")
+        if args.save_hlo:
+            cmd.append("--save-hlo")
         t0 = time.time()
         r = subprocess.run(cmd, capture_output=True, text=True)
         print(f"[dryrun] {arch} x {shape} x {mesh_name(mp)}: rc "
@@ -270,6 +292,9 @@ def main(argv=None) -> int:
     ap.add_argument("--jobs", type=int, default=1,
                     help="with --all: cells run at once")
     ap.add_argument("--out", default=RESULTS_DIR)
+    ap.add_argument("--save-hlo", action="store_true",
+                    help="also write the cell's op listing (the port has "
+                         "no HLO) to <arch>.<shape>.<mesh>.ops.gz")
     ap.add_argument("--skip-existing", action="store_true")
     args = ap.parse_args(argv)
     if args.all:
@@ -281,7 +306,8 @@ def main(argv=None) -> int:
         logging.ERROR)
     join_fake(512 if args.multi_pod else 256)
     try:
-        cell = run_cell(args.arch, args.shape, multi_pod=args.multi_pod)
+        cell = run_cell(args.arch, args.shape, multi_pod=args.multi_pod,
+                        save_ops=args.out if args.save_hlo else None)
     except Exception as e:
         cell = {"arch": args.arch, "shape": args.shape,
                 "mesh": mesh_name(args.multi_pod), "status": "error",
@@ -293,6 +319,9 @@ def main(argv=None) -> int:
     path = _write(cell, args.out)
     tag = "OK" if cell["status"] == "ok" else cell["status"]
     print(f"[dryrun] {tag} {path}\n  {summary(cell)}")
+    if args.save_hlo and cell["status"] == "ok":
+        print(f"[dryrun] op listing -> "
+              f"{ops_path(args.out, args.arch, args.shape, args.multi_pod)}")
     return 0
 
 

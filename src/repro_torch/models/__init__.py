@@ -61,6 +61,18 @@ def decode_window(params, cfg, tokens, cache, cache_index):
     return _tf.lm_decode_window(params, cfg, tokens, cache, cache_index)
 
 
-__all__ = ["init_params", "forward", "lm_head", "init_cache", "prefill",
+def param_count(params) -> int:
+    """Elements of every leaf of ``params`` (a QuantizedTensor counts its
+    codebook and its codes, as the reference's pytree leaves)."""
+    from repro_torch.core.types import QuantizedTensor
+    from repro_torch.tree import leaves
+
+    return sum(p.codebook.numel() + p.indices.numel()
+               if isinstance(p, QuantizedTensor) else p.numel()
+               for p in leaves(params))
+
+
+__all__ = ["init_params", "param_count", "forward", "lm_head", "init_cache",
+           "prefill",
            "decode_step", "decode_window", "params_from_reference",
            "opt_state_from_reference", "mlp_params_from_reference"]

@@ -1,4 +1,4 @@
-"""RMSNorm (port of ``repro/models/norms.py``).
+"""RMSNorm and LayerNorm (port of ``repro/models/norms.py``).
 
 (1 + w) parameterization with w initialized to zero, as in the reference.
 """
@@ -19,3 +19,14 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, *,
 
 def init_rms(d: int, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.zeros((d,), dtype=dtype, device=device)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in f32 with the (1 + scale) convention; returns x's
+    dtype."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    y = (xf - mu) * (var + eps) ** -0.5
+    return (y * (1.0 + scale.float()) + bias.float()).to(x.dtype)

@@ -14,6 +14,10 @@ engine reports per run and the launcher requires to be 0 on a PTQ'd run.
 
 The reference counts fallbacks while tracing under jit (once per traced
 site); PyTorch runs eagerly, so here the counter counts calls.
+
+``estimate_decode_bytes`` prices a decode step's weight and cache reads
+at the H100's HBM rate (``device.HBM_BYTES_PER_S``); the reference's
+prices them at v5e's.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import math
 
 import torch
 
+from repro_torch.device import HBM_BYTES_PER_S
 from repro_torch.runtime.hints import (gather_data, gather_inner,
                                       gather_inner_grad)
 from repro_torch.core.types import QuantizedTensor
@@ -76,3 +81,15 @@ def _broadcast_stacked(x: torch.Tensor, idx: torch.Tensor,
     out = quant_matmul_stacked(xg, idx, codebook, out_dtype=x.dtype)
     out = out.reshape(G, R, M, N).transpose(0, 1).reshape(*batch, M, N)
     return out if x.dim() > 1 else out.squeeze(-2)
+
+
+def estimate_decode_bytes(params_bytes_dense: int, ratio: float,
+                          cache_bytes: int, *,
+                          hbm_bytes_per_s: float = HBM_BYTES_PER_S) -> dict:
+    """Decode is memory-bound: a step's time is about (weights + cache)
+    bytes over the HBM rate, with the weights ``ratio`` times smaller
+    when quantized. Returns ``t_dense_s``, ``t_quant_s`` and
+    ``speedup``."""
+    dense = (params_bytes_dense + cache_bytes) / hbm_bytes_per_s
+    quant = (params_bytes_dense / ratio + cache_bytes) / hbm_bytes_per_s
+    return {"t_dense_s": dense, "t_quant_s": quant, "speedup": dense / quant}

@@ -6,7 +6,8 @@ frozen ones as codes + codebooks, to decode workers), and overload
 survival (``overload``: host offload of a victim's pages, preempt and
 restore or recompute, SLO-aware admission)."""
 from .engine import ContinuousBatchingEngine, DisaggEngine
-from .kv_cache import (BlockAllocator, DoubleFree, PagedKVCache, PagedKVPool,
+from .kv_cache import (DEVICE_FREEZE_METHODS, BlockAllocator, DoubleFree,
+                       PagedKVCache, PagedKVPool,
                        PoolExhausted, PrefixIndex, dispatch_freeze,
                        freeze_blocks, init_paged_cache, init_paged_layer,
                        install_freeze, page_bytes, paged_layer_from_reference,
@@ -25,7 +26,7 @@ from .workers import DecodeWorker, PrefillWorker, sample_token
 __all__ = [
     "ContinuousBatchingEngine", "DisaggEngine", "DisaggRouter",
     "PagePayload", "extract_pages", "extract_resident_pages",
-    "splice_payload", "BlockAllocator",
+    "splice_payload", "BlockAllocator", "DEVICE_FREEZE_METHODS",
     "DoubleFree",
     "PagedKVCache", "PagedKVPool", "PoolExhausted", "PrefixIndex",
     "dispatch_freeze", "freeze_blocks", "init_paged_cache", "init_paged_layer",

@@ -449,6 +449,11 @@ def with_prefill_fused(views: list[PagedKVCache]) -> list[PagedKVCache]:
 
 # ----------------------------------------------- spec resolution
 
+# the methods that freeze pages on the device, as registered at import
+# (a snapshot, as the reference's)
+DEVICE_FREEZE_METHODS = device_methods()
+
+
 
 def resolve_kv_spec(spec=None, *, method=None, num_values=None) -> QuantSpec:
     """Coerce the engine's ``kv_quant`` argument to a validated QuantSpec:

@@ -77,7 +77,9 @@ _BLOCKED = ("import sys; sys.modules['jax'] = None; "
             "from repro_torch.launch.dryrun import main; "
             "sys.exit(main(sys.argv[1:]))")
 
-CELLS = {"decode_32k.pod2x16x16": ["--shape", "decode_32k", "--multi-pod"],
+# decode_32k also writes its op listing (``--save-hlo``)
+CELLS = {"decode_32k.pod2x16x16": ["--shape", "decode_32k", "--multi-pod",
+                                   "--save-hlo"],
          "train_4k.pod16x16": ["--shape", "train_4k"]}
 
 
@@ -90,7 +92,7 @@ def cells(tmp_path_factory):
         [sys.executable, "-c", _BLOCKED, "--arch", "qwen3_0_6b", "--out",
          str(d), *args], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True) for name, args in CELLS.items()}
-    out = {}
+    out = {"dir": d}
     for name, p in procs.items():
         stdout, stderr = p.communicate(timeout=900)
         path = d / f"qwen3_0_6b.{name}.json"
@@ -164,6 +166,41 @@ def test_shard_shapes_equal_the_reference(reference_shards, arch,
             assert shape == want, (name, path, shape, want)
             seen.add(key)
         assert seen == set(ref), (name, set(ref) ^ seen)
+
+
+def test_save_hlo_writes_the_op_listing_whose_sums_are_the_cells(cells):
+    """``--save-hlo`` (the reference's flag; the port has no HLO) writes
+    one JSON line per counted op beside the cell's JSON: the columns sum
+    to the cell's ``hlo`` totals exactly and the lines are its
+    ``n_ops``. Without the flag no listing is written."""
+    import gzip
+
+    rc, log, cell = cells["decode_32k.pod2x16x16"]
+    assert rc == 0, log
+    path = cells["dir"] / "qwen3_0_6b.decode_32k.pod2x16x16.ops.gz"
+    assert f"op listing -> {path}" in log
+    with gzip.open(path, "rt") as f:
+        rows = [json.loads(line) for line in f]
+    h = cell["hlo"]
+    assert len(rows) == h["n_ops"]
+    for k in ("flops", "flops_f32", "hbm_bytes", "collective_bytes"):
+        assert sum(r[k] for r in rows) == h[k], k
+    kinds = {}
+    for r in rows:
+        assert set(r) == {"op", "operands", "flops", "flops_f32",
+                          "hbm_bytes", "collective", "collective_bytes"}
+        if r["collective"] is None:
+            assert r["collective_bytes"] == 0
+        else:
+            assert "c10d" in r["op"]
+            kinds[r["collective"]] = (kinds.get(r["collective"], 0)
+                                      + r["collective_bytes"])
+    assert kinds == h["per_collective"]
+    assert any(r["op"].startswith("aten::") and r["flops"] for r in rows)
+    assert all(isinstance(o, str) and "[" in o for r in rows
+               for o in r["operands"])
+    assert not (cells["dir"]
+                / "qwen3_0_6b.train_4k.pod16x16.ops.gz").exists()
 
 
 @pytest.mark.parametrize("name", list(CELLS))

@@ -1,8 +1,11 @@
 """The paper's MLP (``models/mlp.py``) and quantization-aware training
-(``quant/qat.py``) against the reference, and the loops of
-``chip_smoke.py``'s phase train (d) (``benchmarks/common.py``'s
-``train_paper_mlp`` and ``examples/train_quantized_mlp.py``'s QAT) against
-the reference's, on the reference's own initial weights.
+(``quant/qat.py``) against the reference, and the port's §4.1 loops
+(``models/mlp.py``'s ``train_paper_mlp`` and ``qat_recover``, which
+``chip_smoke.py``'s phase train (d) and
+``examples/torch_train_quantized_mlp.py`` run) against the reference's
+(``benchmarks/common.py``'s ``train_paper_mlp`` and
+``examples/train_quantized_mlp.py``'s QAT), on the reference's own
+initial weights.
 
 Tolerances (f32): the logits at 1e-5 (atol and rtol; sums of up to 784
 products in another order: one element of 5,120 reads 1.2e-6) and the
@@ -19,11 +22,12 @@ import torch
 
 from benchmarks.common import synthetic_mnist as ref_synthetic_mnist
 from benchmarks.common import train_paper_mlp as ref_train_paper_mlp
-from chip_smoke import (qat_recover, synthetic_mnist, train_paper_mlp)
 from repro.models import mlp as jmlp
 from repro.quant.qat import fake_quant as jax_fake_quant
 from repro.quant.qat import qat_params as jax_qat_params
 from repro_torch.models import mlp, mlp_params_from_reference
+from repro_torch.models.mlp import (qat_recover, synthetic_mnist,
+                                    train_paper_mlp)
 from repro_torch.quant.qat import fake_quant, qat_params
 
 # tiny tensors: one intra-op thread (more make these shapes far slower)
@@ -74,7 +78,7 @@ def test_mlp_forward_loss_accuracy_match_reference(data):
 
 
 def test_init_mlp_is_he_normal_with_zero_biases():
-    p = mlp.init_mlp(torch.Generator().manual_seed(0))
+    p = mlp.init_mlp(torch.Generator().manual_seed(0), device="cpu")
     for layer, a in zip(p, mlp.PAPER_SIZES[:-1]):
         assert layer["w"].dtype == torch.float32
         assert abs(float(layer["w"].std()) / np.sqrt(2.0 / a) - 1) < 0.05

@@ -175,3 +175,44 @@ def test_lm_forward_on_quantized_weights_matches_reference(reduced):
     assert fallback_count() == n0
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL,
                                rtol=RTOL)
+
+
+def test_param_count_matches_reference(reduced):
+    """``models.param_count`` on weights carried over from the reference:
+    the reference's count (its stacked groups hold the same elements as
+    the port's layer list)."""
+    jcfg, jparams, cfg, params = reduced
+    assert models.param_count(params) == jmodels.param_count(jparams)
+
+
+LN_TOL = 1e-6
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layer_norm_matches_reference(dtype):
+    """``models.norms.layer_norm``: f32 statistics, the (1 + scale)
+    convention, x's dtype out; within 1e-6 of the reference's (f32 read
+    4.8e-7 on values of magnitude ~3; bf16 reads 0: both round one f32
+    result)."""
+    import ml_dtypes
+
+    from repro.models.norms import layer_norm as jax_layer_norm
+    from repro_torch.models.norms import layer_norm
+
+    rng = np.random.default_rng(0)
+    x = (rng.normal(size=(4, 7, 96)) * 3 + 0.7).astype(np.float32)
+    scale = (rng.normal(size=96) * 0.1).astype(np.float32)
+    bias = (rng.normal(size=96) * 0.1).astype(np.float32)
+    if dtype == "bfloat16":
+        x, scale, bias = (a.astype(ml_dtypes.bfloat16)
+                          for a in (x, scale, bias))
+    ref = np.asarray(jax_layer_norm(jnp.asarray(x), jnp.asarray(scale),
+                                    jnp.asarray(bias))).astype(np.float32)
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(
+            getattr(torch, dtype))
+
+    got = layer_norm(t(x), t(scale), t(bias))
+    assert got.dtype == getattr(torch, dtype)
+    assert np.abs(got.float().numpy() - ref).max() <= LN_TOL

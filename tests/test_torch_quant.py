@@ -390,3 +390,27 @@ def test_quantize_tree_skips_and_reports_the_reference_leaves(reduced, skip):
     assert q.shape == w.shape and len(torch.unique(q)) == 16
     assert float(((w - q) ** 2).sum()) == pytest.approx(
         report["layers/1/ffn/w_up"]["l2_loss"], rel=1e-6)
+
+
+@pytest.mark.parametrize("cache_bytes", [0, 3_000_000])
+def test_estimate_decode_bytes_prices_at_the_h100s_rate(cache_bytes):
+    """``quant.estimate_decode_bytes``: the reference's numbers at the
+    reference's v5e rate (819e9 B/s) when asked for it, and at the
+    default (the H100's 3.35e12 B/s, ``device.HBM_BYTES_PER_S``) the
+    times scaled by 819e9 / 3.35e12, the speedup unchanged."""
+    from repro.analysis.roofline import HBM_BW
+    from repro.quant import estimate_decode_bytes as jax_estimate
+    from repro_torch.device import HBM_BYTES_PER_S
+    from repro_torch.quant import estimate_decode_bytes
+
+    assert HBM_BW == 819e9 and HBM_BYTES_PER_S == 3.35e12
+    args = (596_049_920 * 2, 7.9, cache_bytes)
+    ref = jax_estimate(*args)
+    at_v5e = estimate_decode_bytes(*args, hbm_bytes_per_s=819e9)
+    assert at_v5e == ref
+    ours = estimate_decode_bytes(*args)
+    assert set(ours) == set(ref) == {"t_dense_s", "t_quant_s", "speedup"}
+    for k in ("t_dense_s", "t_quant_s"):
+        assert ours[k] == pytest.approx(ref[k] * 819e9 / 3.35e12,
+                                        rel=1e-12)
+    assert ours["speedup"] == pytest.approx(ref["speedup"], rel=1e-12)

@@ -37,7 +37,15 @@ Tolerances and why:
 - quantize_pages_fista with its options: each row's MSE within 1e-4
   relative of the reference's on the same rows, the bar of
   tests/test_torch_fista.py's page test.
+- The paper's dense oracles (eq. 9 by lstsq on the materialized V*; eqs.
+  18-20's E and V-hat*): the port's fast ``refit_support`` and
+  ``kmeans_ls_quantize`` on a float64 problem within 1e-9 of the port's
+  oracles (the closed form and lstsq differ by rounding only: ~5e-13
+  read); the port's oracles within 1e-12 of the reference's on the same
+  f32 problem (the same float64 numpy).
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -48,16 +56,23 @@ from hypothesis import strategies as st
 import repro.core as jcore
 from repro.core import registry as jax_registry
 from repro.core.iterative import tv_iterative as jax_tv_iterative
+from repro.core.kmeans_ls import (
+    kmeans_ls_dense_reference as jax_kmeans_ls_oracle)
 from repro.core.l0 import l0_quantize as jax_l0_quantize
 from repro.core.l0 import l0_solve as jax_l0_solve
+from repro.core.refit import (
+    refit_support_dense_reference as jax_refit_oracle)
 from repro.kernels import quantize_pages_fista as jax_pages_fista
 from repro.kernels import solve_fista_batch as jax_solve_fista_batch
 from repro_torch import core
 from repro_torch.core import (ALL_METHODS, COUNT_METHODS, LAM_METHODS,
-                              QuantSpec, cd_solve, l0_quantize, l0_solve,
+                              QuantSpec, cd_solve, kmeans_ls_dense_reference,
+                              kmeans_ls_quantize, l0_quantize, l0_solve,
                               make_problem, objective, optimal_kmeans_1d,
-                              quantize, registry, tv1d_weighted,
-                              tv_iterative, tv_solve_problem)
+                              quantize, refit_support,
+                              refit_support_dense_reference, registry,
+                              support_of, tv1d_weighted, tv_iterative,
+                              tv_solve_problem)
 from repro_torch.kernels import quantize_pages_fista, solve_fista_batch
 
 # tiny tensors: one intra-op thread (more make these shapes far slower)
@@ -477,3 +492,51 @@ def test_quantize_pages_fista_options_match_reference(opts):
         base = _row_mse(rows, *quantize_pages_fista(
             T(rows), num_values=16, **dict(opts, lloyd_rounds=0)))
         assert np.all(err <= base * (1 + 1e-6))
+
+
+# ------------------------------------------------------------ the dense oracles
+
+ORACLE_TOL = 1e-9
+ORACLE_REF_TOL = 1e-12
+
+
+def _f64(problem):
+    """The same problem held in float64 (the fast paths then solve in
+    float64)."""
+    return dataclasses.replace(problem, **{
+        f.name: getattr(problem, f.name).double()
+        for f in dataclasses.fields(problem)})
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("seed", [6, 7])
+def test_refit_support_is_the_eq9_oracle(seed, weighted):
+    """tests/test_core_quant.py:90, ported at float64: the closed-form
+    refit on an l1 support against eq. 9 solved by lstsq."""
+    jprob, prob = _problems(seed, weighted=weighted)
+    alpha, _ = cd_solve(prob, 0.05)
+    sup = support_of(alpha)
+    assert 1 < int(sup.sum()) < prob.m
+    w_star, alpha_star = refit_support(_f64(prob), sup)
+    assert w_star.dtype == alpha_star.dtype == torch.float64
+    oracle = refit_support_dense_reference(_f64(prob), sup)
+    assert np.abs(w_star.numpy() - oracle).max() <= ORACLE_TOL
+    ours = refit_support_dense_reference(prob, sup)
+    ref = jax_refit_oracle(jprob, sup.numpy())
+    assert np.abs(ours - ref).max() <= ORACLE_REF_TOL
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("l", [4, 7])
+def test_kmeans_ls_is_the_eq18_20_oracle(l, weighted):
+    """tests/test_core_quant.py:110, ported at float64: Algorithm 3's
+    segment means against E and V-hat* materialized and solved by
+    lstsq, on the assignment k-means chose."""
+    jprob, prob = _problems(8, weighted=weighted)
+    w_star, _, idx, _ = kmeans_ls_quantize(_f64(prob), l)
+    assert w_star.dtype == torch.float64 and int(idx.max()) + 1 == l
+    oracle = kmeans_ls_dense_reference(_f64(prob), idx)
+    assert np.abs(w_star.numpy() - oracle).max() <= ORACLE_TOL
+    ours = kmeans_ls_dense_reference(prob, idx)
+    ref = jax_kmeans_ls_oracle(jprob, idx.numpy())
+    assert np.abs(ours - ref).max() <= ORACLE_REF_TOL
